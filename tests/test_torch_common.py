@@ -1,0 +1,127 @@
+"""Shared helpers for the PyTorch port's parity tests (holds no tests).
+
+Every parity test feeds the same numpy inputs, made from a fixed seed, to a
+function of the JAX reference (``repro``) and to its counterpart in the port
+(``repro_torch``), and compares values and VJPs (``jax.vjp`` against
+``torch.autograd.grad``).
+
+Tolerances: the reference's own cross-backend contract,
+|a - b| <= 1e-5 * (1 + max|input|) (``CONTRACT``).  float64 runs must agree
+far tighter (``CONTRACT_F64``), which also shows the port keeps f64 in f64.
+bf16 results are held at bf16 precision (``CONTRACT_BF16``: 8 bits of
+mantissa, so a few units of 2^-8 relative to the output's scale).
+
+Reference calls are jitted (an eager reference VJP recompiles every
+primitive per shape and costs seconds) and run with
+``REPRO_PROJECTION=composed``: the reference's fused path calls
+``jax.experimental.enable_x64``, which the installed JAX no longer has.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+CONTRACT = 1e-5
+CONTRACT_F64 = 1e-10
+CONTRACT_BF16 = 5e-2
+
+
+@pytest.fixture
+def composed_ref(monkeypatch):
+  """Route the reference's projections through its composed path, and its
+  isotonic solves that take no ``impl=`` (the losses) through minimax,
+  the backend whose jitted VJP compiles fastest."""
+  monkeypatch.setenv("REPRO_PROJECTION", "composed")
+  monkeypatch.setenv("REPRO_BACKEND", "minimax")
+  monkeypatch.delenv("REPRO_TORCH_BACKEND", raising=False)
+  monkeypatch.delenv("REPRO_TORCH_PROJECTION", raising=False)
+
+
+@pytest.fixture
+def cuda_device():
+  """The first CUDA device; skips where there is none."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device (the kernels run only on the card)")
+  return torch.device("cuda", 0)
+
+
+def rows_with_ties(rng, rows: int, n: int) -> np.ndarray:
+  """A (rows, n) batch: random rows, a row of ties, a constant row."""
+  x = rng.normal(size=(rows, n))
+  if rows > 1:
+    x[1] = np.round(x[1] * 2) / 2
+  if rows > 2:
+    x[2] = 0.75
+  return x
+
+
+def sorted_desc(x: np.ndarray) -> np.ndarray:
+  return np.ascontiguousarray(np.sort(x, axis=-1)[..., ::-1])
+
+
+def as_torch(x, dtype=torch.float32, grad: bool = False) -> torch.Tensor:
+  return torch.tensor(np.asarray(x), dtype=dtype, requires_grad=grad)
+
+
+def as_np(x) -> np.ndarray:
+  if isinstance(x, torch.Tensor):
+    return x.detach().to(torch.float64).numpy()
+  return np.asarray(x, np.float64)
+
+
+def assert_close(got, want, *inputs, contract: float = CONTRACT) -> None:
+  """|got - want| <= contract * (1 + max|input|), elementwise."""
+  got, want = as_np(got), as_np(want)
+  assert got.shape == want.shape, (got.shape, want.shape)
+  scale = max([float(np.max(np.abs(as_np(x)), initial=0.0))
+               for x in inputs] + [0.0])
+  np.testing.assert_allclose(got, want, rtol=0,
+                             atol=contract * (1.0 + scale))
+
+
+def jax_vjp(fn, args, cot, dtype=np.float32):
+  """Jitted reference: (output, grads of every arg) for cotangent ``cot``."""
+
+  def run(*a):
+    out, pullback = jax.vjp(fn, *a)
+    return out, pullback(jnp.asarray(cot, out.dtype))
+
+  out, grads = jax.jit(run)(*[jnp.asarray(a, dtype) for a in args])
+  return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def torch_vjp(fn, args, cot, dtype=torch.float32):
+  """Port: (output, grads of every arg) for cotangent ``cot``."""
+  xs = [as_torch(a, dtype, grad=True) for a in args]
+  out = fn(*xs)
+  grads = torch.autograd.grad(out, xs, as_torch(cot, out.dtype))
+  return out, grads
+
+
+def assert_vjp_parity(jax_fn, torch_fns, args, cot, *, f64: bool = False):
+  """Values and VJPs of the reference function and of each port function
+  (one, or a sequence sharing one reference call) agree within the
+  contract; gradients are scaled by the cotangent too.  Returns the last
+  port function's (output, grads)."""
+  if callable(torch_fns):
+    torch_fns = (torch_fns,)
+  dtype, contract = ((torch.float64, CONTRACT_F64) if f64
+                     else (torch.float32, CONTRACT))
+  if f64:
+    with jax.enable_x64(True):
+      want, want_g = jax_vjp(jax_fn, args, cot, np.float64)
+  else:
+    want, want_g = jax_vjp(jax_fn, args, cot)
+  for fn in torch_fns:
+    got, got_g = torch_vjp(fn, args, cot, dtype)
+    assert got.dtype == dtype
+    assert_close(got, want, *args, contract=contract)
+    for g, wg in zip(got_g, want_g):
+      assert_close(g, wg, *args, cot, contract=contract)
+  return got, got_g
