@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py
 
 Run from a checkout on a machine with an NVIDIA H100 (sm_90a) and the CUDA
-toolkit.  Phases, each printing its own lines; any failure raises and the
-script exits non-zero:
+toolkit.  Two paths run on the card: the operator chain (soft rank / sort
+and the losses, on the PAV kernels) and the LM server of
+deepseek-v2-lite-16b at full width and depth (on the soft top-k router and
+flash-attention kernels).  Phases, each printing its own lines; any
+failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit.
-2. build    build ``src/repro_torch/kernels/csrc/*.cu`` with nvcc.
+2. build    build ``src/repro_torch/kernels/csrc/*.cu`` with nvcc, one
+            process per source, in parallel.
 3. kernels  hold ``pav_l2`` / ``pav_kl`` against their plain versions on
             the card at (128, 1000) and (128, 2048), on random inputs,
             inputs with ties and constant rows, and a soft-rank dynamic
@@ -16,6 +20,12 @@ script exits non-zero:
             (1, 2**20) the plain version runs on a CPU copy, in worker
             processes while phase 4 runs, on random rows and on the main
             path's own solver inputs; the comparisons close phase 4.
+            Hold ``soft_topk_gates`` (at (4096, 64) and (8, 64), k = 6, on
+            random logits, ties and constant rows, at E = 100, and at
+            eps = 0.3, not a power of two) and ``flash_attention`` (the
+            prefill shape, a GQA shape and a ragged S, by the kernel's
+            error model ``compare_with_plain``) against their plain
+            versions on the card.
 4. main     fwd+bwd of soft_rank / soft_sort (l2, kl) and
             soft_spearman_loss at (128, 1000) and (128, 10000) (eps 0.1),
             and soft_trimmed_token_loss on 2**20 token losses (trim 0.1,
@@ -24,9 +34,24 @@ script exits non-zero:
             (128, 1000) values and gradients are held against the port on
             the CPU (plain backends), and z = -theta/eps is compared
             across the two devices.
+   serve    ``repro_torch.launch.serve`` on deepseek-v2-lite-16b: random
+            bf16 weights from seed 0, 8 prompts of 512 tokens from the
+            port's TokenPipeline, prefill and 31 greedy decode steps.  Each
+            prefill launches flash_attention and soft_topk_gates once per
+            layer (27), each decode step soft_topk_gates 27 times, and no
+            PAV kernel runs.  Logits are finite and every gate row sums to
+            k.  Each kernel is held against its plain version on the inputs
+            it got in every layer of that prefill; a second prefill on the
+            plain versions counts the routing decisions that differ.
 5. times    CUDA-event medians per kernel (on the main path's solver
             inputs and on random rows), plain version, operator fwd and
-            fwd+bwd, and torch.sort at the same shape as a yardstick.
+            fwd+bwd, and torch.sort at the same shape as a yardstick; the
+            serving kernels at the path's shapes (CUDA events, and each
+            kernel's own device time from torch.profiler) beside their
+            plain versions and, for attention,
+            scaled_dot_product_attention as the library yardstick;
+            prefill ms and decode tokens/s; one profiled prefill and
+            decode step (device busy and idle share, top kernels).
 6. summary  one ``{"kernels": [...]}`` line, then the device line last.
 
 Inputs come from numpy with a fixed seed.  Imports nothing of JAX or of the
@@ -36,6 +61,7 @@ JAX package.
 from __future__ import annotations
 
 import json
+import math
 import multiprocessing
 import statistics
 import subprocess
@@ -70,8 +96,18 @@ F32_OPS_PER_S = 67e12
 OPS = {"pav_l2": (3, 5, 2), "pav_kl": (2, 14, 1)}
 BYTES_PER_ELEM = {"pav_l2": 8, "pav_kl": 12}
 REPLACES = {"pav_l2": "src/repro/kernels/pav.py:196",
-            "pav_kl": "src/repro/kernels/pav.py:213"}
-SOURCE = "src/repro_torch/kernels/csrc/pav.cu"
+            "pav_kl": "src/repro/kernels/pav.py:213",
+            "soft_topk_gates": "src/repro/kernels/soft_topk.py:109",
+            "flash_attention": "src/repro/kernels/flash_attention.py:83"}
+SOURCES = {"pav_l2": "src/repro_torch/kernels/csrc/pav.cu",
+           "pav_kl": "src/repro_torch/kernels/csrc/pav.cu",
+           "soft_topk_gates": "src/repro_torch/kernels/csrc/soft_topk.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+# The LM serving path: full config, 8 prompts of 512 tokens, 32 tokens out.
+ARCH = "deepseek-v2-lite-16b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
+BF16_OPS_PER_S = 989e12   # H100 SXM tensor cores, dense bf16
 OPERATORS = ("soft_rank_l2", "soft_rank_kl", "soft_sort_l2", "soft_sort_kl",
              "soft_spearman_loss")
 
@@ -266,6 +302,379 @@ def main_path(rt, pav, dev, theta_np, target_np, cot_np, tokens_np):
   return launches
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path (deepseek-v2-lite-16b) and its kernels.
+# ---------------------------------------------------------------------------
+
+
+def gates_inputs(rng, rows: int, e: int, kind: str) -> np.ndarray:
+  """Router logits: N(0, 1), ties on a grid of 0.5, or constant rows."""
+  x = rng.normal(size=(rows, e))
+  if kind == "ties":
+    x = np.round(x * 2) / 2
+  elif kind == "constant":
+    x[:] = 0.75
+  return x
+
+
+def attn_close(out: torch.Tensor, q, k, v, causal: bool, fa) -> dict:
+  """The kernel's output against the plain version in f32 on the same
+  bf16 inputs, by its error model (``fa.compare_with_plain``): every
+  element within 2 * 2**-8 * (|ref| + A), A the attention over |v|
+  (tol_ratio <= 1), and ||out - ref||_F <= REL_FROB_LIMIT * ||ref||_F."""
+  cmp = fa.compare_with_plain(out, q, k, v, causal)
+  check(cmp["finite"], "attention: non-finite output")
+  check(cmp["tol_ratio"] <= 1.0 and cmp["rel_frob"] <= fa.REL_FROB_LIMIT,
+        f"attention: {attn_text(cmp, fa)}")
+  return cmp
+
+
+def attn_text(cmp: dict, fa) -> str:
+  return (f"max |kernel - plain in f32| {cmp['max_abs_err']:.3e}, worst "
+          f"|err| / tol {cmp['tol_ratio']:.3f} (limit 1; tol = 2**-7 * (|ref|"
+          f" + A)), relative Frobenius error {cmp['rel_frob']:.3e} (limit "
+          f"{fa.REL_FROB_LIMIT:.3e}), median |ref| {cmp['median_ref']:.3e}")
+
+
+def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
+  """Phase 3, serving kernels: each against its plain version on the card."""
+  for rows, e, kind, eps in ((4096, 64, "random", 1.0),
+                             (4096, 64, "ties", 1.0),
+                             (4096, 64, "constant", 1.0),
+                             (8, 64, "random", 1.0), (8, 64, "ties", 1.0),
+                             (333, 100, "random", 1.0),
+                             (4096, 64, "random", 0.3),
+                             (8, 64, "ties", 0.3)):
+    x = to_dev(gates_inputs(rng, rows, e, kind), dev)
+    out = st.soft_topk_gates(x, 6, eps)
+    plain = st.soft_topk_gates_plain(x, 6, eps)
+    err = record("soft_topk_gates", out, plain)
+    sums = float((out.sum(-1) - 6).abs().max())
+    check(sums <= 1e-4, f"gates row sums off k by {sums:.3e}")
+    say(f"kernels: soft_topk_gates ({rows}, {e}) k 6 eps {eps} {kind}: max "
+        f"|kernel - plain| {err:.3e} (tol 1e-5 * (1 + max|plain|)), "
+        f"{int((out != plain).sum())} of {out.numel()} elements not bit "
+        f"for bit; row sums within {sums:.1e} of k")
+  for b, s, h, hkv, causal in ((SERVE_BATCH, SERVE_PROMPT, 16, 16, True),
+                               (2, 512, 16, 4, True), (3, 333, 16, 16, True),
+                               (2, 200, 16, 4, False)):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q, k = (torch.randn((b, s, n, 192), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for n in (h, hkv))
+    v = torch.randn((b, s, hkv, 128), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    cmp = attn_close(fa.flash_attention(q, k, v, causal), q, k, v, causal,
+                     fa)
+    max_err["flash_attention"] = max(max_err["flash_attention"],
+                                     cmp["max_abs_err"])
+    say(f"kernels: flash_attention q ({b}, {s}, {h}, 192) kv heads {hkv} "
+        f"causal {causal}: {attn_text(cmp, fa)}")
+
+
+class Recorder:
+  """Wraps the kernel wrappers the models call (module attributes of
+  ``soft_topk`` and ``flash_attention``) to keep each call's inputs and
+  output; ``plain=True`` routes the calls to the plain versions instead."""
+
+  def __init__(self, st, fa, plain: bool = False):
+    self.st, self.fa, self.plain = st, fa, plain
+    self.gates: list[tuple] = []    # (logits, k, eps, gates)
+    self.attn: list[tuple] = []     # (q, k, v, causal, out)
+
+  def __enter__(self):
+    self._orig = (self.st.soft_topk_gates, self.fa.flash_attention)
+    gates_fn = self.st.soft_topk_gates_plain if self.plain else self._orig[0]
+    plain_fa = self.fa.flash_attention_plain
+
+    def gates(logits, k, eps=1.0):
+      out = gates_fn(logits, k, eps)
+      self.gates.append((logits, k, eps, out))
+      return out
+
+    def attn(q, k, v, causal=True, **opts):
+      out = (plain_fa(q, k, v, causal=causal, **opts) if self.plain
+             else self._orig[1](q, k, v, causal, **opts))
+      self.attn.append((q, k, v, causal, out))
+      return out
+
+    self.st.soft_topk_gates, self.fa.flash_attention = gates, attn
+    return self
+
+  def __exit__(self, *exc):
+    self.st.soft_topk_gates, self.fa.flash_attention = self._orig
+
+
+def routed_experts(logits: torch.Tensor, gates: torch.Tensor,
+                   k: int) -> torch.Tensor:
+  """The k experts each token is sent to first (the dispatch's rounds of
+  argmax over gates * softmax(logits), before capacity), as a 0/1 mask."""
+  w = gates * torch.softmax(logits, dim=-1)
+  top = torch.topk(w, k, dim=-1).indices
+  return torch.zeros_like(w, dtype=torch.bool).scatter_(-1, top, True)
+
+
+def serve_path(dev, serve, ops, st, fa):
+  """The serving path once with every counter from 0, then its checks.
+
+  Returns (serve result, launches, kernel-path recorder, the worst error
+  per kernel on the captured inputs)."""
+  args = serve.parser().parse_args(
+      ["--arch", ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+       str(SERVE_PROMPT), "--gen", str(SERVE_GEN)])
+  from repro_torch.configs.base import get_config
+  from repro_torch.models import transformer as T
+
+  t0 = time.perf_counter()
+  torch.cuda.reset_peak_memory_stats(dev)
+  model = T.init_params(get_config(ARCH), args.seed, dev)
+  torch.cuda.synchronize()
+  say(f"serve: {ARCH} initialised on the card in "
+      f"{time.perf_counter() - t0:.1f} s")
+
+  ops.reset_all_launches()
+  with Recorder(st, fa) as rec:
+    res = serve.run_lm(args, model=model)
+  torch.cuda.synchronize()
+  launches = ops.all_launches()
+  cfg = res["cfg"]
+  n_layers, k = cfg.num_layers, cfg.experts_per_token
+  steps = SERVE_GEN - 1
+  say(f"serve: launches {launches} for 1 prefill and {steps} decode steps"
+      f" of {n_layers} layers")
+  n_prefill_gates = sum(1 for g in rec.gates if g[0].shape[0] ==
+                        SERVE_BATCH * SERVE_PROMPT)
+  check(launches["flash_attention"] == n_layers == len(rec.attn),
+        f"flash_attention: {launches['flash_attention']} launches, "
+        f"{n_layers} layers")
+  check(launches["soft_topk_gates"] == n_layers * (1 + steps)
+        == len(rec.gates) and n_prefill_gates == n_layers,
+        f"soft_topk_gates: {launches['soft_topk_gates']} launches for "
+        f"{n_layers} x {1 + steps} calls")
+  check(launches["pav_l2"] == launches["pav_kl"] == 0,
+        "a PAV kernel ran on the serving path")
+  params = T.count_params(res["model"])
+  check(abs(params - 16.21e9) < 0.01e9, f"{params} parameters")
+  for name in ("prefill_logits", "logits"):
+    logits = res[name]
+    check(tuple(logits.shape) == (SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{name}: not finite")
+  sums = max(float((g[3].sum(-1) - k).abs().max()) for g in rec.gates)
+  check(sums <= 1e-4, f"gate row sums off k by {sums:.3e}")
+  say(f"serve: {params:,} parameters; logits finite; every gate row sums "
+      f"to k within {sums:.1e}; peak memory "
+      f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+  # Each kernel against its plain version on the inputs of every layer.
+  worst = {"soft_topk_gates": 0.0, "flash_attention": 0.0}
+  for logits, kk, eps, out in rec.gates[:n_layers]:
+    worst["soft_topk_gates"] = max(
+        worst["soft_topk_gates"],
+        close(out, st.soft_topk_gates_plain(logits, kk, eps)))
+  worst_bf16 = 0.0
+  worst_attn = {"max_abs_err": 0.0, "tol_ratio": 0.0, "rel_frob": 0.0,
+                "median_ref": math.inf}
+  for q, kx, v, causal, out in rec.attn:
+    cmp = attn_close(out, q, kx, v, causal, fa)
+    for key in ("max_abs_err", "tol_ratio", "rel_frob"):
+      worst_attn[key] = max(worst_attn[key], cmp[key])
+    worst_attn["median_ref"] = min(worst_attn["median_ref"],
+                                   cmp["median_ref"])
+    plain16 = fa.flash_attention_plain(q, kx, v, causal=causal)
+    worst_bf16 = max(worst_bf16, float((out.float() - plain16.float())
+                                       .abs().max()))
+  worst["flash_attention"] = worst_attn["max_abs_err"]
+  say(f"serve: on the captured inputs of all {n_layers} layers: "
+      f"soft_topk_gates max |kernel - plain| {worst['soft_topk_gates']:.3e}"
+      f" (tol 1e-5 * (1 + max|plain|)); flash_attention, worst layer by "
+      f"each measure (median |ref|: the smallest layer's), "
+      f"{attn_text(worst_attn, fa)}; max |kernel - plain in bf16| "
+      f"{worst_bf16:.3e} (the reference's rounding, no tolerance)")
+
+  # The same prefill on the plain versions: routing decisions that differ.
+  with Recorder(st, fa, plain=True) as plain_rec:
+    plain_res = serve.generate(cfg, model, res["prompts"], 1)
+  check(len(plain_rec.gates) == len(plain_rec.attn) == n_layers,
+        "the plain prefill did not pass every layer")
+  per_layer, tokens_differ = [], 0
+  for a, b in zip(rec.gates[:n_layers], plain_rec.gates):
+    ra, rb = routed_experts(a[0], a[3], k), routed_experts(b[0], b[3], k)
+    per_layer.append(int((ra & ~rb).sum()))
+    tokens_differ += int((ra != rb).any(-1).sum())
+  differ = sum(per_layer)
+  decisions = n_layers * SERVE_BATCH * SERVE_PROMPT * k
+  dl = (res["prefill_logits"] - plain_res["prefill_logits"]).abs().max()
+  agree = int((res["tokens"][:, 0] == plain_res["tokens"][:, 0]).sum())
+  say(f"serve: kernel-path vs plain-path prefill: {differ} of {decisions} "
+      f"routing decisions differ ({tokens_differ} token-layers); by layer "
+      f"{per_layer}; last-position logits differ by at most "
+      f"{float(dl):.3e}; first greedy token agrees in {agree} of "
+      f"{SERVE_BATCH} rows")
+  return res, launches, rec, worst
+
+
+def gates_bound(logits: torch.Tensor, k: int, st, pav) -> tuple[float, str]:
+  """Least time for the gates on these logits: bytes (logits in, gates
+  out, f32) against operations (the bitonic network's compare-exchanges,
+  the division by eps, and the PAV steps these rows need: 3 ops a push, 5
+  a merge, 2 a block to expand, 1 a gate), at the f32 rate."""
+  rows, e = logits.shape
+  e_pad = st._next_pow2(max(e, 2))
+  stages = int(math.log2(e_pad)) * (int(math.log2(e_pad)) + 1) // 2
+  z = logits.float()
+  s = torch.sort(z, dim=-1, descending=True).values
+  w = torch.zeros((e,), device=z.device)
+  w[:k] = 1
+  v = pav.pav_l2_stack(s - w)
+  blocks = rows + int((v[:, 1:] != v[:, :-1]).sum())
+  n_ops = (rows * (e_pad // 2) * stages + rows * e + rows * e * 3
+           + (rows * e - blocks) * 5 + blocks * 2 + rows * e)
+  bytes_ms = rows * e * 8 / HBM_BYTES_PER_S * 1e3
+  ops_ms = n_ops / F32_OPS_PER_S * 1e3
+  return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def attn_bound(q, k, v, causal: bool) -> tuple[float, str]:
+  """Least time for attention: bytes (q, k, v read once, out written once)
+  against the tensor-core products (QK^T and PV over the unmasked pairs)
+  plus the softmax (5 f32 ops a score) at the f32 rate."""
+  b, sq, h, d = q.shape
+  skv, dv = k.shape[1], v.shape[-1]
+  pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv)
+  n_bytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * 2
+  flops = 2 * b * h * pairs * (d + dv)
+  bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+  ops_ms = (flops / BF16_OPS_PER_S + 5 * b * h * pairs / F32_OPS_PER_S) * 1e3
+  return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def profile(fn) -> tuple[float, float, list[tuple[str, float]]]:
+  """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
+  the five kernels with the most device time and their ms).  Busy time
+  is the sum of the kernels' own device times (one stream: they do not
+  overlap)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as torch_profile
+
+  torch.cuda.synchronize()
+  with torch_profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+  busy = sum(e.self_device_time_total for e in kernels) / 1e3
+  top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+  return wall, busy, [(e.key[:60], e.self_device_time_total / 1e3)
+                      for e in top]
+
+
+def kernel_device_ms(fn, name: str, calls: int = 20) -> float:
+  """Device time per launch of the CUDA kernel whose name contains
+  ``name``, from torch.profiler over ``calls`` calls of ``fn``: the
+  kernel's own time, whatever the host spends around it."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as torch_profile
+
+  fn()
+  torch.cuda.synchronize()
+  with torch_profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  total = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key)
+  return total / 1e3 / calls
+
+
+def serve_times(res, rec, serve, st, fa, pav, name_limit):
+  """Phase 5, serving: kernel, plain and library times at the path's own
+  shapes, and the server's prefill ms and decode rate on a second run."""
+  rows = {}
+  lines = []
+  cfg = res["cfg"]
+  k = cfg.experts_per_token
+  prefill_logits = rec.gates[0][0]
+  decode_logits = rec.gates[-1][0]
+  for logits in (prefill_logits, decode_logits):
+    ms = median_ms(lambda: st.soft_topk_gates(logits, k, cfg.router_eps), 20)
+    dev_ms = kernel_device_ms(
+        lambda: st.soft_topk_gates(logits, k, cfg.router_eps),
+        "soft_topk_kernel")
+    plain_ms = median_ms(
+        lambda: st.soft_topk_gates_plain(logits, k, cfg.router_eps), 3)
+    bound_ms, bound_by = gates_bound(logits, k, st, pav)
+    shape = tuple(logits.shape)
+    if logits is prefill_logits:
+      rows["soft_topk_gates"] = {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": None, "shape": list(shape)}
+    lines.append(f"times: soft_topk_gates {shape} k {k}: kernel {ms:.4f} ms"
+                 f" (device {dev_ms:.4f} ms a launch, profiler), plain "
+                 f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
+                 f"[{name_limit}]")
+  q, kx, v, causal, _ = rec.attn[0]
+  ms = median_ms(lambda: fa.flash_attention(q, kx, v, causal), 20)
+  dev_ms = kernel_device_ms(lambda: fa.flash_attention(q, kx, v, causal),
+                            "flash_kernel")
+  plain_ms = median_ms(lambda: fa.flash_attention_plain(q, kx, v,
+                                                        causal=causal), 5)
+  qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, v))
+  lib_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+      qt, kt, vt, is_causal=causal), 20)
+  bound_ms, bound_by = attn_bound(q, kx, v, causal)
+  rows["flash_attention"] = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": lib_ms, "shape": list(q.shape)}
+  lines.append(f"times: flash_attention q {tuple(q.shape)} v "
+               f"{tuple(v.shape)} causal: kernel {ms:.4f} ms (device "
+               f"{dev_ms:.4f} ms a launch, profiler), plain "
+               f"{plain_ms:.4f} ms, scaled_dot_product_attention "
+               f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
+               f"[{name_limit}]")
+  prefill, decode, same = [], [], 0
+  for _ in range(3):
+    again = serve.generate(cfg, res["model"], res["prompts"], SERVE_GEN)
+    same += int(torch.equal(again["tokens"], res["tokens"]))
+    prefill.append(again["prefill_s"] * 1e3)
+    decode.append((SERVE_GEN - 1) * SERVE_BATCH / again["decode_s"])
+  lines.append(f"times: serve: {same} of 3 timed runs generated the first "
+               "run's tokens")
+  from repro_torch.launch import steps
+
+  prompts, model = res["prompts"], res["model"]
+  s = prompts.shape[1]
+  state = {}
+
+  def prefill_once():
+    with torch.inference_mode():
+      state["logits"], state["caches"] = steps.make_prefill_step(
+          cfg, s + 2)(model, {"tokens": prompts})
+
+  def decode_once():
+    with torch.inference_mode():
+      steps.make_decode_step(cfg)(model, state["caches"],
+                                  serve.greedy(state["logits"]), s)
+
+  for name, fn in (("prefill", prefill_once), ("decode step", decode_once)):
+    wall, busy, top = profile(fn)
+    kernels = "; ".join(f"{key} {ms:.2f}" for key, ms in top)
+    lines.append(f"times: profile of one serve {name}: wall {wall:.2f} ms, "
+                 f"device busy {busy:.2f} ms ({100 * (1 - busy / wall):.0f}%"
+                 f" idle); most device time (ms): {kernels} [{name_limit}]")
+  lines.append(f"times: serve {ARCH} prefill {SERVE_BATCH}x{SERVE_PROMPT} "
+               f"{statistics.median(prefill):.2f} ms (runs "
+               f"{', '.join(f'{t:.2f}' for t in prefill)}), decode "
+               f"{statistics.median(decode):.1f} tok/s at batch {SERVE_BATCH}"
+               f" (runs {', '.join(f'{t:.1f}' for t in decode)}) "
+               f"[{name_limit}]")
+  return rows, lines
+
+
 def main() -> int:
   # 1. device ---------------------------------------------------------------
   if not torch.cuda.is_available():
@@ -273,10 +682,16 @@ def main() -> int:
     return 2
   sys.path.insert(0, str(ROOT / "src"))
   import repro_torch as rt
-  from repro_torch.kernels import _build, pav, segment_vjp
+  from repro_torch.kernels import _build, ops as kops, pav, segment_vjp
+  from repro_torch.kernels import flash_attention as fa
+  from repro_torch.kernels import soft_topk as st
+  from repro_torch.launch import serve
 
   dev = torch.device("cuda", 0)
   torch.cuda.set_device(dev)
+  # f32 products in full f32 (the default, stated): the router logits and
+  # the f32 comparisons below.
+  torch.backends.cuda.matmul.allow_tf32 = False
   name_limit = card()
   say(name_limit)
   say(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
@@ -300,7 +715,8 @@ def main() -> int:
       for shape in SHAPES}
   cot_np = {shape: rng.normal(size=shape) for shape in SHAPES}
   tokens_np = rng.gamma(2.0, 1.25, size=(8, TOKENS // 8))  # per-token CE
-  max_err = {"pav_l2": 0.0, "pav_kl": 0.0}
+  max_err = {"pav_l2": 0.0, "pav_kl": 0.0, "soft_topk_gates": 0.0,
+             "flash_attention": 0.0}
 
   def record(kname, out, ref):
     err = close(out, ref)
@@ -317,6 +733,8 @@ def main() -> int:
         errs.append(record(kname, out, getattr(pav, f"{kname}_stack")(*args)))
       say(f"kernels: ({rows}, {n}) {kind}: max |kernel - plain| on the card"
           f" l2 {errs[0]:.3e} kl {errs[1]:.3e} (tol 1e-5 * (1 + max|plain|))")
+
+  serve_kernel_checks(rng, dev, st, fa, record, max_err)
 
   # At (128, 10000) and (1, 2**20) the plain version takes tens of seconds
   # per call: it runs on a CPU copy in worker processes (spawned, so they
@@ -346,6 +764,11 @@ def main() -> int:
     # 4. main path ------------------------------------------------------------
     launches = main_path(rt, pav, dev, theta_np, target_np, cot_np,
                          tokens_np)
+    # The serving path runs on the card while the CPU workers finish.
+    serve_res, serve_launches, serve_rec, serve_err = serve_path(
+        dev, serve, kops, st, fa)
+    for kname, err in serve_err.items():
+      max_err[kname] = max(max_err[kname], err)
 
     t0 = time.perf_counter()
     for (kname, kind, shape, out, _), future in zip(jobs, futures):
@@ -429,7 +852,9 @@ def main() -> int:
   both = median_ms(lambda: torch.autograd.grad(op(xt, None), xt), 5)
   lines.append(f"times: soft_trimmed_token_loss ({TOKENS},) fwd {fwd:.4f} ms,"
                f" fwd+bwd {both:.4f} ms [{name_limit}]")
-  for line in lines:
+  serve_rows, serve_lines = serve_times(serve_res, serve_rec, serve, st, fa,
+                                        pav, name_limit)
+  for line in lines + serve_lines:
     say(line)
 
   # 6. summary -------------------------------------------------------------
@@ -437,12 +862,17 @@ def main() -> int:
   for kname in ("pav_l2", "pav_kl"):
     row = kernel_rows[(kname, HEADLINE)]
     kernels.append({
-        "name": kname, "route": "cuda", "source": SOURCE,
+        "name": kname, "route": "cuda", "source": SOURCES[kname],
         "replaces": REPLACES[kname], "launches": launches[kname],
         "max_abs_err": max_err[kname], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": list(HEADLINE)})
+  for kname, row in serve_rows.items():
+    kernels.append({
+        "name": kname, "route": "cuda", "source": SOURCES[kname],
+        "replaces": REPLACES[kname], "launches": serve_launches[kname],
+        "max_abs_err": max_err[kname], **row})
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,9 @@ the kernels), used by tests as ground truth and registered as the
 * ``pav_l2_ref`` / ``pav_kl_ref``: the minimax characterization of isotonic
   regression,  v_i = min_{j<=i} max_{k>=i} gamma(y[j..k]),  vectorized as an
   O(n^2) interval-aggregate matrix.  Exact (same minimizer as PAV).
+* ``soft_topk_gates_ref``: the router gate (projection of logits/eps onto
+  the k-subset permutahedron) composed from ``pav_l2_ref``; the oracle of
+  the ``soft_topk_gates`` kernel.
 
 Counterpart of ``repro.kernels.ref``.
 """
@@ -86,3 +89,18 @@ def pav_kl_ref(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _pairwise_scan(g, torch.logaddexp)
 
   return _minimax(interval_lse(s) - interval_lse(w))
+
+
+def soft_topk_gates_ref(logits: torch.Tensor, k: int,
+                        regularization_strength: float = 1.0
+                        ) -> torch.Tensor:
+  """Oracle for the fused router kernel: projection of logits/eps onto the
+  k-subset permutahedron, composed from ``pav_l2_ref``.  (T, E) -> (T, E)."""
+  z = logits / regularization_strength
+  n = z.shape[-1]
+  w = torch.zeros((n,), dtype=z.dtype, device=z.device)
+  w[:k] = 1
+  sigma = torch.argsort(-z, dim=-1, stable=True)
+  s = torch.gather(z, -1, sigma)
+  v = pav_l2_ref(s - w)
+  return z - torch.zeros_like(v).scatter(-1, sigma, v)

@@ -1,0 +1,52 @@
+"""Carry the JAX reference's parameters over to the port.
+
+``from_jax_params(cfg, params_np)`` takes the reference's parameter pytree
+(``repro.models.transformer.init_params``, leaves as numpy arrays) and
+returns the port's ``Transformer`` with the same weights.  The reference
+stacks each segment's layers along a leading ``reps`` axis
+(``seg<i>/l<j>_<kind>/...``, one slice per scan step); this splits them
+into one module per layer, in the order the scan runs them.  Every leaf
+keeps its JAX layout (``wq`` (d, h, nd+rd), ``w_uk`` (r, h, nd),
+``router`` (d, E) f32, ...).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import Transformer, check_supported
+
+
+def _tensor(a, device) -> torch.Tensor:
+  a = np.asarray(a)
+  if a.dtype.name == "bfloat16":   # numpy has no bf16: carry the bits
+    return torch.from_numpy(a.view(np.uint16).copy()).view(
+        torch.bfloat16).to(device)
+  return torch.from_numpy(np.array(a)).to(device)
+
+
+def _map(tree, fn):
+  if isinstance(tree, dict):
+    return {name: _map(value, fn) for name, value in tree.items()}
+  return fn(tree)
+
+
+def from_jax_params(cfg, params_np: dict, device="cpu") -> Transformer:
+  """The reference's parameters (numpy leaves) as the port's model."""
+  check_supported(cfg)
+  layers = []
+  for si, (cycle, reps) in enumerate(cfg.plan_segments()):
+    seg = params_np[f"seg{si}"]
+    for rep in range(reps):
+      for j, kind in enumerate(cycle):
+        layers.append(_map(seg[f"l{j}_{kind}"],
+                           lambda a, r=rep: _tensor(np.asarray(a)[r],
+                                                    device)))
+
+  def top(name):
+    return _map(params_np[name], lambda a: _tensor(a, device))
+
+  return Transformer(cfg, {"embed": top("embed"), "lm_head": top("lm_head"),
+                           "final_norm": top("final_norm"),
+                           "layers": layers})

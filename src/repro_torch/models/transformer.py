@@ -1,0 +1,238 @@
+"""Model assembly for serving: the ``mla_moe`` layer stack, prefill, decode.
+
+Counterpart of ``repro.models.transformer`` for the serving passes of the
+``mla_moe`` kind (deepseek-v2-lite: MLA attention + MoE FFN with the soft
+top-k router).  Where the reference stacks a segment's layers under
+``lax.scan`` (with ``jax.checkpoint`` remat, which has no role in
+serving), the port keeps an ``nn.ModuleList`` of one module per layer, in
+the order the scan visits them.  Other layer kinds, frontends and the
+training pass raise ``NotImplementedError``.
+
+``init_params`` builds random weights with the reference's distributions
+and scales (``mla_init``, ``moe_init``, ``embed_init``, the LM head)
+directly on the target device and in the config's dtype, from a seeded
+``torch.Generator``; ``repro_torch.models.convert.from_jax_params`` builds
+the same modules from the reference's parameters instead.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+
+KINDS = ("mla_moe",)
+
+
+def dtype_of(cfg) -> torch.dtype:
+  return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg) -> None:
+  """Raise for what the port does not run yet."""
+  for kind in cfg.layer_kinds():
+    if kind not in KINDS:
+      raise L.not_ported(f"layer kind {kind!r}", "other layer kinds")
+  if cfg.frontend != "none" or cfg.num_codebooks:
+    raise L.not_ported(f"the {cfg.frontend!r} frontend",
+                        "other layer kinds")
+  if cfg.tie_embeddings:
+    raise L.not_ported("tied embeddings", "other layer kinds")
+
+
+class ParamTree(nn.Module):
+  """A nested dict of tensors as a module: tensors become parameters
+  (frozen: serving computes no gradients), dicts become sub-modules."""
+
+  def __init__(self, tree: dict):
+    super().__init__()
+    for name, value in tree.items():
+      if isinstance(value, dict):
+        self.add_module(name, ParamTree(value))
+      else:
+        self.register_parameter(
+            name, nn.Parameter(value, requires_grad=False))
+
+  def tree(self) -> dict:
+    out = dict(self.named_parameters(recurse=False))
+    out.update((name, mod.tree()) for name, mod in self.named_children())
+    return out
+
+
+class Layer(nn.Module):
+  """One ``mla_moe`` block: pre-norm MLA, then pre-norm MoE FFN."""
+
+  def __init__(self, cfg, params: dict):
+    super().__init__()
+    self.cfg = cfg
+    self.params = ParamTree(params)
+
+  def apply_seq(self, x, positions, *, collect_cache: bool = False):
+    """Returns (x, aux, cache latents or None)."""
+    cfg, p = self.cfg, self.params.tree()
+    h = L.norm_apply(p["norm1"], x, cfg.norm)
+    cache = None
+    if collect_cache:
+      mixed, cache = MLA.mla_apply_seq(p["mla"], h, positions, cfg,
+                                       return_kv=True)
+    else:
+      mixed = MLA.mla_apply_seq(p["mla"], h, positions, cfg)
+    x = x + mixed.to(x.dtype)
+    h2 = L.norm_apply(p["norm2"], x, cfg.norm)
+    ff, aux = MOE.moe_apply(p["ffn"], h2, cfg)
+    return x + ff.to(x.dtype), aux, cache
+
+  def apply_decode(self, x, cache, pos: int):
+    """x: (B, d).  Returns (x, cache), the cache updated in place."""
+    cfg, p = self.cfg, self.params.tree()
+    h = L.norm_apply(p["norm1"], x, cfg.norm)
+    mixed, cache = MLA.mla_apply_decode(p["mla"], h, cache, pos, cfg)
+    x = x + mixed.to(x.dtype)
+    h2 = L.norm_apply(p["norm2"], x, cfg.norm)
+    ff, _ = MOE.moe_apply(p["ffn"], h2, cfg)
+    return x + ff.to(x.dtype), cache
+
+
+class Transformer(nn.Module):
+  """Embedding, the layer stack, final norm and LM head."""
+
+  def __init__(self, cfg, params: dict):
+    """``params``: {"embed": {"table"}, "lm_head": {"w"}, "final_norm":
+    {"scale"}, "layers": [one dict per layer]}, in the JAX layouts."""
+    super().__init__()
+    check_supported(cfg)
+    if len(params["layers"]) != cfg.num_layers:
+      raise ValueError(f"{len(params['layers'])} layers given for "
+                       f"{cfg.num_layers}")
+    self.cfg = cfg
+    self.embed = ParamTree(params["embed"])
+    self.lm_head = ParamTree(params["lm_head"])
+    self.final_norm = ParamTree(params["final_norm"])
+    self.layers = nn.ModuleList(Layer(cfg, lp) for lp in params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen, shape, scale, dtype, device) -> torch.Tensor:
+  """N(0, 1) * scale, drawn in ``dtype`` on ``device`` (no f32 copy)."""
+  return torch.randn(shape, generator=gen, dtype=dtype,
+                     device=device).mul_(scale)
+
+
+def _layer_init(cfg, gen, dtype, device) -> dict:
+  d, h = cfg.d_model, cfg.num_heads
+  r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                   cfg.v_head_dim)
+  f, e = cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+  si, sr, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(r), 1.0 / math.sqrt(f)
+
+  def normal(shape, scale, dt=dtype):
+    return _normal(gen, shape, scale, dt, device)
+
+  def ones():
+    return torch.ones((d,), dtype=torch.float32, device=device)
+
+  ffn = {
+      "router": normal((d, e), si, torch.float32),
+      "we_in": normal((e, d, f), si),
+      "we_gate": normal((e, d, f), si),
+      "we_out": normal((e, f, d), so),
+  }
+  if cfg.num_shared_experts:
+    fs = f * cfg.num_shared_experts
+    ffn["shared"] = {"w_in": normal((d, fs), si),
+                     "w_gate": normal((d, fs), si),
+                     "w_out": normal((fs, d), 1.0 / math.sqrt(f))}
+  return {
+      "norm1": {"scale": ones()},
+      "norm2": {"scale": ones()},
+      "mla": {
+          "wq": normal((d, h, nd + rd), si),
+          "w_dkv": normal((d, r + rd), si),
+          "w_uk": normal((r, h, nd), sr),
+          "w_uv": normal((r, h, vd), sr),
+          "wo": normal((h, vd, d), 1.0 / math.sqrt(h * vd)),
+      },
+      "ffn": ffn,
+  }
+
+
+def init_params(cfg, seed: int = 0, device="cpu") -> Transformer:
+  """Random weights from ``seed``, built on ``device`` in the config's
+  dtype (the router and norm scales in f32, as in the reference)."""
+  check_supported(cfg)
+  device = torch.device(device)
+  dtype = dtype_of(cfg)
+  gen = torch.Generator(device=device)
+  gen.manual_seed(seed)
+  d, v = cfg.d_model, cfg.vocab_size
+  params = {
+      "embed": {"table": _normal(gen, (v, d), 0.02, dtype, device)},
+      "lm_head": {"w": _normal(gen, (d, v), 1.0 / math.sqrt(d), dtype,
+                               device)},
+      "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
+                                         device=device)},
+      "layers": [_layer_init(cfg, gen, dtype, device)
+                 for _ in range(cfg.num_layers)],
+  }
+  return Transformer(cfg, params)
+
+
+def count_params(model: nn.Module) -> int:
+  return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Serving passes
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, max_len: int, device="cpu") -> list[dict]:
+  """One zeroed latent cache per layer: c_kv (B, max_len, r) and k_rope
+  (B, max_len, rd)."""
+  return [MLA.mla_init_cache(cfg, batch, max_len, dtype_of(cfg), device)
+          for _ in range(cfg.num_layers)]
+
+
+def _head(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
+  x = L.norm_apply(model.final_norm.tree(), x, cfg.norm)
+  return L.lm_head_logits(model.lm_head.w, x, cfg.logit_softcap)
+
+
+def forward_prefill(cfg, model: Transformer, batch: dict, max_len: int):
+  """Prefill: returns (last-position logits (B, V) f32, caches).
+
+  The caches hold the latents of positions [0, S), padded with zeros to
+  ``max_len`` so decode continues in place.
+  """
+  tokens = batch["tokens"]
+  x = L.embed_apply(model.embed.tree(), tokens, scale=cfg.tie_embeddings)
+  s = x.shape[1]
+  if s > max_len:
+    raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+  positions = torch.arange(s, device=x.device)
+  caches = init_cache(cfg, x.shape[0], max_len, x.device)
+  for layer, cache in zip(model.layers, caches):
+    x, _, got = layer.apply_seq(x, positions, collect_cache=True)
+    for name, latent in got.items():
+      cache[name][:, :s] = latent.to(cache[name].dtype)
+  return _head(cfg, model, x[:, -1]), caches
+
+
+def forward_decode(cfg, model: Transformer, caches: list[dict],
+                   tokens: torch.Tensor, pos: int):
+  """One decode step.  tokens: (B,) ids at position ``pos`` (the caches'
+  fill level).  Returns (logits (B, V) f32, caches), the caches written in
+  place."""
+  x = L.embed_apply(model.embed.tree(), tokens, scale=cfg.tie_embeddings)
+  for layer, cache in zip(model.layers, caches):
+    x, _ = layer.apply_decode(x, cache, pos)
+  return _head(cfg, model, x), caches

@@ -43,6 +43,10 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import sys\n"
       "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
       "import repro_torch.kernels.dispatch, repro_torch.obs.tracing\n"
+      "import repro_torch.kernels.soft_topk, repro_torch.kernels.flash_attention\n"
+      "import repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.smoke\n"
+      "import repro_torch.data.pipeline, repro_torch.models.convert\n"
+      "import repro_torch.launch.serve, repro_torch.launch.steps\n"
       "bad = sorted(m for m in sys.modules\n"
       "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
       "print(bad)\n"
