@@ -13,13 +13,21 @@ failure raises and the script exits non-zero:
 1. device   require CUDA; print the card's name and power limit.
 2. build    build ``src/repro_torch/kernels/csrc/*.cu`` with nvcc, one
             process per source, in parallel.
-3. kernels  hold ``pav_l2`` / ``pav_kl`` against their plain versions on
-            the card at (128, 1000) and (128, 2048), on random inputs,
-            inputs with ties and constant rows, and a soft-rank dynamic
-            range (z = -theta/eps, eps = 1e-2).  At (128, 10000) and
-            (1, 2**20) the plain version runs on a CPU copy, in worker
-            processes while phase 4 runs, on random rows and on the main
-            path's own solver inputs; the comparisons close phase 4.
+3. kernels  hold ``pav_l2`` (divide and conquer) / ``pav_kl`` (stack
+            machine) against the plain stack machine on the card at
+            (128, 1000) and (128, 2048), on random inputs, inputs with ties
+            and constant rows, and a soft-rank dynamic range (z =
+            -theta/eps, eps = 1e-2).  Hold ``pav_l2`` against its own plain
+            version, the divide-and-conquer ``pav_l2_scan``, at (128, 1000),
+            (128, 10000) and (1, 2**20) on the main path's solver inputs,
+            random rows and an adversarial row (two decreasing ramps, the
+            right one above the left, which the top level pools into one
+            block), with the blocks that the backward reads from each
+            output.  At (128, 10000) and (1, 2**20) the stack machine, the
+            adversarial 2**20 row's plain version and the trimmed token
+            loss's fwd+bwd on the port's CPU backend run on a CPU copy, in
+            worker processes while phase 4 runs, on random rows and on the
+            main path's own solver inputs; the comparisons close phase 4.
             Hold ``soft_topk_gates`` (at (4096, 64) and (8, 64), k = 6, on
             random logits, ties and constant rows, at E = 100, and at
             eps = 0.3, not a power of two) and ``flash_attention`` (the
@@ -82,7 +90,7 @@ EPS = 0.1              # benchmarks/bench_runtime.py's regularization_strength
 SHAPES = ((128, 1000), (128, 10000))
 KERNEL_SHAPES = (*SHAPES, (1, TOKENS))
 HEADLINE = SHAPES[0]    # the shape of the kernels line
-CPU_WORKERS = 4
+CPU_WORKERS = 6
 
 # H100 SXM data sheet, dense: HBM bandwidth and f32 rate outside the tensor
 # cores.  The bound is the larger of bytes / bandwidth and ops / rate.
@@ -99,7 +107,7 @@ REPLACES = {"pav_l2": "src/repro/kernels/pav.py:196",
             "pav_kl": "src/repro/kernels/pav.py:213",
             "soft_topk_gates": "src/repro/kernels/soft_topk.py:109",
             "flash_attention": "src/repro/kernels/flash_attention.py:83"}
-SOURCES = {"pav_l2": "src/repro_torch/kernels/csrc/pav.cu",
+SOURCES = {"pav_l2": "src/repro_torch/kernels/csrc/pav_scan.cu",
            "pav_kl": "src/repro_torch/kernels/csrc/pav.cu",
            "soft_topk_gates": "src/repro_torch/kernels/csrc/soft_topk.cu",
            "flash_attention":
@@ -207,16 +215,54 @@ def to_dev(x, device) -> torch.Tensor:
                       device=device)
 
 
-def plain_on_cpu(kname: str, arrays):
-  """Worker process: the plain version of ``kname`` on a CPU copy of the
-  inputs.  Returns the output and the seconds it took."""
+def two_ramps(rows: int, n: int) -> np.ndarray:
+  """Each row: two strictly decreasing halves, the right one above the
+  left.  Every merge level below the top is already solved, and the top
+  level pools the whole row into one block, absorbing one block on each
+  side per step: the divide-and-conquer PAV's longest serial chain."""
+  half = n // 2
+  row = np.concatenate([np.linspace(0.0, -1.0, half),
+                        np.linspace(2.0, 1.0, n - half)])
+  return np.tile(row, (rows, 1))
+
+
+def l2_inputs(rng, dev, rows: int, n: int, theta_np, tokens_np):
+  """The l2 solver inputs y of phases 3 and 5, on the card: the main
+  path's own, a random row, and the adversarial two ramps."""
+  if rows == 1:
+    s, w = main_solver_inputs(None, to_dev(tokens_np, dev))
+  else:
+    s, w = main_solver_inputs(to_dev(theta_np[(rows, n)], dev), None)
+  _, (rs, rw) = solver_inputs(rng, rows, n, "random")
+  return {"main": (s - w).contiguous(), "random": to_dev(rs - rw, dev),
+          "adversarial": to_dev(two_ramps(rows, n), dev)}
+
+
+def plain_on_cpu(fn_name: str, arrays):
+  """Worker process: the plain version ``fn_name`` (of ``kernels.pav`` or
+  ``kernels.pav_scan``) on a CPU copy of the inputs.  Returns the output
+  and the seconds it took."""
   sys.path.insert(0, str(ROOT / "src"))
-  from repro_torch.kernels import pav
+  from repro_torch.kernels import pav, pav_scan
   torch.set_num_threads(1)
+  fn = getattr(pav, fn_name, None) or getattr(pav_scan, fn_name)
   t0 = time.perf_counter()
   with torch.inference_mode():
-    out = getattr(pav, f"{kname}_stack")(*map(torch.from_numpy, arrays))
+    out = fn(*map(torch.from_numpy, arrays))
   return out.numpy(), time.perf_counter() - t0
+
+
+def token_loss_on_cpu(tokens: np.ndarray):
+  """Worker process: soft_trimmed_token_loss fwd+bwd with the port's CPU
+  backend.  Returns the value, the gradient and the seconds it took."""
+  sys.path.insert(0, str(ROOT / "src"))
+  import repro_torch as rt
+  torch.set_num_threads(1)
+  t0 = time.perf_counter()
+  x = torch.tensor(tokens, dtype=torch.float32, requires_grad=True)
+  out = rt.soft_trimmed_token_loss(x, TRIM_FRACTION, TRIM_EPS)
+  (grad,) = torch.autograd.grad(out, x)
+  return (out.detach().numpy(), grad.numpy()), time.perf_counter() - t0
 
 
 def operators(rt):
@@ -260,6 +306,7 @@ def main_path(rt, pav, dev, theta_np, target_np, cot_np, tokens_np):
   torch.cuda.synchronize()
   launches = dict(pav.LAUNCHES)
   say(f"main: launches {launches}, operator calls {calls}")
+  token_run = results[("soft_trimmed_token_loss", tokens_np.shape)]
   for kname in launches:
     check(launches[kname] > 0, f"{kname} was not launched on the main path")
     check(launches[kname] == calls[kname],
@@ -299,7 +346,7 @@ def main_path(rt, pav, dev, theta_np, target_np, cot_np, tokens_np):
       f"{differ} of {z_cpu.numel()} elements (at most {ulps:.2f} ulp of |z|),"
       f" from CPU multiplication by the f32 reciprocal of eps in "
       f"{int((z_card != z_recip).sum())}")
-  return launches
+  return launches, token_run
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +416,30 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
                                      cmp["max_abs_err"])
     say(f"kernels: flash_attention q ({b}, {s}, {h}, 192) kv heads {hkv} "
         f"causal {causal}: {attn_text(cmp, fa)}")
+
+
+def pav_scan_checks(rng, dev, pav, pav_scan, segment_vjp, theta_np,
+                    tokens_np, record, jobs) -> None:
+  """Phase 3: ``pav_l2`` against its plain version ``pav_l2_scan`` (the
+  same divide-and-conquer merges in the same order) on the card, at every
+  kernel shape, on the main, random and adversarial inputs.  The 2**20
+  adversarial row's plain version (2**19 steps of small ops at the top
+  level) goes to the CPU workers."""
+  for rows, n in KERNEL_SHAPES:
+    for kind, y in l2_inputs(rng, dev, rows, n, theta_np, tokens_np).items():
+      out = pav.pav_l2(y)
+      if rows == 1 and kind == "adversarial":
+        jobs.append(("pav_l2", f"{kind} input, plain divide and conquer",
+                     (rows, n), out.cpu(), "pav_l2_scan", (y.cpu().numpy(),)))
+        continue
+      plain = pav_scan.pav_l2_scan(y)
+      err = record("pav_l2", out, plain)
+      blocks = [int(segment_vjp.block_starts(v).sum()) for v in (out, plain)]
+      check(blocks[0] == blocks[1], f"pav_l2 blocks {blocks}")
+      say(f"kernels: pav_l2 ({rows}, {n}) {kind} input: max |kernel - plain "
+          f"divide and conquer| {err:.3e} (tol 1e-5 * (1 + max|plain|)), "
+          f"{int((out != plain).sum())} of {out.numel()} elements not bit "
+          f"for bit; {blocks[0]} blocks in both")
 
 
 class Recorder:
@@ -634,8 +705,10 @@ def serve_times(res, rec, serve, st, fa, pav, name_limit):
                f"{tuple(v.shape)} causal: kernel {ms:.4f} ms (device "
                f"{dev_ms:.4f} ms a launch, profiler), plain "
                f"{plain_ms:.4f} ms, scaled_dot_product_attention "
-               f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
-               f"[{name_limit}]")
+               f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); the "
+               f"bound is {bound_ms / ms:.1%} of the kernel's time "
+               f"({bound_ms / dev_ms:.1%} of its device time) and "
+               f"{bound_ms / lib_ms:.1%} of SDPA's [{name_limit}]")
   prefill, decode, same = [], [], 0
   for _ in range(3):
     again = serve.generate(cfg, res["model"], res["prompts"], SERVE_GEN)
@@ -682,7 +755,8 @@ def main() -> int:
     return 2
   sys.path.insert(0, str(ROOT / "src"))
   import repro_torch as rt
-  from repro_torch.kernels import _build, ops as kops, pav, segment_vjp
+  from repro_torch.kernels import _build, ops as kops, pav, pav_scan
+  from repro_torch.kernels import segment_vjp
   from repro_torch.kernels import flash_attention as fa
   from repro_torch.kernels import soft_topk as st
   from repro_torch.launch import serve
@@ -700,7 +774,10 @@ def main() -> int:
   # 2. build ----------------------------------------------------------------
   t0 = time.perf_counter()
   libs = _build.build_all()
-  say(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+  say(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s; by "
+      "source (nvcc start to exit, all in parallel): " + ", ".join(
+          f"{name} {sec:.2f} s" for name, sec in
+          sorted(_build.BUILD_SECONDS.items())))
   for log in _build.BUILD_LOG.values():
     for line in log.splitlines():
       if "registers" in line or "spill" in line:
@@ -736,9 +813,10 @@ def main() -> int:
 
   serve_kernel_checks(rng, dev, st, fa, record, max_err)
 
-  # At (128, 10000) and (1, 2**20) the plain version takes tens of seconds
+  # At (128, 10000) and (1, 2**20) the stack machine takes tens of seconds
   # per call: it runs on a CPU copy in worker processes (spawned, so they
   # never touch CUDA), the longest first, while phase 4 runs on the card.
+  # Job: (kernel, what, shape, kernel output, plain function, inputs).
   jobs = []
   for rows, n in ((1, TOKENS), (128, 10000)):
     _, (rs, rw) = solver_inputs(rng, rows, n, "random")
@@ -751,19 +829,24 @@ def main() -> int:
       for kname, args in (("pav_l2", ((s - w).contiguous(),)),
                           ("pav_kl", (s, w))):
         out = getattr(pav, kname)(*args).cpu()
-        jobs.append((kname, kind, (rows, n), out,
+        jobs.append((kname, f"{kind} input, plain stack machine", (rows, n),
+                     out, f"{kname}_stack",
                      tuple(a.cpu().numpy() for a in args)))
+  pav_scan_checks(rng, dev, pav, pav_scan, segment_vjp, theta_np, tokens_np,
+                  record, jobs)
 
   pool = ProcessPoolExecutor(max_workers=CPU_WORKERS,
                              mp_context=multiprocessing.get_context("spawn"))
   try:
-    futures = [pool.submit(plain_on_cpu, job[0], job[4]) for job in jobs]
+    futures = [pool.submit(plain_on_cpu, job[4], job[5]) for job in jobs]
+    token_future = pool.submit(token_loss_on_cpu, tokens_np)
     say(f"kernels: {len(jobs)} comparisons at (1, {TOKENS}) and (128, 10000)"
-        f" handed to {CPU_WORKERS} CPU worker processes")
+        f" and the token loss on the CPU handed to {CPU_WORKERS} CPU worker "
+        "processes")
 
     # 4. main path ------------------------------------------------------------
-    launches = main_path(rt, pav, dev, theta_np, target_np, cot_np,
-                         tokens_np)
+    launches, token_run = main_path(rt, pav, dev, theta_np, target_np,
+                                    cot_np, tokens_np)
     # The serving path runs on the card while the CPU workers finish.
     serve_res, serve_launches, serve_rec, serve_err = serve_path(
         dev, serve, kops, st, fa)
@@ -771,12 +854,20 @@ def main() -> int:
       max_err[kname] = max(max_err[kname], err)
 
     t0 = time.perf_counter()
-    for (kname, kind, shape, out, _), future in zip(jobs, futures):
+    for (kname, what, shape, out, _, _), future in zip(jobs, futures):
       ref, seconds = future.result()
       err = record(kname, out, torch.from_numpy(ref))
-      say(f"kernels: {kname} {shape} {kind} input: max |kernel - plain on "
-          f"CPU copy| {err:.3e} (tol 1e-5 * (1 + max|plain|); plain "
-          f"{seconds:.1f} s on one CPU core)")
+      say(f"kernels: {kname} {shape} {what}: max |kernel - plain on CPU "
+          f"copy| {err:.3e} (tol 1e-5 * (1 + max|plain|); "
+          f"{int((out != torch.from_numpy(ref)).sum())} of {out.numel()} "
+          f"elements not bit for bit; plain {seconds:.1f} s on one CPU "
+          "core)")
+    (ref_out, ref_grad), seconds = token_future.result()
+    e_out = close(token_run[0], torch.from_numpy(ref_out))
+    e_grad = close(token_run[1], torch.from_numpy(ref_grad))
+    say(f"main: soft_trimmed_token_loss ({TOKENS},) card vs CPU port: value "
+        f"{e_out:.3e}, gradients {e_grad:.3e} (tol 1e-5 * (1 + max|CPU|); "
+        f"CPU {seconds:.1f} s)")
     say(f"kernels: waited {time.perf_counter() - t0:.1f} s for the CPU "
         "workers after phase 4")
   finally:
@@ -785,6 +876,7 @@ def main() -> int:
   # 5. times -------------------------------------------------------------------
   lines = []
   kernel_rows = {}
+  plain_fns = {"pav_l2": pav_scan.pav_l2_scan, "pav_kl": pav.pav_kl_stack}
   for rows, n in KERNEL_SHAPES:
     if rows == 1:
       s, w = main_solver_inputs(None, to_dev(tokens_np, dev))
@@ -797,7 +889,8 @@ def main() -> int:
     inputs = {("pav_l2", "main"): ((s - w).contiguous(),),
               ("pav_kl", "main"): (s, w),
               ("pav_l2", "random"): (rs - rw,),
-              ("pav_kl", "random"): (rs, rw)}
+              ("pav_kl", "random"): (rs, rw),
+              ("pav_l2", "adversarial"): (to_dev(two_ramps(rows, n), dev),)}
     reps = 5 if rows == 1 else 20
     for (kname, kind), args in inputs.items():
       kernel = getattr(pav, kname)
@@ -810,16 +903,16 @@ def main() -> int:
       bound_ms = max(bytes_ms, ops_ms)
       bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
       ms = median_ms(lambda: kernel(*args), reps)
-      plain_ms = None    # the plain version takes minutes on one long row
-      if kind == "main" and (rows, n) in SHAPES:
-        plain = getattr(pav, f"{kname}_stack")
+      plain_ms = None    # the stack machine takes minutes on one long row
+      if kind == "main" and (kname == "pav_l2" or (rows, n) in SHAPES):
+        plain = plain_fns[kname]
         plain_ms = median_ms(lambda: plain(*args), 1, warmup=0)
       if kind == "main":
         kernel_rows[(kname, (rows, n))] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
       plain_text = ("not measured" if plain_ms is None
-                    else f"{plain_ms:.1f} ms")
+                    else f"{plain_ms:.1f} ms ({plain_fns[kname].__name__})")
       lines.append(f"times: {kname} ({rows}, {n}) {kind} input: kernel "
                    f"{ms:.4f} ms, plain {plain_text}, bound {bound_ms:.5f} ms"
                    f" ({bound_by}), {blocks} blocks [{name_limit}]")

@@ -59,7 +59,7 @@ def soft_sort(values: torch.Tensor, regularization_strength: float = 1.0,
       Psi: quadratic Q or entropic E.
   direction : {"DESCENDING", "ASCENDING"}
       "ASCENDING" is -soft_sort(-values).
-  impl : {"auto", "cuda", "stack", "minimax"} or None
+  impl : {"auto", "cuda", "stack", "scan", "minimax"} or None
       Isotonic backend (``repro_torch.kernels.dispatch``).
   sort_context : SortContext or None
       A ``SortContext`` built on ``values``; supplies the argsort.
@@ -103,7 +103,7 @@ def soft_rank(values: torch.Tensor, regularization_strength: float = 1.0,
   direction : {"DESCENDING", "ASCENDING"}
       "DESCENDING": rank 1 for the largest value; "ASCENDING": rank 1 for
       the smallest.
-  impl : {"auto", "cuda", "stack", "minimax"} or None
+  impl : {"auto", "cuda", "stack", "scan", "minimax"} or None
       Isotonic backend.
   sort_context : SortContext or None
       A ``SortContext`` built on ``values``; supplies the argsort.

@@ -217,7 +217,7 @@ def projection_permutahedron(
   regularization : {"l2", "kl"}
       "l2": Euclidean projection onto P(w).  "kl": the paper's log-KL
       projection of e^z onto P(e^w), returned in log space (P_E).
-  impl : {"auto", "cuda", "stack", "minimax"} or None
+  impl : {"auto", "cuda", "stack", "scan", "minimax"} or None
       Isotonic backend (``repro_torch.kernels.dispatch``).
   path : {"auto", "fused", "composed"} or None
       Pipeline; None defers to ``REPRO_TORCH_PROJECTION``, then "fused".

@@ -11,11 +11,13 @@ checkout's ``src/``: the build writes only inside the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -28,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}   # nvcc's output per source (ptxas -v)
+BUILD_SECONDS: dict[str, float] = {}   # per source, from start to exit
 
 
 def nvcc_path() -> str:
@@ -64,21 +67,32 @@ def build_all() -> dict[str, Path]:
   targets = {s.stem: (s, _library_path(s, nvcc))
              for s in sorted(CSRC.glob("*.cu"))}
   procs = {}
+  t0 = time.perf_counter()
   for name, (source, lib) in targets.items():
     if lib.exists():
       continue
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    log = tmp.with_suffix(".log").open("w+")
     procs[name] = (subprocess.Popen(
         [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
+        stdout=log, stderr=subprocess.STDOUT), log, tmp, lib)
   failed = []
-  for name, (proc, tmp, lib) in procs.items():
-    log, _ = proc.communicate()
-    BUILD_LOG[name] = log
-    if proc.returncode != 0:
-      failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-      continue
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+  while procs:   # poll, so each source's seconds end when its nvcc exits
+    for name, (proc, log, tmp, lib) in list(procs.items()):
+      if proc.poll() is None:
+        continue
+      BUILD_SECONDS[name] = time.perf_counter() - t0
+      log.seek(0)
+      BUILD_LOG[name] = log.read()
+      log.close()
+      os.remove(log.name)
+      del procs[name]
+      if proc.returncode != 0:
+        failed.append(f"{name}: nvcc exited {proc.returncode}\n"
+                      f"{BUILD_LOG[name]}")
+      else:
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
+    time.sleep(0.05)
   if failed:
     raise RuntimeError("building the CUDA kernels failed:\n" +
                        "\n".join(failed))
@@ -94,3 +108,14 @@ def library(name: str) -> ctypes.CDLL:
       raise RuntimeError(f"no CUDA source csrc/{name}.cu")
     lib = _LIBS[name] = ctypes.CDLL(str(paths[name]))
   return lib
+
+
+def on_device(device):
+  """``torch.cuda.device(device)`` around a launch, or nothing when
+  ``device`` is already the current device (the usual case: the context
+  costs host time on every call)."""
+  import torch
+
+  if device.index is None or device.index == torch.cuda.current_device():
+    return contextlib.nullcontext()
+  return torch.cuda.device(device)

@@ -11,53 +11,211 @@
 // 1 / sqrt(D) (the q/k width, not Dv); causal masking is top-left aligned
 // (key position <= query position), as in the reference with q_offset 0.
 //
-// Design: one block of 4 warps per (batch, kv head, query tile).  The block
-// holds 64 query rows: all G query groups of its kv head for 64 / G query
-// positions, so each K/V tile read from memory serves every group, as the
-// TPU kernel's grid cell does.  Each warp owns 16 rows.  The block walks the
-// kv tiles of 64 keys in order: K and V tiles go through shared memory
-// (16-byte loads, zero-filled past Skv), S = Q K^T and O += P V run on the
-// tensor cores with mma.sync m16n8k16 (bf16 operands, f32 accumulation), and
-// each row keeps its running max m, sum l and accumulator in f32 registers
-// (online softmax).  P is rounded to bf16 for the P V product only.  Under
-// the causal mask the loop stops at the last kv tile that the block's last
-// query row can see; masked entries inside a tile get probability 0.  A
-// ragged Sq or Skv is handled by masking: rows past Sq are neither loaded
-// nor stored, keys past Skv are masked.  Shared memory rows are padded by
-// 8 elements so the fragment loads of a warp hit 32 distinct banks; at
-// D = 192, Dv = 128 the block needs 67 KB, which takes the opt-in above
-// 48 KB (cudaFuncSetAttribute).
-//
 // What bounds it on this card: at the serving prefill shape (8 x 512
 // tokens, 16 heads, D 192, Dv 128) the causal work is about 10.7 GFLOP
 // (11 us at 989 TFLOP/s) and the bytes that must move about 84 MB (25 us
-// at 3.35 TB/s), so the bound is bytes.  This first version is far from
-// both: loads are synchronous (no cp.async or TMA double buffering), the
-// V fragments are gathered with 16-bit shared loads, and mma.sync reaches
-// a fraction of the wgmma rate.  Each K/V tile is read once per query tile
-// (8 times per kv head at Sq 512), from L2 after the first.  wgmma with TMA
-// and a producer warp is the later step.
+// at 3.35 TB/s), so the bound is bytes.  What held the first (mma.sync)
+// version at 7.6x that bound, and what this design does about each:
+//   * synchronous K/V loads between two barriers, nothing in flight during
+//     the products -> a producer warp streams K and V tiles with TMA into a
+//     ring of kStages stages under full/empty mbarriers, while the consumer
+//     warpgroups compute on the previous stage;
+//   * V gathered by 16-bit shared loads -> V stays in shared memory as
+//     TMA wrote it and is read by the tensor cores as a transposed
+//     (MN-major) wgmma operand;
+//   * mma.sync m16n8k16 -> wgmma m64n128k16, asynchronous, from swizzled
+//     shared memory (S = Q K^T) and from registers (O += P V);
+//   * 64 query rows a block -> 128 rows, two consumer warpgroups of 64.
+//
+// Design.  One CTA of 3 warpgroups per (batch, kv head, 128 query rows).
+// A row is a (query position, group) pair, row = position * G + g, so all G
+// query heads of a kv head share each K/V tile.  Warpgroups 0 and 1
+// (setmaxnreg 232) each own 64 rows; warpgroup 2 (setmaxnreg 40) is the
+// producer, of which one thread issues every copy.  The producer loads the
+// Q tile once (three 64-column boxes, 48 KB) and then, for each kv tile of
+// kKv = 128 keys, K (48 KB) and V (32 KB) into the next stage of a
+// kStages = 2 ring (208 KB of shared memory in all), all 128-byte swizzled,
+// through 4-D tensor maps over (width, head, position, batch) so that rows
+// past Sq or Skv are zero-filled.  A consumer warpgroup waits for the
+// stage, computes S = Q K^T with 12 wgmma k-steps, runs the online softmax
+// on S in f32 registers (running max m, sum l; exp2 of scores prescaled by
+// log2(e) / sqrt(D)), rounds P to bf16 in registers, where the S
+// accumulator's fragment of each 16 keys is exactly wgmma's register A
+// fragment, computes O += P V with 8 wgmma k-steps, and then releases the
+// stage (each consumer warp arrives on the stage's empty barrier).  Causal:
+// the CTA's kv tiles stop at its last query row; a warpgroup skips the
+// products of a tile wholly above its own rows, and masks only a tile that
+// crosses its diagonal or the end of Skv.  Query tiles are issued last
+// first (blockIdx.y counts down), so the longest rows start first.  The
+// output is written from registers, rows past Sq are not.
+//
+// Host side: the tensor maps are encoded per call with the driver's
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
+// -lcuda), and passed as __grid_constant__ kernel parameters.
 
-#include <cmath>
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRows = 16 * kWarps;   // query rows per block
-constexpr int kKv = 64;              // keys per kv tile
+constexpr int kRows = 128;           // query rows per CTA
+constexpr int kKv = 128;             // keys per kv tile
+constexpr int kStages = 2;
+constexpr int kConsumerThreads = 256;
+constexpr int kThreads = kConsumerThreads + 128;
+constexpr int kBox = 64;             // bf16 columns per 128-byte swizzle box
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
+// ---------------------------------------------------------------------------
+// PTX wrappers: shared addresses, mbarriers, TMA, wgmma.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// 4-D tiled TMA load of one box at coordinates (c0, c1, c2, c3), completing
+// on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across a
+// wgmma issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, f32) += A B^T: A (64 x 16) and B (128 x 16), bf16, both in
+// shared memory, K-major; scale_d = 0 ignores D's old value.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A B: A (64 x 16, bf16) in registers, B (16 x 128,
+// bf16) in shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -65,211 +223,300 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 h;
-  h.x = lo;
-  h.y = hi;
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copies `rows` rows of `width` bf16 (a multiple of 8) from global rows at
-// src_row(r) into shared rows of `stride` elements; rows whose src_row is
-// null are zero-filled.
-template <int kWidth, class RowPtr>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int stride,
-                                          RowPtr src_row) {
-  constexpr int kChunks = kWidth / 8;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kWarps * 32) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const __nv_bfloat16* src = src_row(r);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (src) val = *reinterpret_cast<const uint4*>(src + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * stride + c * 8) = val;
-  }
-}
+template <int D, int DV>
+struct Smem {
+  static constexpr int kQBytes = kRows * D * 2;          // 3 boxes at D 192
+  static constexpr int kKBytes = kKv * D * 2;
+  static constexpr int kVBytes = kKv * DV * 2;
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // q_full, full[kStages], empty[kStages]; plus 1 KB to align the base.
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
 
 template <int D, int DV>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
              __nv_bfloat16* __restrict__ out, int sq, int skv, int h,
-             int hkv, int causal, float scale) {
-  static_assert(kKv == kRows, "load_tile copies kRows rows per tile");
-  static_assert(D % 16 == 0 && DV % 8 == 0, "mma tile widths");
-  constexpr int kQS = D + 8;    // shared row strides, in elements
-  constexpr int kVS = DV + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kRows * kQS;
-  __nv_bfloat16* vs = ks + kKv * kQS;
+             int hkv, int causal, float scale_log2) {
+  static_assert(D % kBox == 0 && DV % kBox == 0, "whole swizzle boxes");
+  static_assert(kKv == 128 && DV == 128, "the wgmma wrappers are n128");
+  using S = Smem<D, DV>;
+  constexpr int kBoxBytes = kBox * 2;                    // 128-byte rows
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles need 1024-byte-aligned addresses.
+  unsigned char* smem =
+      smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  unsigned char* q_s = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
   const int g_count = h / hkv;
-  const int bq = kRows / g_count;             // query positions per block
-  const int q0 = blockIdx.x * bq;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gid = lane / 4;                   // mma row group
-  const int tig = lane % 4;                   // thread in group
+  const int bq = kRows / g_count;               // query positions per CTA
+  const int kvh = blockIdx.x % hkv;
+  const int b = blockIdx.x / hkv;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;   // last tiles first
+  const int n_tiles = (skv + kKv - 1) / kKv;
+  const int last = causal ? min(n_tiles, (min(q0 + bq, sq) - 1) / kKv + 1)
+                          : n_tiles;
 
-  // Row r of the block: group r / bq, query position q0 + r % bq.
-  load_tile<D>(qs, kQS, [&](int r) -> const __nv_bfloat16* {
-    const int qp = q0 + r % bq;
-    if (qp >= sq) return nullptr;
-    const int head = kvh * g_count + r / bq;
-    return q + ((static_cast<int64_t>(b) * sq + qp) * h + head) * D;
-  });
-
-  // This thread's two rows (gid and gid + 8 of the warp's 16).
-  int qpos[2];
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gid + 8 * i;
-    qpos[i] = q0 + r % bq;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // Producer warpgroup: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_expect_tx(q_full, S::kQBytes);
+      for (int c = 0; c < D / kBox; ++c)
+        tma_load_4d(q_s + c * kRows * kBoxBytes, &tm_q, q_full, c * kBox,
+                    kvh * g_count, q0, b);
+      for (int j = 0; j < last; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
+        unsigned char* k_s = smem + S::kQBytes + s * S::kStageBytes;
+        unsigned char* v_s = k_s + S::kKBytes;
+        mbar_expect_tx(&full[s], S::kStageBytes);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load_4d(k_s + c * kKv * kBoxBytes, &tm_k, &full[s], c * kBox,
+                      kvh, j * kKv, b);
+        for (int c = 0; c < DV / kBox; ++c)
+          tma_load_4d(v_s + c * kKv * kBoxBytes, &tm_v, &full[s], c * kBox,
+                      kvh, j * kKv, b);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int gid = lane / 4;                     // accumulator row group
+  const int tig = lane % 4;                     // thread in group
+  int row[2], qpos[2];
+  for (int i = 0; i < 2; ++i) {
+    row[i] = wg * 64 + warp * 16 + gid + 8 * i;
+    qpos[i] = q0 + row[i] / g_count;
+  }
+  const int wg_first = q0 + (wg * 64) / g_count;
+  const int wg_last = min(q0 + (wg * 64 + 63) / g_count, sq - 1);
+  const bool wg_valid = wg_first < sq;
+
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};
-  float acc[DV / 8][4];
-  for (int nt = 0; nt < DV / 8; ++nt)
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  const uint32_t q_base = smem_addr(q_s) + wg * 64 * kBoxBytes;
 
-  const int n_tiles = (skv + kKv - 1) / kKv;
-  int last = n_tiles;
-  if (causal) {
-    const int q_hi = min(q0 + bq, sq) - 1;   // the block's last query
-    last = min(n_tiles, q_hi / kKv + 1);
-  }
-
-  const __nv_bfloat16* qw = qs + warp * 16 * kQS;
+  mbar_wait(q_full, 0);
   for (int j = 0; j < last; ++j) {
-    __syncthreads();   // the previous tile's K/V (and Q, first) are free
+    const int s = j % kStages;
+    mbar_wait(&full[s], (j / kStages) & 1);
     const int kv0 = j * kKv;
-    load_tile<D>(ks, kQS, [&](int r) -> const __nv_bfloat16* {
-      const int kp = kv0 + r;
-      if (kp >= skv) return nullptr;
-      return k + ((static_cast<int64_t>(b) * skv + kp) * hkv + kvh) * D;
-    });
-    load_tile<DV>(vs, kVS, [&](int r) -> const __nv_bfloat16* {
-      const int kp = kv0 + r;
-      if (kp >= skv) return nullptr;
-      return v + ((static_cast<int64_t>(b) * skv + kp) * hkv + kvh) * DV;
-    });
-    __syncthreads();
+    if (wg_valid && (!causal || kv0 <= wg_last)) {
+      const uint32_t k_base =
+          smem_addr(smem + S::kQBytes + s * S::kStageBytes);
+      const uint32_t v_base = k_base + S::kKBytes;
 
-    // S = Q K^T for the warp's 16 rows and the tile's 64 keys.
-    float s[kKv / 8][4];
-    for (int nt = 0; nt < kKv / 8; ++nt)
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + tig * 2;
-      uint32_t a[4];
-      a[0] = ld32(qw + gid * kQS + c);
-      a[1] = ld32(qw + (gid + 8) * kQS + c);
-      a[2] = ld32(qw + gid * kQS + c + 8);
-      a[3] = ld32(qw + (gid + 8) * kQS + c + 8);
+      // S = Q K^T: 64 rows x 128 keys, D / 16 k-steps of 16.
+      float sc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < D / kBox; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < kBox / 16; ++kk) {
+          wgmma_ss(sc,
+                   desc_b128(q_base + c * kRows * kBoxBytes + kk * 32, 16,
+                             1024),
+                   desc_b128(k_base + c * kKv * kBoxBytes + kk * 32, 16,
+                             1024),
+                   1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // Scale (log2 domain), mask, online softmax.  Element e of n8 tile nt
+      // is row gid + 8 * (e / 2), key kv0 + nt * 8 + tig * 2 + e % 2.
+      const bool need_mask =
+          kv0 + kKv > skv || (causal && kv0 + kKv - 1 > wg_first);
+      float row_max[2] = {kNeg, kNeg};
+#pragma unroll
       for (int nt = 0; nt < kKv / 8; ++nt) {
-        const __nv_bfloat16* kr = ks + (nt * 8 + gid) * kQS + c;
-        const uint32_t bf[2] = {ld32(kr), ld32(kr + 8)};
-        mma_bf16(s[nt], a, bf);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float x = sc[nt * 4 + e] * scale_log2;
+          if (need_mask) {
+            const int kp = kv0 + nt * 8 + tig * 2 + (e & 1);
+            if (kp >= skv || (causal && kp > qpos[i])) x = kNeg;
+          }
+          sc[nt * 4 + e] = x;
+          row_max[i] = fmaxf(row_max[i], x);
+        }
       }
-    }
-
-    // Scale, mask, online softmax.  Element e of s[nt] is row gid + 8 *
-    // (e / 2), key kv0 + nt * 8 + tig * 2 + e % 2.
-    bool keep[kKv / 8][4];
-    float row_max[2] = {kNeg, kNeg};
-    for (int nt = 0; nt < kKv / 8; ++nt) {
-      for (int e = 0; e < 4; ++e) {
-        const int kp = kv0 + nt * 8 + tig * 2 + (e & 1);
-        const int i = e >> 1;
-        keep[nt][e] = kp < skv && (!causal || kp <= qpos[i]);
-        s[nt][e] = keep[nt][e] ? s[nt][e] * scale : kNeg;
-        row_max[i] = fmaxf(row_max[i], s[nt][e]);
+      float alpha[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        row_max[i] = fmaxf(row_max[i],
+                           __shfl_xor_sync(0xffffffffu, row_max[i], 1));
+        row_max[i] = fmaxf(row_max[i],
+                           __shfl_xor_sync(0xffffffffu, row_max[i], 2));
+        const float m_new = fmaxf(m[i], row_max[i]);
+        alpha[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
       }
-    }
-    float alpha[2], row_sum[2] = {0.f, 0.f};
-    for (int i = 0; i < 2; ++i) {
-      row_max[i] = fmaxf(row_max[i], __shfl_xor_sync(0xffffffff, row_max[i], 1));
-      row_max[i] = fmaxf(row_max[i], __shfl_xor_sync(0xffffffff, row_max[i], 2));
-      const float m_new = fmaxf(m[i], row_max[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-    for (int nt = 0; nt < kKv / 8; ++nt) {
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        s[nt][e] = keep[nt][e] ? expf(s[nt][e] - m[i]) : 0.f;
-        row_sum[i] += s[nt][e];
+#pragma unroll
+      for (int nt = 0; nt < kKv / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float x = sc[nt * 4 + e];
+          const float p = x == kNeg ? 0.f : exp2f(x - m[i]);
+          sc[nt * 4 + e] = p;
+          row_sum[i] += p;
+        }
       }
-    }
-    for (int i = 0; i < 2; ++i) {
-      row_sum[i] += __shfl_xor_sync(0xffffffff, row_sum[i], 1);
-      row_sum[i] += __shfl_xor_sync(0xffffffff, row_sum[i], 2);
-      l[i] = l[i] * alpha[i] + row_sum[i];
-    }
-    for (int nt = 0; nt < DV / 8; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of key columns 16 kk .. 16 kk + 15 are
-    // exactly the A fragment of the next product.
-    for (int kk = 0; kk < kKv / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = vs + (kk * 16 + tig * 2) * kVS + gid;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], 1);
+        row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], 2);
+        l[i] = l[i] * alpha[i] + row_sum[i];
+      }
+#pragma unroll
       for (int nt = 0; nt < DV / 8; ++nt) {
-        const __nv_bfloat16* vc = v0 + nt * 8;
-        const uint32_t bf[2] = {pack_bf16(vc[0], vc[kVS]),
-                                pack_bf16(vc[8 * kVS], vc[9 * kVS])};
-        mma_bf16(acc[nt], a, bf);
+        o[nt * 4 + 0] *= alpha[0];
+        o[nt * 4 + 1] *= alpha[0];
+        o[nt * 4 + 2] *= alpha[1];
+        o[nt * 4 + 3] *= alpha[1];
       }
+
+      // O += P V: P in bf16 registers (the S fragment of keys 16 kk ..
+      // 16 kk + 15 is wgmma's A fragment), V transposed from shared memory.
+      // Every fragment is packed before the first product, so the products
+      // issue back to back.
+      uint32_t pa[kKv / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kKv / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      }
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKv / 16; ++kk) {
+        wgmma_rs(o, pa[kk],
+                 desc_b128(v_base + kk * 16 * kBoxBytes, kKv * kBoxBytes,
+                           1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with stage s
   }
 
+#pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (qpos[i] >= sq) continue;
-    const int r = warp * 16 + gid + 8 * i;
-    const int head = kvh * g_count + r / bq;
+    const int head = kvh * g_count + row[i] % g_count;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* o =
+    __nv_bfloat16* op =
         out + ((static_cast<int64_t>(b) * sq + qpos[i]) * h + head) * DV;
+#pragma unroll
     for (int nt = 0; nt < DV / 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(o + nt * 8 + tig * 2) =
-          pack_bf16(acc[nt][2 * i] * inv, acc[nt][2 * i + 1] * inv);
+      *reinterpret_cast<uint32_t*>(op + nt * 8 + tig * 2) =
+          pack_bf16(o[nt * 4 + 2 * i] * inv, o[nt * 4 + 2 * i + 1] * inv);
     }
   }
+}
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Map over a (batch, seq, heads, width) bf16 tensor, as dimensions
+// (width, heads, seq, batch), boxes of (64, box_heads, box_rows, 1) with
+// 128-byte swizzle; coordinates past the tensor read as zero.
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+              int heads, int width, int box_heads, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(width) * 2,
+      static_cast<cuuint64_t>(heads) * width * 2,
+      static_cast<cuuint64_t>(seq) * heads * width * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox),
+                             static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, int h, int hkv, int causal, float scale,
            cudaStream_t stream) {
-  const size_t smem =
-      sizeof(__nv_bfloat16) * ((kRows + kKv) * (D + 8) + kKv * (DV + 8));
-  cudaError_t err = cudaFuncSetAttribute(
+  const int g_count = h / hkv;
+  const int bq = kRows / g_count;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(&tm_q, q, b, sq, h, D, g_count, bq) ||
+      !make_map(&tm_k, k, b, skv, hkv, D, 1, kKv) ||
+      !make_map(&tm_v, v, b, skv, hkv, DV, 1, kKv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kSmem = Smem<D, DV>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int bq = kRows / (h / hkv);
-  const dim3 grid((sq + bq - 1) / bq, hkv, b);
-  flash_kernel<D, DV><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), sq, skv, h, hkv, causal, scale);
+  const dim3 grid(b * hkv, (sq + bq - 1) / bq);
+  flash_kernel<D, DV><<<grid, kThreads, kSmem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), sq, skv, h, hkv,
+      causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,7 +524,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 
 // Plain C entry point, loaded with ctypes.  q (b, sq, h, d), k (b, skv, hkv,
 // d), v (b, skv, hkv, dv), out (b, sq, h, dv): bf16, C-contiguous, 16-byte
-// aligned, on the current device; h / hkv divides 64.  (d, dv) is
+// aligned, on the current device; h / hkv divides 128.  (d, dv) is
 // (192, 128), the MLA widths of the serving path; other widths are one
 // more instantiation of the template.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,

@@ -1,9 +1,10 @@
-// Batched Pool-Adjacent-Violators (isotonic optimization, paper §5) for
-// Hopper (sm_90a).
+// Batched Pool-Adjacent-Violators for the entropic (kl) regularization
+// (isotonic optimization, paper §5) for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels src/repro/kernels/pav.py::pav_l2
-// (_pav_l2_kernel) and ::pav_kl (_pav_kl_kernel), both built on the stack
-// machine _pav_body and the pointer sweep _expand.
+// Replaces the Pallas TPU kernel src/repro/kernels/pav.py::pav_kl
+// (_pav_kl_kernel), built on the stack machine _pav_body and the pointer
+// sweep _expand.  (The l2 kernel, ::pav_l2, is the divide-and-conquer
+// kernel of pav_scan.cu.)
 //
 // Design: one thread owns one row (blockDim 128, grid ceil(rows / 128)).
 // The thread keeps the current block's two registers and the cached top of
@@ -13,26 +14,21 @@
 // positions.
 //
 // What bounds it: not bytes and not operations, but the O(n) sequential,
-// data-dependent depth of PAV per row.  The memory floor (read y, or s and
-// w, once and write v once) is microseconds at the main path's shapes;
-// each thread instead walks its row one dependent step after another, and
-// 128 rows fill one block on one SM of 132.  A single long row (the
-// trimmed token loss flattens a whole batch into one row of ~1e6) runs on
-// a single thread and leaves the rest of the card idle.  The fix for that
-// shape is a divide-and-conquer merge across threads
-// (src/repro/kernels/pav_scan.py::_merge_level), not a faster stack.
+// data-dependent depth of PAV per row.  The memory floor (read s and w once
+// and write v once) is microseconds at the main path's shapes; each thread
+// instead walks its row one dependent step after another, and 128 rows fill
+// one block on one SM of 132.  The fix is the divide-and-conquer merge of
+// pav_scan.cu, instantiated for the kl algebra (ROADMAP.md, queue 1).
 //
 // Semantics match the plain stack machine in repro_torch/kernels/pav.py
 // exactly, because the backward recovers the block structure from equal
 // adjacent output values:
 //   * merge while block_value(top) <= block_value(cur), ties included;
-//   * l2 registers are (sum, count), merged as cur + popped; the value is
-//     sum / fmaxf(count, 1e-30f);
-//   * kl registers are (LSE s, LSE w), merged with a stable logaddexp; the
+//   * registers are (LSE s, LSE w), merged with a stable logaddexp; the
 //     value is LSE s - LSE w;
 //   * one and the same float is written to every position of a block.
 // Build without --use_fast_math: its expf/log1pf approximations would move
-// the kl block values.
+// the kl block values.  The algebra is a template parameter (Op).
 
 #include <cstdint>
 
@@ -41,15 +37,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-
-struct L2 {
-  __device__ static float value(float sum, float count) {
-    return sum / fmaxf(count, 1e-30f);
-  }
-  __device__ static float merge(float cur, float popped) {
-    return cur + popped;
-  }
-};
 
 struct KL {
   __device__ static float value(float lse_s, float lse_w) {
@@ -63,8 +50,7 @@ struct KL {
   }
 };
 
-// reg0 / reg1: the row's inputs for the singleton registers
-// (l2: y and nullptr for a count of one; kl: s and w).
+// reg0 / reg1: the row's inputs for the singleton registers (kl: s and w).
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
 pav_kernel(const float* __restrict__ reg0, const float* __restrict__ reg1,
@@ -76,7 +62,7 @@ pav_kernel(const float* __restrict__ reg0, const float* __restrict__ reg1,
   if (row >= rows) return;
   const int64_t off = row * n;
   const float* a = reg0 + off;
-  const float* b = reg1 ? reg1 + off : nullptr;
+  const float* b = reg1 + off;
   float* s0 = stack0 + off;
   float* s1 = stack1 + off;
   int* st = stack_start + off;
@@ -86,7 +72,7 @@ pav_kernel(const float* __restrict__ reg0, const float* __restrict__ reg1,
   float top0 = 0.f, top1 = 0.f, top_val = 0.f;
   for (int64_t i = 0; i < n; ++i) {
     float c0 = a[i];
-    float c1 = b ? b[i] : 1.f;
+    float c1 = b[i];
     int start = static_cast<int>(i);
     float c_val = Op::value(c0, c1);
     while (top >= 0 && top_val <= c_val) {
@@ -128,15 +114,9 @@ int launch(const float* reg0, const float* reg1, float* out, float* stack,
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes.  Every array is (rows, n),
+// Plain C entry point, loaded with ctypes.  Every array is (rows, n),
 // C-contiguous, on the current device; `stack` holds 2 * rows * n floats
-// and `stack_start` rows * n ints.  Return the launch's cudaError_t.
-extern "C" int pav_l2_launch(const float* y, float* out, float* stack,
-                             int* stack_start, int64_t rows, int64_t n,
-                             cudaStream_t stream) {
-  return launch<L2>(y, nullptr, out, stack, stack_start, rows, n, stream);
-}
-
+// and `stack_start` rows * n ints.  Returns the launch's cudaError_t.
 extern "C" int pav_kl_launch(const float* s, const float* w, float* out,
                              float* stack, int* stack_start, int64_t rows,
                              int64_t n, cudaStream_t stream) {

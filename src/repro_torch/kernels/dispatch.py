@@ -17,6 +17,10 @@ Forward backends (``isotonic`` op)
 * ``"stack"``    the plain PyTorch stack machine (``pav_l2_stack`` /
                  ``pav_kl_stack``), on any device; the counterpart of the
                  reference's ``"lax"``.
+* ``"scan"``     the plain divide-and-conquer PAV
+                 (``repro_torch.kernels.pav_scan``), on any device; the
+                 reference's ``"scan"``, and the plain version of the l2
+                 kernel.
 * ``"minimax"``  the O(n^2) closed form (``repro_torch.kernels.ref``).
 
 Backward backends: ``"scatter"`` (``repro_torch.kernels.segment_vjp``).
@@ -48,7 +52,7 @@ from repro_torch.obs import tracing as _tracing
 ENV_VAR = "REPRO_TORCH_BACKEND"
 PROJECTION_ENV_VAR = "REPRO_TORCH_PROJECTION"
 
-BACKENDS = ("auto", "cuda", "stack", "minimax")
+BACKENDS = ("auto", "cuda", "stack", "scan", "minimax")
 PROJECTION_PATHS = ("auto", "fused", "composed")
 
 _REGISTRY: dict[tuple[str, str, str], Callable] = {}
@@ -209,6 +213,7 @@ def dispatch_projection(z: torch.Tensor, w: torch.Tensor, regularization: str,
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels import pav as _pav  # noqa: E402
+from repro_torch.kernels import pav_scan as _pav_scan  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
 from repro_torch.kernels import segment_vjp as _svjp  # noqa: E402
 
@@ -217,6 +222,9 @@ register("isotonic", "kl", "cuda")(_pav.pav_kl)
 
 register("isotonic", "l2", "stack")(_pav.pav_l2_stack)
 register("isotonic", "kl", "stack")(_pav.pav_kl_stack)
+
+register("isotonic", "l2", "scan")(_pav_scan.pav_l2_scan)
+register("isotonic", "kl", "scan")(_pav_scan.pav_kl_scan)
 
 register("isotonic", "l2", "minimax")(_ref.pav_l2_ref)
 register("isotonic", "kl", "minimax")(_ref.pav_kl_ref)

@@ -32,7 +32,7 @@ from repro_torch.kernels import _build
 # Launch count of the kernel; only the wrapper below increments it.
 LAUNCHES = {"flash_attention": 0}
 KERNEL_WIDTHS = ((192, 128),)   # (D, Dv) built: the MLA widths
-ROWS_PER_BLOCK = 64   # query rows of one block: G must divide it
+ROWS_PER_BLOCK = 128   # query rows of one block: G must divide it
 
 _NEG_INF = -1e30
 
@@ -134,13 +134,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _lib() -> ctypes.CDLL:
-  lib = _build.library("flash_attention")
-  lib.flash_attention_launch.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-      + [ctypes.c_float, ctypes.c_void_p])
-  lib.flash_attention_launch.restype = ctypes.c_int
-  return lib
+_LAUNCH = []   # the typed entry point, bound once at first use
+
+
+def _launch_fn():
+  if not _LAUNCH:
+    fn = _build.library("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _LAUNCH.append(fn)
+  return _LAUNCH[0]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -200,11 +204,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
   out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
-  with torch.cuda.device(q.device):
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().flash_attention_launch(
+  with _build.on_device(q.device):
+    err = _launch_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-        skv, h, hkv, d, dv, int(causal), 1.0 / math.sqrt(d), stream)
+        skv, h, hkv, d, dv, int(causal), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
   if err != 0:
     raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                        f"error {err}")

@@ -1,24 +1,29 @@
 """Batched Pool-Adjacent-Violators: the CUDA kernels and their plain version.
 
-Counterpart of ``repro.kernels.pav``.  Two implementations of one stack
-machine over a (rows, n) batch:
+Counterpart of ``repro.kernels.pav``.  Over a (rows, n) batch:
 
-* ``pav_l2`` / ``pav_kl``: wrappers around the hand-written CUDA kernels in
-  ``csrc/pav.cu`` (one thread per row; see the note there).  They take CUDA
-  tensors only and raise on any other device; the solve runs in f32 and
-  the result is cast back to the input dtype, like the Pallas wrappers.
-  Each launch adds one to ``LAUNCHES[<kernel>]``.
-* ``pav_l2_stack`` / ``pav_kl_stack``: the plain PyTorch version, a port of
+* ``pav_l2``: wrapper around the divide-and-conquer CUDA kernel in
+  ``csrc/pav_scan.cu`` (log2(n) merge levels across threads; see the note
+  there), whose plain version is ``pav_scan.pav_l2_scan``.
+* ``pav_kl``: wrapper around the stack-machine CUDA kernel in
+  ``csrc/pav.cu`` (one thread per row), whose plain version is
+  ``pav_kl_stack``.
+* Both take CUDA tensors only and raise on any other device; the solve runs
+  in f32 and the result is cast back to the input dtype, like the Pallas
+  wrappers.  Each launch adds one to ``LAUNCHES[<kernel>]``.
+* ``pav_l2_stack`` / ``pav_kl_stack``: the plain stack machine, a port of
   ``_pav_body`` that advances all rows together with masked pops, and of
   ``_expand`` as one vectorized gather (it only moves values), on any
-  device, in the input's precision (f64 stays f64).
-  It is the ``"stack"`` backend and what the kernels are held against.
+  device, in the input's precision (f64 stays f64).  It is the ``"stack"``
+  backend.
 
-Both merge a block into its left neighbour while the neighbour's value is
-``<=`` its own, accumulate in the same order and write one float per block,
-so on the same f32 input the l2 outputs agree bit for bit, and the kl
-outputs up to the last-place differences of the device's ``expf`` and
-``log1pf``.
+The stack machine merges a block into its left neighbour while the
+neighbour's value is ``<=`` its own and ``pav_kl`` does the same in the
+same order, so on the same f32 input the kl outputs agree up to the
+last-place differences of the device's ``expf`` and ``log1pf``.  The
+divide-and-conquer merge pools on strict ``<`` in another order, so
+``pav_l2`` agrees with ``pav_l2_scan`` bit for bit and with
+``pav_l2_stack`` to the last bits.
 """
 
 from __future__ import annotations
@@ -145,14 +150,25 @@ def pav_kl_stack(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+_BOUND: dict[str, ctypes.CDLL] = {}
 
 
-def _lib() -> ctypes.CDLL:
-  lib = _build.library("pav")
-  lib.pav_l2_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _PTR]
-  lib.pav_kl_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64,
-                                _PTR]
-  lib.pav_l2_launch.restype = lib.pav_kl_launch.restype = ctypes.c_int
+def _lib(name: str) -> ctypes.CDLL:
+  """The library of ``csrc/<name>.cu`` with its entry points typed, bound
+  once."""
+  lib = _BOUND.get(name)
+  if lib is None:
+    lib = _build.library(name)
+    if name == "pav":
+      lib.pav_kl_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64,
+                                    _PTR]
+      lib.pav_kl_launch.restype = ctypes.c_int
+    else:
+      lib.pav_scan_l2_work_bytes.argtypes = [_I64, _I64]
+      lib.pav_scan_l2_work_bytes.restype = _I64
+      lib.pav_scan_l2_launch.argtypes = [_PTR, _PTR, _PTR, _I64, _I64, _PTR]
+      lib.pav_scan_l2_launch.restype = ctypes.c_int
+    _BOUND[name] = lib
   return lib
 
 
@@ -173,32 +189,50 @@ def _check(name: str, *xs: torch.Tensor) -> None:
     raise ValueError(f"{name}: n = {x.shape[1]} does not fit int32 starts")
 
 
-def _launch(name: str, inputs: tuple[torch.Tensor, ...]) -> torch.Tensor:
-  _check(name, *inputs)
-  out_dtype = inputs[0].dtype
-  xs = [x.to(torch.float32).contiguous() for x in inputs]
-  rows, n = xs[0].shape
-  out = torch.empty_like(xs[0])
-  if rows == 0 or n == 0:
-    return out.to(out_dtype)
-  stack = torch.empty((2, rows, n), dtype=torch.float32, device=out.device)
-  stack_start = torch.empty((rows, n), dtype=torch.int32, device=out.device)
-  launch = getattr(_lib(), f"{name}_launch")
-  with torch.cuda.device(out.device):
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = launch(*[x.data_ptr() for x in xs], out.data_ptr(),
-                 stack.data_ptr(), stack_start.data_ptr(), rows, n, stream)
-  if err != 0:
-    raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-  LAUNCHES[name] += 1
-  return out.to(out_dtype)
+def _stream(device: torch.device) -> int:
+  return torch.cuda.current_stream(device).cuda_stream
 
 
 def pav_l2(y: torch.Tensor) -> torch.Tensor:
-  """Batched isotonic regression (non-increasing), CUDA (B, N) -> (B, N)."""
-  return _launch("pav_l2", (y,))
+  """Batched isotonic regression (non-increasing), CUDA (B, N) -> (B, N):
+  the divide-and-conquer kernel of ``csrc/pav_scan.cu``."""
+  _check("pav_l2", y)
+  rows, n = y.shape
+  if rows > 65535:
+    raise ValueError(f"pav_l2: {rows} rows; the kernel's grid takes at most "
+                     "65535")
+  x = y.to(torch.float32).contiguous()
+  out = torch.empty_like(x)
+  if rows == 0 or n == 0:
+    return out.to(y.dtype)
+  lib = _lib("pav_scan")
+  work = torch.empty((lib.pav_scan_l2_work_bytes(rows, n),),
+                     dtype=torch.uint8, device=x.device)
+  with _build.on_device(x.device):
+    err = lib.pav_scan_l2_launch(x.data_ptr(), out.data_ptr(),
+                                 work.data_ptr(), rows, n, _stream(x.device))
+  if err != 0:
+    raise RuntimeError(f"pav_l2 kernel launch failed with CUDA error {err}")
+  LAUNCHES["pav_l2"] += 1
+  return out.to(y.dtype)
 
 
 def pav_kl(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-  """Batched entropic isotonic optimization, CUDA (B, N) x (B, N) -> (B, N)."""
-  return _launch("pav_kl", (s, w))
+  """Batched entropic isotonic optimization, CUDA (B, N) x (B, N) -> (B, N):
+  the stack-machine kernel of ``csrc/pav.cu``."""
+  _check("pav_kl", s, w)
+  xs = [x.to(torch.float32).contiguous() for x in (s, w)]
+  rows, n = xs[0].shape
+  out = torch.empty_like(xs[0])
+  if rows == 0 or n == 0:
+    return out.to(s.dtype)
+  stack = torch.empty((2, rows, n), dtype=torch.float32, device=out.device)
+  stack_start = torch.empty((rows, n), dtype=torch.int32, device=out.device)
+  with _build.on_device(out.device):
+    err = _lib("pav").pav_kl_launch(
+        xs[0].data_ptr(), xs[1].data_ptr(), out.data_ptr(), stack.data_ptr(),
+        stack_start.data_ptr(), rows, n, _stream(out.device))
+  if err != 0:
+    raise RuntimeError(f"pav_kl kernel launch failed with CUDA error {err}")
+  LAUNCHES["pav_kl"] += 1
+  return out.to(s.dtype)
