@@ -119,3 +119,12 @@ def on_device(device):
   if device.index is None or device.index == torch.cuda.current_device():
     return contextlib.nullcontext()
   return torch.cuda.device(device)
+
+
+def current_stream(device) -> int:
+  """The raw handle of the current CUDA stream on ``device``: PyTorch's own
+  accessor, without the Stream object that ``torch.cuda.current_stream``
+  builds on every call."""
+  import torch
+
+  return torch._C._cuda_getCurrentRawStream(device.index)

@@ -27,27 +27,31 @@
 //     shared memory (S = Q K^T) and from registers (O += P V);
 //   * 64 query rows a block -> 128 rows, two consumer warpgroups of 64.
 //
-// Design.  One CTA of 3 warpgroups per (batch, kv head, 128 query rows).
-// A row is a (query position, group) pair, row = position * G + g, so all G
-// query heads of a kv head share each K/V tile.  Warpgroups 0 and 1
-// (setmaxnreg 232) each own 64 rows; warpgroup 2 (setmaxnreg 40) is the
-// producer, of which one thread issues every copy.  The producer loads the
-// Q tile once (three 64-column boxes, 48 KB) and then, for each kv tile of
-// kKv = 128 keys, K (48 KB) and V (32 KB) into the next stage of a
-// kStages = 2 ring (208 KB of shared memory in all), all 128-byte swizzled,
-// through 4-D tensor maps over (width, head, position, batch) so that rows
-// past Sq or Skv are zero-filled.  A consumer warpgroup waits for the
-// stage, computes S = Q K^T with 12 wgmma k-steps, runs the online softmax
-// on S in f32 registers (running max m, sum l; exp2 of scores prescaled by
+// Design.  A work item is (batch, kv head, 128 query rows).  A row is a
+// (query position, group) pair, row = position * G + g, so all G query
+// heads of a kv head share each K/V tile.  The kernel is persistent: one
+// CTA of 3 warpgroups per SM walks items blockIdx.x, + gridDim.x, ..., in
+// an order that puts the last (longest, under the causal mask) query tiles
+// first.  Warpgroups 0 and 1 (setmaxnreg 232) each own 64 rows of an item;
+// warpgroup 2 (setmaxnreg 40) is the producer, of which one thread issues
+// every copy.  For each item the producer loads the Q tile (three
+// 64-column boxes, 48 KB, once the consumers have released the previous
+// item's) and, for each kv tile of kKv = 128 keys, K (48 KB) and V (32 KB)
+// into the next stage of a kStages = 2 ring (208 KB of shared memory in
+// all), all 128-byte swizzled, through 4-D tensor maps over (width, head,
+// position, batch) so that rows past Sq or Skv are zero-filled.  The ring
+// runs on across items, so the next item's first tiles load while the
+// current one finishes.  A consumer warpgroup waits for the stage,
+// computes S = Q K^T with 12 wgmma k-steps, runs the online softmax on S in
+// f32 registers (running max m, sum l; exp2 of scores prescaled by
 // log2(e) / sqrt(D)), rounds P to bf16 in registers, where the S
 // accumulator's fragment of each 16 keys is exactly wgmma's register A
 // fragment, computes O += P V with 8 wgmma k-steps, and then releases the
 // stage (each consumer warp arrives on the stage's empty barrier).  Causal:
-// the CTA's kv tiles stop at its last query row; a warpgroup skips the
+// an item's kv tiles stop at its last query row; a warpgroup skips the
 // products of a tile wholly above its own rows, and masks only a tile that
-// crosses its diagonal or the end of Skv.  Query tiles are issued last
-// first (blockIdx.y counts down), so the longest rows start first.  The
-// output is written from registers, rows past Sq are not.
+// crosses its diagonal or the end of Skv.  The output is written from
+// registers; rows past Sq are not.
 //
 // Host side: the tensor maps are encoded per call with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
@@ -62,8 +66,8 @@
 namespace {
 
 constexpr int kRows = 128;           // query rows per CTA
-constexpr int kKv = 128;             // keys per kv tile
-constexpr int kStages = 2;
+constexpr int kKv = 64;              // keys per kv tile
+constexpr int kStages = 3;
 constexpr int kConsumerThreads = 256;
 constexpr int kThreads = kConsumerThreads + 128;
 constexpr int kBox = 64;             // bf16 columns per 128-byte swizzle box
@@ -135,8 +139,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // Keeps the compiler from moving accumulator reads or writes across a
@@ -147,22 +153,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 128, f32) += A B^T: A (64 x 16) and B (128 x 16), bf16, both in
+// D (64 x 64, f32) += A B^T: A (64 x 16) and B (64 x 16), bf16, both in
 // shared memory, K-major; scale_d = 0 ignores D's old value.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -170,17 +172,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
+
 
 // D (64 x 128, f32) += A B: A (64 x 16, bf16) in registers, B (16 x 128,
 // bf16) in shared memory, MN-major (transposed).
@@ -223,15 +218,81 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// 2^x on the special-function unit (one instruction; about 2 ulp).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one kv tile for this thread's two rows.  sc holds the
+// tile's raw scores (element e of n8 tile nt: row gid + 8 * (e / 2), key
+// kv0 + nt * 8 + tig * 2 + e % 2); masked where need_mask says so, they
+// become P = 2^(score * scale_log2 - m), packed to bf16 as wgmma's register
+// A fragments (the S fragment of keys 16 kk .. 16 kk + 15 is exactly the A
+// fragment of k-step kk).  m (log2 domain) and l are the running max and
+// sum; alpha the factor by which the output accumulated so far must
+// shrink.  A masked score is kNeg, whose 2^ is 0 once m is finite, which
+// it is from the first tile on (key 0 is every row's).
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[kKv / 2], uint32_t (&pa)[kKv / 16][4], float (&m)[2],
+    float (&l)[2], float (&alpha)[2], float scale_log2, bool need_mask,
+    int kv0, int skv, bool causal, const int (&qpos)[2], int tig) {
+  if (need_mask) {
+#pragma unroll
+    for (int k = 0; k < kKv / 2; ++k) {
+      const int kp = kv0 + (k / 4) * 8 + tig * 2 + (k & 1);
+      if (kp >= skv || (causal && kp > qpos[(k >> 1) & 1])) sc[k] = kNeg;
+    }
+  }
+  float row_max[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int k = 0; k < kKv / 2; ++k)
+    row_max[(k >> 1) & 1] = fmaxf(row_max[(k >> 1) & 1], sc[k]);
+  float neg_m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row_max[i] = fmaxf(row_max[i],
+                       __shfl_xor_sync(0xffffffffu, row_max[i], 1));
+    row_max[i] = fmaxf(row_max[i],
+                       __shfl_xor_sync(0xffffffffu, row_max[i], 2));
+    const float m_new = fmaxf(m[i], row_max[i] * scale_log2);
+    alpha[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    neg_m[i] = -m_new;
+  }
+  float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < kKv / 2; ++k) {
+    const int i = (k >> 1) & 1;
+    sc[k] = ex2(fmaf(sc[k], scale_log2, neg_m[i]));
+    row_sum[i] += sc[k];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], 1);
+    row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], 2);
+    l[i] = l[i] * alpha[i] + row_sum[i];
+  }
+#pragma unroll
+  for (int kk = 0; kk < kKv / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  }
+}
+
 template <int D, int DV>
 struct Smem {
   static constexpr int kQBytes = kRows * D * 2;          // 3 boxes at D 192
   static constexpr int kKBytes = kKv * D * 2;
   static constexpr int kVBytes = kKv * DV * 2;
   static constexpr int kStageBytes = kKBytes + kVBytes;
-  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
-  // q_full, full[kStages], empty[kStages]; plus 1 KB to align the base.
-  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kKvOffset = 2 * kQBytes;          // two Q buffers
+  static constexpr int kBarOffset = kKvOffset + kStages * kStageBytes;
+  // q_full[2], q_empty[2], full[kStages], empty[kStages]; plus 1 KB to
+  // align the base.
+  static constexpr int kBytes = kBarOffset + 8 * (4 + 2 * kStages) + 1024;
 };
 
 template <int D, int DV>
@@ -239,10 +300,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
-             __nv_bfloat16* __restrict__ out, int sq, int skv, int h,
-             int hkv, int causal, float scale_log2) {
+             __nv_bfloat16* __restrict__ out, int batch, int sq, int skv,
+             int h, int hkv, int causal, float scale_log2) {
   static_assert(D % kBox == 0 && DV % kBox == 0, "whole swizzle boxes");
-  static_assert(kKv == 128 && DV == 128, "the wgmma wrappers are n128");
+  static_assert(kKv == 64 && DV == 128,
+                "the wgmma wrappers are n64 (scores) and n128 (output)");
   using S = Smem<D, DV>;
   constexpr int kBoxBytes = kBox * 2;                    // 128-byte rows
   extern __shared__ unsigned char smem_raw[];
@@ -251,21 +313,38 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   unsigned char* q_s = smem;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBarOffset);
-  uint64_t* q_full = bars;
-  uint64_t* full = bars + 1;
-  uint64_t* empty = bars + 1 + kStages;
+  uint64_t* q_full = bars;        // per Q buffer
+  uint64_t* q_empty = bars + 2;
+  uint64_t* full = bars + 4;      // per stage
+  uint64_t* empty = bars + 4 + kStages;
 
+  // Work item i: query tile n_q - 1 - i / (batch * hkv) (the last, longest
+  // tiles first) of (batch, kv head) i % (batch * hkv).  The CTA takes
+  // items blockIdx.x, blockIdx.x + gridDim.x, ...
   const int g_count = h / hkv;
-  const int bq = kRows / g_count;               // query positions per CTA
-  const int kvh = blockIdx.x % hkv;
-  const int b = blockIdx.x / hkv;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;   // last tiles first
+  const int bq = kRows / g_count;               // query positions per item
+  const int n_bh = batch * hkv;
+  const int n_q = (sq + bq - 1) / bq;
+  const int n_items = n_bh * n_q;
   const int n_tiles = (skv + kKv - 1) / kKv;
-  const int last = causal ? min(n_tiles, (min(q0 + bq, sq) - 1) / kKv + 1)
-                          : n_tiles;
+  struct Item {
+    int kvh, b, q0, last;
+  };
+  auto item = [&](int i) {
+    Item it;
+    it.kvh = (i % n_bh) % hkv;
+    it.b = (i % n_bh) / hkv;
+    it.q0 = (n_q - 1 - i / n_bh) * bq;
+    it.last = causal ? min(n_tiles, (min(it.q0 + bq, sq) - 1) / kKv + 1)
+                     : n_tiles;
+    return it;
+  };
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(&q_full[qb], 1);
+      mbar_init(&q_empty[qb], kConsumerThreads / 32);
+    }
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumerThreads / 32);
@@ -278,22 +357,30 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Producer warpgroup: one thread issues every copy.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == kConsumerThreads) {
-      mbar_expect_tx(q_full, S::kQBytes);
-      for (int c = 0; c < D / kBox; ++c)
-        tma_load_4d(q_s + c * kRows * kBoxBytes, &tm_q, q_full, c * kBox,
-                    kvh * g_count, q0, b);
-      for (int j = 0; j < last; ++j) {
-        const int s = j % kStages;
-        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
-        unsigned char* k_s = smem + S::kQBytes + s * S::kStageBytes;
-        unsigned char* v_s = k_s + S::kKBytes;
-        mbar_expect_tx(&full[s], S::kStageBytes);
+      // tc counts kv tiles over all of the CTA's items (the ring's
+      // position), ic the items (Q buffer ic % 2, its use ic / 2).
+      int tc = 0, ic = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++ic) {
+        const Item it = item(i);
+        const int qb = ic & 1;
+        if (ic >= 2) mbar_wait(&q_empty[qb], ((ic >> 1) - 1) & 1);
+        mbar_expect_tx(&q_full[qb], S::kQBytes);
         for (int c = 0; c < D / kBox; ++c)
-          tma_load_4d(k_s + c * kKv * kBoxBytes, &tm_k, &full[s], c * kBox,
-                      kvh, j * kKv, b);
-        for (int c = 0; c < DV / kBox; ++c)
-          tma_load_4d(v_s + c * kKv * kBoxBytes, &tm_v, &full[s], c * kBox,
-                      kvh, j * kKv, b);
+          tma_load_4d(q_s + qb * S::kQBytes + c * kRows * kBoxBytes, &tm_q,
+                      &q_full[qb], c * kBox, it.kvh * g_count, it.q0, it.b);
+        for (int j = 0; j < it.last; ++j, ++tc) {
+          const int s = tc % kStages;
+          if (tc >= kStages) mbar_wait(&empty[s], ((tc / kStages) - 1) & 1);
+          unsigned char* k_s = smem + S::kKvOffset + s * S::kStageBytes;
+          unsigned char* v_s = k_s + S::kKBytes;
+          mbar_expect_tx(&full[s], S::kStageBytes);
+          for (int c = 0; c < D / kBox; ++c)
+            tma_load_4d(k_s + c * kKv * kBoxBytes, &tm_k, &full[s],
+                        c * kBox, it.kvh, j * kKv, it.b);
+          for (int c = 0; c < DV / kBox; ++c)
+            tma_load_4d(v_s + c * kKv * kBoxBytes, &tm_v, &full[s],
+                        c * kBox, it.kvh, j * kKv, it.b);
+        }
       }
     }
     return;
@@ -306,37 +393,43 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lane = threadIdx.x % 32;
   const int gid = lane / 4;                     // accumulator row group
   const int tig = lane % 4;                     // thread in group
-  int row[2], qpos[2];
-  for (int i = 0; i < 2; ++i) {
-    row[i] = wg * 64 + warp * 16 + gid + 8 * i;
-    qpos[i] = q0 + row[i] / g_count;
-  }
-  const int wg_first = q0 + (wg * 64) / g_count;
-  const int wg_last = min(q0 + (wg * 64 + 63) / g_count, sq - 1);
-  const bool wg_valid = wg_first < sq;
+  int row[2];
+  for (int i = 0; i < 2; ++i) row[i] = wg * 64 + warp * 16 + gid + 8 * i;
 
-  float m[2] = {kNeg, kNeg};
-  float l[2] = {0.f, 0.f};
-  float o[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
-  const uint32_t q_base = smem_addr(q_s) + wg * 64 * kBoxBytes;
-
-  mbar_wait(q_full, 0);
-  for (int j = 0; j < last; ++j) {
-    const int s = j % kStages;
-    mbar_wait(&full[s], (j / kStages) & 1);
-    const int kv0 = j * kKv;
-    if (wg_valid && (!causal || kv0 <= wg_last)) {
-      const uint32_t k_base =
-          smem_addr(smem + S::kQBytes + s * S::kStageBytes);
-      const uint32_t v_base = k_base + S::kKBytes;
-
-      // S = Q K^T: 64 rows x 128 keys, D / 16 k-steps of 16.
-      float sc[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-      fence_regs(sc);
+  int tc = 0, ic = 0;   // kv tiles and items before this one, as the producer
+  for (int item_i = blockIdx.x; item_i < n_items;
+       item_i += gridDim.x, ++ic) {
+    const Item it = item(item_i);
+    const int qb = ic & 1;
+    const uint32_t q_base =
+        smem_addr(q_s + qb * S::kQBytes) + wg * 64 * kBoxBytes;
+    int qpos[2];
+    for (int i = 0; i < 2; ++i) qpos[i] = it.q0 + row[i] / g_count;
+    const int wg_first = it.q0 + (wg * 64) / g_count;
+    const int wg_last = min(it.q0 + (wg * 64 + 63) / g_count, sq - 1);
+    // This warpgroup's tiles: under the causal mask, up to its last row;
+    // the item's later tiles it only waits for and releases.
+    const int nw = wg_first >= sq ? 0
+                   : causal       ? min(it.last, wg_last / kKv + 1)
+                                  : it.last;
+    auto stage_of = [&](int j) { return (tc + j) % kStages; };
+    auto wait_tile = [&](int j) {
+      mbar_wait(&full[stage_of(j)], ((tc + j) / kStages) & 1);
+    };
+    auto release_tile = [&](int j) {   // this warp is done with tile j
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage_of(j)]);
+    };
+    auto release_q = [&] {   // this warp no longer reads the item's Q
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty[qb]);
+    };
+    auto k_addr = [&](int j) {
+      return smem_addr(smem + S::kKvOffset + stage_of(j) * S::kStageBytes);
+    };
+    // S = Q K^T for tile j into sc: D / 16 k-steps, committed, not waited.
+    auto issue_scores = [&](float (&sc)[kKv / 2], int j) {
+      const uint32_t k_base = k_addr(j);
       wgmma_fence();
 #pragma unroll
       for (int c = 0; c < D / kBox; ++c) {
@@ -347,60 +440,39 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
                              1024),
                    desc_b128(k_base + c * kKv * kBoxBytes + kk * 32, 16,
                              1024),
-                   1);
+                   c + kk > 0);   // the first k-step overwrites sc
         }
       }
       wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(sc);
+    };
+    auto need_mask = [&](int j) {
+      return (j + 1) * kKv > skv || (causal && (j + 1) * kKv - 1 > wg_first);
+    };
 
-      // Scale (log2 domain), mask, online softmax.  Element e of n8 tile nt
-      // is row gid + 8 * (e / 2), key kv0 + nt * 8 + tig * 2 + e % 2.
-      const bool need_mask =
-          kv0 + kKv > skv || (causal && kv0 + kKv - 1 > wg_first);
-      float row_max[2] = {kNeg, kNeg};
+    float m[2] = {kNeg, kNeg};
+    float l[2] = {0.f, 0.f};
+    float alpha[2];
+    float o[64];
 #pragma unroll
-      for (int nt = 0; nt < kKv / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          float x = sc[nt * 4 + e] * scale_log2;
-          if (need_mask) {
-            const int kp = kv0 + nt * 8 + tig * 2 + (e & 1);
-            if (kp >= skv || (causal && kp > qpos[i])) x = kNeg;
-          }
-          sc[nt * 4 + e] = x;
-          row_max[i] = fmaxf(row_max[i], x);
-        }
-      }
-      float alpha[2], row_sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        row_max[i] = fmaxf(row_max[i],
-                           __shfl_xor_sync(0xffffffffu, row_max[i], 1));
-        row_max[i] = fmaxf(row_max[i],
-                           __shfl_xor_sync(0xffffffffu, row_max[i], 2));
-        const float m_new = fmaxf(m[i], row_max[i]);
-        alpha[i] = exp2f(m[i] - m_new);
-        m[i] = m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < kKv / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const float x = sc[nt * 4 + e];
-          const float p = x == kNeg ? 0.f : exp2f(x - m[i]);
-          sc[nt * 4 + e] = p;
-          row_sum[i] += p;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], 1);
-        row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], 2);
-        l[i] = l[i] * alpha[i] + row_sum[i];
-      }
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float sc[kKv / 2];
+    uint32_t pa[kKv / 16][4];
+
+    mbar_wait(&q_full[qb], (ic >> 1) & 1);
+    if (nw == 0) release_q();
+    if (nw > 0) {
+      wait_tile(0);
+      issue_scores(sc, 0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (nw == 1) release_q();
+      softmax_tile(sc, pa, m, l, alpha, scale_log2, need_mask(0), 0, skv,
+                   causal, qpos, tig);
+    }
+    // Tile j's P V product and tile j + 1's scores go to the tensor cores
+    // together; tile j + 1's softmax follows once both are done (and
+    // overlaps the other warpgroup's products).
+    for (int j = 0; j < nw; ++j) {
 #pragma unroll
       for (int nt = 0; nt < DV / 8; ++nt) {
         o[nt * 4 + 0] *= alpha[0];
@@ -408,19 +480,13 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
         o[nt * 4 + 2] *= alpha[1];
         o[nt * 4 + 3] *= alpha[1];
       }
-
-      // O += P V: P in bf16 registers (the S fragment of keys 16 kk ..
-      // 16 kk + 15 is wgmma's A fragment), V transposed from shared memory.
-      // Every fragment is packed before the first product, so the products
-      // issue back to back.
-      uint32_t pa[kKv / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kKv / 16; ++kk) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-      }
       fence_regs(o);
+      if (j + 1 < nw) {
+        wait_tile(j + 1);
+        issue_scores(sc, j + 1);
+      }
+      // O += P V, V transposed from shared memory.
+      const uint32_t v_base = k_addr(j) + S::kKBytes;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKv / 16; ++kk) {
@@ -429,24 +495,35 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
                            1024));
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(o);
+      release_tile(j);
+      if (j + 1 < nw) {
+        fence_regs(sc);
+        if (j + 2 == nw) release_q();
+        softmax_tile(sc, pa, m, l, alpha, scale_log2, need_mask(j + 1),
+                     (j + 1) * kKv, skv, causal, qpos, tig);
+      }
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with stage s
-  }
+    for (int j = nw; j < it.last; ++j) {
+      wait_tile(j);
+      release_tile(j);
+    }
+    tc += it.last;
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (qpos[i] >= sq) continue;
-    const int head = kvh * g_count + row[i] % g_count;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* op =
-        out + ((static_cast<int64_t>(b) * sq + qpos[i]) * h + head) * DV;
+    for (int i = 0; i < 2; ++i) {
+      if (qpos[i] >= sq) continue;
+      const int head = it.kvh * g_count + row[i] % g_count;
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* op =
+          out +
+          ((static_cast<int64_t>(it.b) * sq + qpos[i]) * h + head) * DV;
 #pragma unroll
-    for (int nt = 0; nt < DV / 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(op + nt * 8 + tig * 2) =
-          pack_bf16(o[nt * 4 + 2 * i] * inv, o[nt * 4 + 2 * i + 1] * inv);
+      for (int nt = 0; nt < DV / 8; ++nt) {
+        *reinterpret_cast<uint32_t*>(op + nt * 8 + tig * 2) =
+            pack_bf16(o[nt * 4 + 2 * i] * inv, o[nt * 4 + 2 * i + 1] * inv);
+      }
     }
   }
 }
@@ -509,13 +586,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int kSmem = Smem<D, DV>::kBytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+  // Per device, once: the shared-memory opt-in and the SM count.
+  static int sms[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * hkv, (sq + bq - 1) / bq);
+  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[device] == 0) {
+    err = cudaFuncSetAttribute(flash_kernel<D, DV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms[device],
+                                 cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // Persistent: one CTA per SM (the shared memory admits one), each
+  // walking its share of the work items.
+  const int n_items = b * hkv * ((sq + bq - 1) / bq);
+  const int grid = n_items < sms[device] ? n_items : sms[device];
   flash_kernel<D, DV><<<grid, kThreads, kSmem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), sq, skv, h, hkv,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), b, sq, skv, h, hkv,
       causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }

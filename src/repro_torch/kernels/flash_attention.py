@@ -208,7 +208,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _launch_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
         skv, h, hkv, d, dv, int(causal), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.current_stream(q.device))
   if err != 0:
     raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                        f"error {err}")

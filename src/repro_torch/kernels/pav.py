@@ -189,10 +189,6 @@ def _check(name: str, *xs: torch.Tensor) -> None:
     raise ValueError(f"{name}: n = {x.shape[1]} does not fit int32 starts")
 
 
-def _stream(device: torch.device) -> int:
-  return torch.cuda.current_stream(device).cuda_stream
-
-
 def pav_l2(y: torch.Tensor) -> torch.Tensor:
   """Batched isotonic regression (non-increasing), CUDA (B, N) -> (B, N):
   the divide-and-conquer kernel of ``csrc/pav_scan.cu``."""
@@ -210,7 +206,8 @@ def pav_l2(y: torch.Tensor) -> torch.Tensor:
                      dtype=torch.uint8, device=x.device)
   with _build.on_device(x.device):
     err = lib.pav_scan_l2_launch(x.data_ptr(), out.data_ptr(),
-                                 work.data_ptr(), rows, n, _stream(x.device))
+                                 work.data_ptr(), rows, n,
+                                 _build.current_stream(x.device))
   if err != 0:
     raise RuntimeError(f"pav_l2 kernel launch failed with CUDA error {err}")
   LAUNCHES["pav_l2"] += 1
@@ -231,7 +228,8 @@ def pav_kl(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   with _build.on_device(out.device):
     err = _lib("pav").pav_kl_launch(
         xs[0].data_ptr(), xs[1].data_ptr(), out.data_ptr(), stack.data_ptr(),
-        stack_start.data_ptr(), rows, n, _stream(out.device))
+        stack_start.data_ptr(), rows, n,
+        _build.current_stream(out.device))
   if err != 0:
     raise RuntimeError(f"pav_kl kernel launch failed with CUDA error {err}")
   LAUNCHES["pav_kl"] += 1
