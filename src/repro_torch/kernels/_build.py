@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 CHECKOUT = Path(__file__).resolve().parents[3]
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[tuple[str, str], Callable[..., int]] = {}
 BUILD_LOG: dict[str, str] = {}   # nvcc's output per source (ptxas -v)
 BUILD_SECONDS: dict[str, float] = {}   # per source, from start to exit
 
@@ -108,6 +110,18 @@ def library(name: str) -> ctypes.CDLL:
       raise RuntimeError(f"no CUDA source csrc/{name}.cu")
     lib = _LIBS[name] = ctypes.CDLL(str(paths[name]))
   return lib
+
+
+def entry(name: str, fn: str, argtypes: list, restype=ctypes.c_int):
+  """The C function ``fn`` of ``csrc/<name>.cu``, typed, bound once (a
+  wrapper calls it on every launch)."""
+  f = _ENTRIES.get((name, fn))
+  if f is None:
+    f = getattr(library(name), fn)
+    f.argtypes = argtypes
+    f.restype = restype
+    _ENTRIES[(name, fn)] = f
+  return f
 
 
 def on_device(device):

@@ -17,15 +17,20 @@
 // at 3.35 TB/s), so the bound is bytes.  What held the first (mma.sync)
 // version at 7.6x that bound, and what this design does about each:
 //   * synchronous K/V loads between two barriers, nothing in flight during
-//     the products -> a producer warp streams K and V tiles with TMA into a
-//     ring of kStages stages under full/empty mbarriers, while the consumer
-//     warpgroups compute on the previous stage;
+//     the products -> a producer warpgroup streams K and V tiles with TMA
+//     into a ring of kStages stages under full/empty mbarriers, while the
+//     consumer warpgroups compute on earlier stages;
 //   * V gathered by 16-bit shared loads -> V stays in shared memory as
 //     TMA wrote it and is read by the tensor cores as a transposed
 //     (MN-major) wgmma operand;
-//   * mma.sync m16n8k16 -> wgmma m64n128k16, asynchronous, from swizzled
-//     shared memory (S = Q K^T) and from registers (O += P V);
+//   * mma.sync m16n8k16 -> wgmma, asynchronous, from swizzled shared memory
+//     (S = Q K^T, m64n64k16) and from registers (O += P V, m64n128k16);
 //   * 64 query rows a block -> 128 rows, two consumer warpgroups of 64.
+// What still holds it back (chip_smoke.py times it; PERF.md): each
+// warpgroup alternates between its products and its softmax (exp2 and
+// some 5 other operations a score), and the two warpgroups are not
+// scheduled against each other, so the tensor cores idle while both run
+// softmax; the products' own issue also stalls.
 //
 // Design.  A work item is (batch, kv head, 128 query rows).  A row is a
 // (query position, group) pair, row = position * G + g, so all G query
@@ -35,20 +40,23 @@
 // first.  Warpgroups 0 and 1 (setmaxnreg 232) each own 64 rows of an item;
 // warpgroup 2 (setmaxnreg 40) is the producer, of which one thread issues
 // every copy.  For each item the producer loads the Q tile (three
-// 64-column boxes, 48 KB, once the consumers have released the previous
-// item's) and, for each kv tile of kKv = 128 keys, K (48 KB) and V (32 KB)
-// into the next stage of a kStages = 2 ring (208 KB of shared memory in
-// all), all 128-byte swizzled, through 4-D tensor maps over (width, head,
-// position, batch) so that rows past Sq or Skv are zero-filled.  The ring
-// runs on across items, so the next item's first tiles load while the
-// current one finishes.  A consumer warpgroup waits for the stage,
-// computes S = Q K^T with 12 wgmma k-steps, runs the online softmax on S in
-// f32 registers (running max m, sum l; exp2 of scores prescaled by
-// log2(e) / sqrt(D)), rounds P to bf16 in registers, where the S
-// accumulator's fragment of each 16 keys is exactly wgmma's register A
-// fragment, computes O += P V with 8 wgmma k-steps, and then releases the
-// stage (each consumer warp arrives on the stage's empty barrier).  Causal:
-// an item's kv tiles stop at its last query row; a warpgroup skips the
+// 64-column boxes, 48 KB) into one of two Q buffers, and for each kv tile
+// of kKv = 64 keys K (24 KB) and V (16 KB) into the next stage of a
+// kStages = 3 ring (216 KB of shared memory in all), all 128-byte
+// swizzled, through 4-D tensor maps over (width, head, position, batch) so
+// that rows past Sq or Skv are zero-filled.  Ring and Q buffers run on
+// across items, so the next item's loads overlap the current one.  A
+// consumer warpgroup computes S = Q K^T (12 wgmma k-steps) and runs the
+// online softmax on S in f32 registers (running max m and sum l in the
+// log2 domain: one FFMA and one ex2 a score), which leaves P rounded to
+// bf16 in registers: the S accumulator's fragment of each 16 keys is
+// exactly wgmma's register A fragment.  Then, for each tile j, it issues
+// O += P_j V_j (4 k-steps) together with S_{j+1} = Q K_{j+1}^T, waits for
+// both, releases stage j (each consumer warp arrives on its empty
+// barrier) and runs tile j + 1's softmax.  Between a product's issue and
+// its wait no other instruction touches an accumulator, or ptxas would
+// serialize every wgmma of the kernel (its warning C7514).  Causal: an
+// item's kv tiles stop at its last query row; a warpgroup skips the
 // products of a tile wholly above its own rows, and masks only a tile that
 // crosses its diagonal or the end of Skv.  The output is written from
 // registers; rows past Sq are not.

@@ -73,7 +73,6 @@ struct L2 {
   __device__ static float merge(float a, float b) { return a + b; }
 };
 
-template <class Op>
 struct TileSmem {
   float* sum;
   uint16_t* cnt;
@@ -87,7 +86,7 @@ struct TileSmem {
 // Merges pair p of level lvl (segments of m slots at base) in shared memory
 // by the reference's rules; writes the pool into its slot.
 template <class Op>
-__device__ void tile_merge_pair(const TileSmem<Op>& t, int base, int m,
+__device__ void tile_merge_pair(const TileSmem& t, int base, int m,
                                 int a, int b, int p) {
   int dst0 = a, jj = 0;
   if (b > 0) {
@@ -141,7 +140,7 @@ tile_kernel(const float* __restrict__ y, float* __restrict__ out,
   const int row = blockIdx.y;
   const int64_t off = static_cast<int64_t>(blockIdx.x) * tile;
   const int nt = static_cast<int>(min(static_cast<int64_t>(tile), n - off));
-  TileSmem<Op> t;
+  TileSmem t;
   t.sum = reinterpret_cast<float*>(smem_raw);
   t.cnt = reinterpret_cast<uint16_t*>(t.sum + tile);
   t.start = t.cnt + tile;
@@ -166,7 +165,7 @@ tile_kernel(const float* __restrict__ y, float* __restrict__ out,
       const int base = 2 * m * p;
       const int a = lvl == 0 ? 1 : t.nb[2 * p];
       const int b = base + m >= nt ? 0 : (lvl == 0 ? 1 : t.nb[2 * p + 1]);
-      tile_merge_pair(t, base, m, a, b, p);
+      tile_merge_pair<Op>(t, base, m, a, b, p);
     }
     __syncthreads();
     for (int p = threadIdx.x; p < npairs; p += kThreads) {
@@ -324,7 +323,6 @@ merge_kernel(float* __restrict__ g_sum, int* __restrict__ g_cnt,
 }
 
 // Every slot of a level above the tile to its place in the other buffer.
-template <class Op>
 __global__ void __launch_bounds__(256)
 move_kernel(const float* __restrict__ in_sum, const int* __restrict__ in_cnt,
             const int* __restrict__ in_start, float* __restrict__ out_sum,
@@ -452,7 +450,7 @@ int launch(const float* y, float* out, void* work, int64_t rows, int64_t n,
         n_tiles, npairs);
     const dim3 vgrid(static_cast<unsigned>((n + 255) / 256),
                      static_cast<unsigned>(rows));
-    move_kernel<Op><<<vgrid, 256, 0, stream>>>(
+    move_kernel<<<vgrid, 256, 0, stream>>>(
         w.sum[cur], w.cnt[cur], w.start[cur], w.sum[1 - cur], w.cnt[1 - cur],
         w.start[1 - cur], w.pair_info, n, lvl, n_tiles);
     err = cudaGetLastError();

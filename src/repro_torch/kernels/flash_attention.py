@@ -134,19 +134,6 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-_LAUNCH = []   # the typed entry point, bound once at first use
-
-
-def _launch_fn():
-  if not _LAUNCH:
-    fn = _build.library("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _LAUNCH.append(fn)
-  return _LAUNCH[0]
-
-
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
   for name, t in (("q", q), ("k", k), ("v", v)):
     if t.device != q.device:
@@ -204,8 +191,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
   out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+  launch = _build.entry(
+      "flash_attention", "flash_attention_launch",
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+      + [ctypes.c_float, ctypes.c_void_p])
   with _build.on_device(q.device):
-    err = _launch_fn()(
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
         skv, h, hkv, d, dv, int(causal), 1.0 / math.sqrt(d),
         _build.current_stream(q.device))

@@ -150,26 +150,6 @@ def pav_kl_stack(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
-_BOUND: dict[str, ctypes.CDLL] = {}
-
-
-def _lib(name: str) -> ctypes.CDLL:
-  """The library of ``csrc/<name>.cu`` with its entry points typed, bound
-  once."""
-  lib = _BOUND.get(name)
-  if lib is None:
-    lib = _build.library(name)
-    if name == "pav":
-      lib.pav_kl_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64,
-                                    _PTR]
-      lib.pav_kl_launch.restype = ctypes.c_int
-    else:
-      lib.pav_scan_l2_work_bytes.argtypes = [_I64, _I64]
-      lib.pav_scan_l2_work_bytes.restype = _I64
-      lib.pav_scan_l2_launch.argtypes = [_PTR, _PTR, _PTR, _I64, _I64, _PTR]
-      lib.pav_scan_l2_launch.restype = ctypes.c_int
-    _BOUND[name] = lib
-  return lib
 
 
 def _check(name: str, *xs: torch.Tensor) -> None:
@@ -201,13 +181,14 @@ def pav_l2(y: torch.Tensor) -> torch.Tensor:
   out = torch.empty_like(x)
   if rows == 0 or n == 0:
     return out.to(y.dtype)
-  lib = _lib("pav_scan")
-  work = torch.empty((lib.pav_scan_l2_work_bytes(rows, n),),
-                     dtype=torch.uint8, device=x.device)
+  work_bytes = _build.entry("pav_scan", "pav_scan_l2_work_bytes",
+                            [_I64, _I64], _I64)(rows, n)
+  work = torch.empty((work_bytes,), dtype=torch.uint8, device=x.device)
+  launch = _build.entry("pav_scan", "pav_scan_l2_launch",
+                        [_PTR, _PTR, _PTR, _I64, _I64, _PTR])
   with _build.on_device(x.device):
-    err = lib.pav_scan_l2_launch(x.data_ptr(), out.data_ptr(),
-                                 work.data_ptr(), rows, n,
-                                 _build.current_stream(x.device))
+    err = launch(x.data_ptr(), out.data_ptr(), work.data_ptr(), rows, n,
+                 _build.current_stream(x.device))
   if err != 0:
     raise RuntimeError(f"pav_l2 kernel launch failed with CUDA error {err}")
   LAUNCHES["pav_l2"] += 1
@@ -225,8 +206,10 @@ def pav_kl(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(s.dtype)
   stack = torch.empty((2, rows, n), dtype=torch.float32, device=out.device)
   stack_start = torch.empty((rows, n), dtype=torch.int32, device=out.device)
+  launch = _build.entry("pav", "pav_kl_launch",
+                        [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _PTR])
   with _build.on_device(out.device):
-    err = _lib("pav").pav_kl_launch(
+    err = launch(
         xs[0].data_ptr(), xs[1].data_ptr(), out.data_ptr(), stack.data_ptr(),
         stack_start.data_ptr(), rows, n,
         _build.current_stream(out.device))

@@ -123,10 +123,6 @@ def _pad_cols(x: torch.Tensor, n_pad: int, fill: torch.Tensor):
   return torch.cat([x, fill.expand(x.shape[0], n_pad)], dim=1)
 
 
-def l2_block_value(regs):
-  return regs[0] / torch.clamp(regs[1], min=1e-30)
-
-
 def pav_l2_scan(y: torch.Tensor) -> torch.Tensor:
   """Batched isotonic regression (non-increasing) on (B, n): D&C PAV."""
   dt = torch.promote_types(y.dtype, torch.float32)
@@ -139,7 +135,7 @@ def pav_l2_scan(y: torch.Tensor) -> torch.Tensor:
   yp = _pad_cols(yc, _next_pow2(n) - n, yc.amin(dim=1, keepdim=True))
   out = _dac_pav((yp, torch.ones_like(yp)),
                  merge=lambda a, c: (a[0] + c[0], a[1] + c[1]),
-                 block_value=l2_block_value)
+                 block_value=lambda r: r[0] / torch.clamp(r[1], min=1e-30))
   return out[:, :n].to(y.dtype)
 
 

@@ -77,15 +77,6 @@ def soft_topk_gates_plain(logits: torch.Tensor, k: int,
   return out.to(logits.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-  lib = _build.library("soft_topk")
-  lib.soft_topk_launch.argtypes = [
-      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-      ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-  lib.soft_topk_launch.restype = ctypes.c_int
-  return lib
-
-
 def soft_topk_gates(logits: torch.Tensor, k: int,
                     regularization_strength: float = 1.0) -> torch.Tensor:
   """Fused soft top-k gate mass for each row of ``logits`` (T, E).
@@ -104,11 +95,13 @@ def soft_topk_gates(logits: torch.Tensor, k: int,
   out = torch.empty_like(z)
   if rows == 0:
     return out.to(logits.dtype)
-  with torch.cuda.device(z.device):
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    err = _lib().soft_topk_launch(z.data_ptr(), out.data_ptr(), rows, e,
-                                  _next_pow2(max(e, 2)), k,
-                                  float(regularization_strength), stream)
+  launch = _build.entry("soft_topk", "soft_topk_launch", [
+      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+      ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+  with _build.on_device(z.device):
+    err = launch(z.data_ptr(), out.data_ptr(), rows, e,
+                 _next_pow2(max(e, 2)), k, float(regularization_strength),
+                 _build.current_stream(z.device))
   if err != 0:
     raise RuntimeError(f"soft_topk_gates kernel launch failed with CUDA "
                        f"error {err}")
