@@ -107,6 +107,10 @@ REPLACES = {"pav_l2": "src/repro/kernels/pav.py:196",
             "pav_kl": "src/repro/kernels/pav.py:213",
             "soft_topk_gates": "src/repro/kernels/soft_topk.py:109",
             "flash_attention": "src/repro/kernels/flash_attention.py:83"}
+# Names of each PAV kernel's CUDA kernels, as the profiler shows them.
+DEVICE_NAMES = {"pav_l2": ("tile_kernel", "merge_kernel", "move_kernel",
+                           "expand_kernel"),
+                "pav_kl": ("pav_kernel",)}
 SOURCES = {"pav_l2": "src/repro_torch/kernels/csrc/pav_scan.cu",
            "pav_kl": "src/repro_torch/kernels/csrc/pav.cu",
            "soft_topk_gates": "src/repro_torch/kernels/csrc/soft_topk.cu",
@@ -642,10 +646,11 @@ def profile(fn) -> tuple[float, float, list[tuple[str, float]]]:
                       for e in top]
 
 
-def kernel_device_ms(fn, name: str, calls: int = 20) -> float:
-  """Device time per launch of the CUDA kernel whose name contains
-  ``name``, from torch.profiler over ``calls`` calls of ``fn``: the
-  kernel's own time, whatever the host spends around it."""
+def kernel_device_ms(fn, name, calls: int = 20) -> float:
+  """Device time per call of the CUDA kernels whose names contain
+  ``name`` (or one of a tuple of names; ``""``: every kernel ``fn`` runs),
+  from torch.profiler over ``calls`` calls of ``fn``: their own time,
+  whatever the host spends around them."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as torch_profile
@@ -657,8 +662,10 @@ def kernel_device_ms(fn, name: str, calls: int = 20) -> float:
     for _ in range(calls):
       fn()
     torch.cuda.synchronize()
+  names = (name,) if isinstance(name, str) else name
   total = sum(e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and name in e.key)
+              if e.device_type == DeviceType.CUDA
+              and any(n in e.key for n in names))
   return total / 1e3 / calls
 
 
@@ -695,8 +702,13 @@ def serve_times(res, rec, serve, st, fa, pav, name_limit):
   plain_ms = median_ms(lambda: fa.flash_attention_plain(q, kx, v,
                                                         causal=causal), 5)
   qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, v))
-  lib_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-      qt, kt, vt, is_causal=causal), 20)
+
+  def sdpa():
+    torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal)
+
+  lib_ms = median_ms(sdpa, 20)
+  lib_dev_ms = kernel_device_ms(sdpa, "")   # every kernel of the call
   bound_ms, bound_by = attn_bound(q, kx, v, causal)
   rows["flash_attention"] = {"ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by,
@@ -705,10 +717,12 @@ def serve_times(res, rec, serve, st, fa, pav, name_limit):
                f"{tuple(v.shape)} causal: kernel {ms:.4f} ms (device "
                f"{dev_ms:.4f} ms a launch, profiler), plain "
                f"{plain_ms:.4f} ms, scaled_dot_product_attention "
-               f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); the "
+               f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms, profiler), "
+               f"bound {bound_ms:.5f} ms ({bound_by}); the "
                f"bound is {bound_ms / ms:.1%} of the kernel's time "
                f"({bound_ms / dev_ms:.1%} of its device time) and "
-               f"{bound_ms / lib_ms:.1%} of SDPA's [{name_limit}]")
+               f"{bound_ms / lib_ms:.1%} of SDPA's ({bound_ms / lib_dev_ms:.1%}"
+               f" of its device time) [{name_limit}]")
   prefill, decode, same = [], [], 0
   for _ in range(3):
     again = serve.generate(cfg, res["model"], res["prompts"], SERVE_GEN)
@@ -792,8 +806,10 @@ def main() -> int:
       for shape in SHAPES}
   cot_np = {shape: rng.normal(size=shape) for shape in SHAPES}
   tokens_np = rng.gamma(2.0, 1.25, size=(8, TOKENS // 8))  # per-token CE
-  max_err = {"pav_l2": 0.0, "pav_kl": 0.0, "soft_topk_gates": 0.0,
-             "flash_attention": 0.0}
+  # pav_l2 is held bit for bit against its plain version pav_l2_scan and
+  # within the contract against the stack machine, kept apart.
+  max_err = {"pav_l2": 0.0, "pav_l2 vs stack": 0.0, "pav_kl": 0.0,
+             "soft_topk_gates": 0.0, "flash_attention": 0.0}
 
   def record(kname, out, ref):
     err = close(out, ref)
@@ -807,7 +823,8 @@ def main() -> int:
       for kname, args in (("pav_l2", (y,)), ("pav_kl", (s, w))):
         args = [to_dev(a, dev) for a in args]
         out = getattr(pav, kname)(*args)
-        errs.append(record(kname, out, getattr(pav, f"{kname}_stack")(*args)))
+        key = "pav_l2 vs stack" if kname == "pav_l2" else kname
+        errs.append(record(key, out, getattr(pav, f"{kname}_stack")(*args)))
       say(f"kernels: ({rows}, {n}) {kind}: max |kernel - plain| on the card"
           f" l2 {errs[0]:.3e} kl {errs[1]:.3e} (tol 1e-5 * (1 + max|plain|))")
 
@@ -854,9 +871,10 @@ def main() -> int:
       max_err[kname] = max(max_err[kname], err)
 
     t0 = time.perf_counter()
-    for (kname, what, shape, out, _, _), future in zip(jobs, futures):
+    for (kname, what, shape, out, fn_name, _), future in zip(jobs, futures):
       ref, seconds = future.result()
-      err = record(kname, out, torch.from_numpy(ref))
+      key = "pav_l2 vs stack" if fn_name == "pav_l2_stack" else kname
+      err = record(key, out, torch.from_numpy(ref))
       say(f"kernels: {kname} {shape} {what}: max |kernel - plain on CPU "
           f"copy| {err:.3e} (tol 1e-5 * (1 + max|plain|); "
           f"{int((out != torch.from_numpy(ref)).sum())} of {out.numel()} "
@@ -870,6 +888,10 @@ def main() -> int:
         f"CPU {seconds:.1f} s)")
     say(f"kernels: waited {time.perf_counter() - t0:.1f} s for the CPU "
         "workers after phase 4")
+    say(f"kernels: pav_l2 worst |kernel - plain divide and conquer| "
+        f"{max_err['pav_l2']:.3e}, worst |kernel - stack machine| "
+        f"{max_err['pav_l2 vs stack']:.3e} (both within 1e-5 * (1 + "
+        "max|plain|))")
   finally:
     pool.shutdown(wait=True, cancel_futures=True)
 
@@ -903,6 +925,11 @@ def main() -> int:
       bound_ms = max(bytes_ms, ops_ms)
       bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
       ms = median_ms(lambda: kernel(*args), reps)
+      dev_text = ""
+      if kind == "main":
+        dev_ms = kernel_device_ms(lambda: kernel(*args), DEVICE_NAMES[kname],
+                                  reps)
+        dev_text = f" (device {dev_ms:.4f} ms, profiler)"
       plain_ms = None    # the stack machine takes minutes on one long row
       if kind == "main" and (kname == "pav_l2" or (rows, n) in SHAPES):
         plain = plain_fns[kname]
@@ -914,7 +941,8 @@ def main() -> int:
       plain_text = ("not measured" if plain_ms is None
                     else f"{plain_ms:.1f} ms ({plain_fns[kname].__name__})")
       lines.append(f"times: {kname} ({rows}, {n}) {kind} input: kernel "
-                   f"{ms:.4f} ms, plain {plain_text}, bound {bound_ms:.5f} ms"
+                   f"{ms:.4f} ms{dev_text}, plain {plain_text}, bound "
+                   f"{bound_ms:.5f} ms"
                    f" ({bound_by}), {blocks} blocks [{name_limit}]")
     sort_ms = median_ms(
         lambda: torch.sort(theta, dim=-1, descending=True, stable=True), reps)
