@@ -1,37 +1,51 @@
 // Divide-and-conquer Pool-Adjacent-Violators (isotonic regression, paper
-// §5) across threads, for Hopper (sm_90a).  l2 only is built and launched.
+// §5) across threads, for Hopper (sm_90a), in the quadratic (l2) and the
+// entropic (kl) form.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/pav.py::pav_l2
-// (_pav_l2_kernel) on the port's l2 path, as the parallel form of the
+// Replaces the Pallas TPU kernels src/repro/kernels/pav.py::pav_l2 and
+// ::pav_kl (_pav_l2_kernel, _pav_kl_kernel), as the parallel form of the
 // reference's "scan" backend src/repro/kernels/pav_scan.py (_merge_level,
-// _dac_pav); its plain version is repro_torch/kernels/pav_scan.py::
-// pav_l2_scan.
+// _dac_pav); its plain versions are repro_torch/kernels/pav_scan.py::
+// pav_l2_scan and ::pav_kl_scan.
 //
 // Algorithm.  Level l merges adjacent solved segments of 2^l positions.
 // Each solved segment is kept compact: its blocks, left to right, as
-// (sum, count, start) in consecutive slots from the segment's first
-// position, and its block count.  A pair merges by the reference's rules:
-// if the left segment's last block value is strictly below the right
-// segment's first (a violation), the two form a pool, which then absorbs its
-// left neighbour block if that block's value is < the pool's and its right
-// neighbour if the pool's value is < that block's, both decided against the
-// same pool value, until neither holds.  The merged segment is the left
-// blocks kept, the pool, and the right blocks kept, moved left.  Sums and
-// counts are only ever added, never differenced, in the plain version's
-// order, so the output equals pav_l2_scan's bit for bit (counts are
-// integers, exact in f32 up to 2^24).  Rows are not padded to a power of
-// two: the reference's sentinels (the row minimum) never pool with real
-// blocks, so segments are cut at n instead.
+// (r1, r2, start) in consecutive slots from the segment's first position,
+// and its block count.  The registers are the algebra's (Op): l2 (sum,
+// count), value sum / count; kl (LSE s, LSE w), value LSE s - LSE w.  A
+// pair merges by the reference's rules: if the left segment's last block
+// value is strictly below the right segment's first (a violation), the two
+// form a pool, which then absorbs its left neighbour block if that block's
+// value is < the pool's and its right neighbour if the pool's value is <
+// that block's, both decided against the same pool value, until neither
+// holds.  The merged segment is the left blocks kept, the pool, and the
+// right blocks kept, moved left.  Registers are only ever merged, never
+// differenced (l2 by addition, kl by logaddexp), in the plain version's
+// order.  Rows are not padded to a power of two: the reference's sentinels
+// (l2: the row minimum; kl: min(s) - max(w) - log n - 1) never pool with
+// real blocks, since comparisons are strict, so segments are cut at n.
+//
+// Exactness.  l2 equals pav_l2_scan bit for bit (counts are integers,
+// exact in f32 up to 2^24).  kl merges with torch.logaddexp's formula on
+// the card, max(a, b) + log1pf(expf(-|a - b|)) without --use_fast_math,
+// so it equals pav_kl_scan run on the card as long as PyTorch's build of
+// expf / log1pf rounds as this one does.  It does with PyTorch 2.11 /
+// CUDA 12.8: chip_smoke.py finds no element that differs on any of its
+// inputs (it counts them, and would hold an ulp within 1e-5 * (1 +
+// max|plain|) with the same blocks).
 //
 // Kernels.
 //   * tile_kernel: one CTA per tile of up to kTile = 16384 positions of a
 //     row (the whole row when n <= kTile) runs every level inside the tile
-//     in shared memory: 8 bytes a slot (f32 sum, u16 count, u16 start) plus
-//     4 bytes of pair and segment bookkeeping, 192 KB for a full tile.  One
-//     thread per pair walks the pool; then the CTA moves the right blocks
-//     left in chunks ordered by slot (a block only moves left, so a chunk
-//     never overwrites a slot a later chunk still reads).  When the row is
-//     one tile the CTA writes the output itself.
+//     in shared memory: a slot is the f32 r1, r2 (l2: a u16 count; kl: an
+//     f32 LSE) and a u16 start, 8 bytes (l2) or 10 (kl), plus 4 bytes a
+//     position of pair and segment bookkeeping: 192 KB (l2) or 224 KB (kl,
+//     229,376 bytes of the 232,448 a CTA may opt in to) for a full tile, so
+//     kl keeps the 16384-position tile and (128, 10000) stays one tile a
+//     row.  One thread per pair walks the pool; then the CTA moves the
+//     right blocks left in chunks ordered by slot (a block only moves
+//     left, so a chunk never overwrites a slot a later chunk still reads).
+//     When the row is one tile the CTA writes the output itself.
 //   * merge_kernel / move_kernel: each level above the tile, two launches
 //     over device memory (about 6 levels for 2^20).  One warp per pair walks
 //     the pool with the next 32 neighbour blocks of each side held one per
@@ -43,17 +57,19 @@
 //     float for every position of a block, which the scatter backward reads
 //     blocks from.
 //
-// What bounds it on this card.  The bytes are microseconds (y in, out out:
-// 8 MB on a 2^20 row); the depth is log2(n) levels, each a few launches or
-// CTA barriers, and inside a level the longest absorption chain, which is
-// serial: a pool absorbs one block per step, a dependent division and
-// compare of some tens of cycles.  On an input whose top level pools most
-// of the row (two decreasing ramps, the right one above the left) that is
-// about n / 2 serial steps; on random rows and on the main path's rows the
-// chains are short.
-//
-// The aggregate algebra is a template parameter (Op), as in pav.cu; kl
-// would be (LSE s, LSE w) with f32 second registers and a smaller tile.
+// What bounds it on this card.  The bytes are microseconds (12 bytes a
+// position for kl: 12 MB on a 2^20 row); the depth is log2(n) levels, each
+// a few launches or CTA barriers, and inside a level the longest
+// absorption chain, which is serial: a pool absorbs one block per step, a
+// dependent value (l2: a division; kl: a subtraction), compare and merge
+// (kl: two logaddexp, each an expf and a log1pf) of some tens of cycles.
+// On an input whose top level pools most of the row (two decreasing ramps,
+// the right one above the left) that is about n / 2 serial steps; on random
+// rows and on the main path's rows the chains are short.  chip_smoke.py
+// measures (H100 80GB HBM3, 700 W) kl at 0.014 ms of device time at
+// (128, 1000), 0.059 ms at (128, 10000) and 0.157 ms on a 2^20 row, l2 at
+// 0.013, 0.052 and 0.157 ms; on the adversarial 2^20 row l2 takes 73 ms
+// and kl 249 ms, the two logaddexp of each serial step.
 
 #include <cstdint>
 
@@ -66,16 +82,43 @@ constexpr int kTile = 16384;         // positions per tile, a power of two
 constexpr int kTileLog = 14;
 constexpr int kChunkItems = 4;       // slots per thread per move chunk
 
-struct L2 {
-  __device__ static float value(float sum, int count) {
+// The aggregate algebra of a block, and its slot layout.  A block is two
+// registers: r1 (f32) and r2 (R2; S2 in a tile's shared memory).
+//   l2: (sum, count), merged by addition, value sum / count; counts are
+//       integers (u16 in a tile, which holds at most 16384 positions).
+//   kl: (LSE s, LSE w), merged by a stable logaddexp, value their
+//       difference.
+struct L2Algebra {
+  using R2 = int;
+  using S2 = uint16_t;
+  __device__ static R2 init2(const float*, int64_t) { return 1; }
+  __device__ static float value(float sum, R2 count) {
     return sum / fmaxf(static_cast<float>(count), 1e-30f);
   }
-  __device__ static float merge(float a, float b) { return a + b; }
+  __device__ static float merge1(float a, float b) { return a + b; }
+  __device__ static R2 merge2(R2 a, R2 b) { return a + b; }
 };
 
+struct KlAlgebra {
+  using R2 = float;
+  using S2 = float;
+  __device__ static R2 init2(const float* w, int64_t i) { return w[i]; }
+  __device__ static float value(float lse_s, R2 lse_w) {
+    return lse_s - lse_w;
+  }
+  // max(a, b) + log1p(exp(-|a - b|)), torch.logaddexp's formula on the
+  // card; equal infinities return themselves (their difference is nan).
+  __device__ static float merge1(float a, float b) {
+    if (a == b && isinf(a)) return a;
+    return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+  }
+  __device__ static R2 merge2(R2 a, R2 b) { return merge1(a, b); }
+};
+
+template <class Op>
 struct TileSmem {
-  float* sum;
-  uint16_t* cnt;
+  float* r1;
+  typename Op::S2* r2;
   uint16_t* start;
   uint16_t* nb;      // block count of each segment
   uint16_t* dst0;    // per pair: slot of its first kept right block
@@ -86,40 +129,40 @@ struct TileSmem {
 // Merges pair p of level lvl (segments of m slots at base) in shared memory
 // by the reference's rules; writes the pool into its slot.
 template <class Op>
-__device__ void tile_merge_pair(const TileSmem& t, int base, int m,
+__device__ void tile_merge_pair(const TileSmem<Op>& t, int base, int m,
                                 int a, int b, int p) {
+  using R2 = typename Op::R2;
   int dst0 = a, jj = 0;
   if (b > 0) {
     const int la = base + a - 1, rb = base + m;
-    const float lv = Op::value(t.sum[la], t.cnt[la]);
-    const float rv = Op::value(t.sum[rb], t.cnt[rb]);
+    const float lv = Op::value(t.r1[la], t.r2[la]);
+    const float rv = Op::value(t.r1[rb], t.r2[rb]);
     if (lv < rv) {
-      float psum = Op::merge(t.sum[la], t.sum[rb]);
-      int pcnt = t.cnt[la] + t.cnt[rb];
+      float p1 = Op::merge1(t.r1[la], t.r1[rb]);
+      R2 p2 = Op::merge2(t.r2[la], t.r2[rb]);
       int li = a - 1;
       jj = 1;
       while (true) {
-        const float gamma = Op::value(psum, pcnt);
+        const float gamma = Op::value(p1, p2);
         const bool absorb_l =
-            li > 0 && Op::value(t.sum[base + li - 1], t.cnt[base + li - 1]) <
+            li > 0 && Op::value(t.r1[base + li - 1], t.r2[base + li - 1]) <
                           gamma;
         const bool absorb_r =
-            jj < b &&
-            gamma < Op::value(t.sum[rb + jj], t.cnt[rb + jj]);
+            jj < b && gamma < Op::value(t.r1[rb + jj], t.r2[rb + jj]);
         if (!absorb_l && !absorb_r) break;
         if (absorb_l) {
           --li;
-          psum = Op::merge(psum, t.sum[base + li]);
-          pcnt += t.cnt[base + li];
+          p1 = Op::merge1(p1, t.r1[base + li]);
+          p2 = Op::merge2(p2, t.r2[base + li]);
         }
         if (absorb_r) {
-          psum = Op::merge(psum, t.sum[rb + jj]);
-          pcnt += t.cnt[rb + jj];
+          p1 = Op::merge1(p1, t.r1[rb + jj]);
+          p2 = Op::merge2(p2, t.r2[rb + jj]);
           ++jj;
         }
       }
-      t.sum[base + li] = psum;
-      t.cnt[base + li] = static_cast<uint16_t>(pcnt);
+      t.r1[base + li] = p1;
+      t.r2[base + li] = static_cast<typename Op::S2>(p2);
       dst0 = li + 1;
     }
   }
@@ -130,30 +173,33 @@ __device__ void tile_merge_pair(const TileSmem& t, int base, int m,
 
 // One CTA per (tile, row): every level inside the tile, then either the
 // output (the row is one tile) or the tile's compact blocks in device memory.
+// x0 / x1: the row's inputs for the singleton registers (l2: y and none;
+// kl: s and w).
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
-tile_kernel(const float* __restrict__ y, float* __restrict__ out,
-            float* __restrict__ g_sum, int* __restrict__ g_cnt,
-            int* __restrict__ g_start, int* __restrict__ g_nb, int64_t n,
-            int tile, int n_tiles) {
+tile_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
+            float* __restrict__ out, float* __restrict__ g_r1,
+            typename Op::R2* __restrict__ g_r2, int* __restrict__ g_start,
+            int* __restrict__ g_nb, int64_t n, int tile, int n_tiles) {
+  using S2 = typename Op::S2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int row = blockIdx.y;
   const int64_t off = static_cast<int64_t>(blockIdx.x) * tile;
   const int nt = static_cast<int>(min(static_cast<int64_t>(tile), n - off));
-  TileSmem t;
-  t.sum = reinterpret_cast<float*>(smem_raw);
-  t.cnt = reinterpret_cast<uint16_t*>(t.sum + tile);
-  t.start = t.cnt + tile;
+  TileSmem<Op> t;
+  t.r1 = reinterpret_cast<float*>(smem_raw);
+  t.r2 = reinterpret_cast<S2*>(t.r1 + tile);
+  t.start = reinterpret_cast<uint16_t*>(t.r2 + tile);
   const int half = (tile + 1) / 2;   // pairs, and segments after level 0
   t.nb = t.start + tile;
   t.dst0 = t.nb + half;
   t.j = t.dst0 + half;
   t.b = t.j + half;
 
-  const float* yr = y + row * n + off;
+  const int64_t g0 = row * n + off;
   for (int i = threadIdx.x; i < nt; i += kThreads) {
-    t.sum[i] = yr[i];
-    t.cnt[i] = 1;
+    t.r1[i] = x0[g0 + i];
+    t.r2[i] = static_cast<S2>(Op::init2(x1, g0 + i));
     t.start[i] = static_cast<uint16_t>(i);
   }
   __syncthreads();
@@ -173,8 +219,9 @@ tile_kernel(const float* __restrict__ y, float* __restrict__ out,
     }
     // Move each pair's kept right blocks left, chunk by chunk in slot order.
     for (int c0 = 0; c0 < nt; c0 += kThreads * kChunkItems) {
-      float s_sum[kChunkItems];
-      uint16_t s_cnt[kChunkItems], s_start[kChunkItems];
+      float s_r1[kChunkItems];
+      S2 s_r2[kChunkItems];
+      uint16_t s_start[kChunkItems];
       int dest[kChunkItems];
 #pragma unroll
       for (int q = 0; q < kChunkItems; ++q) {
@@ -188,8 +235,8 @@ tile_kernel(const float* __restrict__ y, float* __restrict__ out,
           const int d = base + t.dst0[p] + r - t.j[p];
           if (d != i) {
             dest[q] = d;
-            s_sum[q] = t.sum[i];
-            s_cnt[q] = t.cnt[i];
+            s_r1[q] = t.r1[i];
+            s_r2[q] = t.r2[i];
             s_start[q] = t.start[i];
           }
         }
@@ -198,8 +245,8 @@ tile_kernel(const float* __restrict__ y, float* __restrict__ out,
 #pragma unroll
       for (int q = 0; q < kChunkItems; ++q) {
         if (dest[q] < 0) continue;
-        t.sum[dest[q]] = s_sum[q];
-        t.cnt[dest[q]] = s_cnt[q];
+        t.r1[dest[q]] = s_r1[q];
+        t.r2[dest[q]] = s_r2[q];
         t.start[dest[q]] = s_start[q];
       }
       __syncthreads();
@@ -215,15 +262,14 @@ tile_kernel(const float* __restrict__ y, float* __restrict__ out,
         const int mid = (lo + hi + 1) / 2;
         if (t.start[mid] <= i) lo = mid; else hi = mid - 1;
       }
-      o[i] = Op::value(t.sum[lo], t.cnt[lo]);
+      o[i] = Op::value(t.r1[lo], t.r2[lo]);
     }
     return;
   }
-  const int64_t g = row * n + off;
   for (int k = threadIdx.x; k < nb; k += kThreads) {
-    g_sum[g + k] = t.sum[k];
-    g_cnt[g + k] = t.cnt[k];
-    g_start[g + k] = static_cast<int>(off) + t.start[k];
+    g_r1[g0 + k] = t.r1[k];
+    g_r2[g0 + k] = t.r2[k];
+    g_start[g0 + k] = static_cast<int>(off) + t.start[k];
   }
   if (threadIdx.x == 0) g_nb[row * n_tiles + blockIdx.x] = nb;
 }
@@ -233,10 +279,11 @@ tile_kernel(const float* __restrict__ y, float* __restrict__ out,
 // the merged segment's block count.
 template <class Op>
 __global__ void __launch_bounds__(256)
-merge_kernel(float* __restrict__ g_sum, int* __restrict__ g_cnt,
+merge_kernel(float* __restrict__ g_r1, typename Op::R2* __restrict__ g_r2,
              const int* __restrict__ nb_in, int* __restrict__ nb_out,
              int* __restrict__ pair_info, int64_t n, int lvl, int nseg0,
              int64_t npairs) {
+  using R2 = typename Op::R2;
   const int64_t w = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
@@ -247,68 +294,68 @@ merge_kernel(float* __restrict__ g_sum, int* __restrict__ g_cnt,
   const int a = nb_in[row * nseg0 + 2 * w];
   const int b = base + m >= n ? 0 : nb_in[row * nseg0 + 2 * w + 1];
   const int64_t ro = row * n;
-  float* sum = g_sum + ro + base;
-  int* cnt = g_cnt + ro + base;
+  float* r1 = g_r1 + ro + base;
+  R2* r2 = g_r2 + ro + base;
   int dst0 = a, jj = 0;
   if (b > 0) {
-    const float lv = Op::value(sum[a - 1], cnt[a - 1]);
-    const float rv = Op::value(sum[m], cnt[m]);
+    const float lv = Op::value(r1[a - 1], r2[a - 1]);
+    const float rv = Op::value(r1[m], r2[m]);
     if (lv < rv) {
-      float psum = Op::merge(sum[a - 1], sum[m]);
-      int pcnt = cnt[a - 1] + cnt[m];
+      float p1 = Op::merge1(r1[a - 1], r1[m]);
+      R2 p2 = Op::merge2(r2[a - 1], r2[m]);
       int li = a - 1;   // leftmost left block in the pool
       jj = 1;           // right blocks in the pool
       // Windows: lane q holds left block li - 1 - q and right block jj + q.
       int wl = 0, wr = 0;
-      float lsum = 0.f, rsum = 0.f, lval = 0.f, rval = 0.f;
-      int lcnt = 0, rcnt = 0;
+      float l1 = 0.f, rr1 = 0.f, lval = 0.f, rval = 0.f;
+      R2 l2 = 0, rr2 = 0;
       auto load_l = [&] {
         const int k = li - 1 - lane;
         if (k >= 0) {
-          lsum = sum[k];
-          lcnt = cnt[k];
-          lval = Op::value(lsum, lcnt);
+          l1 = r1[k];
+          l2 = r2[k];
+          lval = Op::value(l1, l2);
         }
         wl = 0;
       };
       auto load_r = [&] {
         const int k = jj + lane;
         if (k < b) {
-          rsum = sum[m + k];
-          rcnt = cnt[m + k];
-          rval = Op::value(rsum, rcnt);
+          rr1 = r1[m + k];
+          rr2 = r2[m + k];
+          rval = Op::value(rr1, rr2);
         }
         wr = 0;
       };
       load_l();
       load_r();
       while (true) {
-        const float gamma = Op::value(psum, pcnt);
+        const float gamma = Op::value(p1, p2);
         const float nl = __shfl_sync(0xffffffffu, lval, wl);
         const float nr = __shfl_sync(0xffffffffu, rval, wr);
-        const float sl = __shfl_sync(0xffffffffu, lsum, wl);
-        const float sr = __shfl_sync(0xffffffffu, rsum, wr);
-        const int cl = __shfl_sync(0xffffffffu, lcnt, wl);
-        const int cr = __shfl_sync(0xffffffffu, rcnt, wr);
+        const float sl = __shfl_sync(0xffffffffu, l1, wl);
+        const float sr = __shfl_sync(0xffffffffu, rr1, wr);
+        const R2 cl = __shfl_sync(0xffffffffu, l2, wl);
+        const R2 cr = __shfl_sync(0xffffffffu, rr2, wr);
         const bool absorb_l = li > 0 && nl < gamma;
         const bool absorb_r = jj < b && gamma < nr;
         if (!absorb_l && !absorb_r) break;
         if (absorb_l) {
-          psum = Op::merge(psum, sl);
-          pcnt += cl;
+          p1 = Op::merge1(p1, sl);
+          p2 = Op::merge2(p2, cl);
           --li;
           if (++wl == 32) load_l();
         }
         if (absorb_r) {
-          psum = Op::merge(psum, sr);
-          pcnt += cr;
+          p1 = Op::merge1(p1, sr);
+          p2 = Op::merge2(p2, cr);
           ++jj;
           if (++wr == 32) load_r();
         }
       }
       if (lane == 0) {
-        sum[li] = psum;
-        cnt[li] = pcnt;
+        r1[li] = p1;
+        r2[li] = p2;
       }
       dst0 = li + 1;
     }
@@ -323,10 +370,12 @@ merge_kernel(float* __restrict__ g_sum, int* __restrict__ g_cnt,
 }
 
 // Every slot of a level above the tile to its place in the other buffer.
+template <class Op>
 __global__ void __launch_bounds__(256)
-move_kernel(const float* __restrict__ in_sum, const int* __restrict__ in_cnt,
-            const int* __restrict__ in_start, float* __restrict__ out_sum,
-            int* __restrict__ out_cnt, int* __restrict__ out_start,
+move_kernel(const float* __restrict__ in_r1,
+            const typename Op::R2* __restrict__ in_r2,
+            const int* __restrict__ in_start, float* __restrict__ out_r1,
+            typename Op::R2* __restrict__ out_r2, int* __restrict__ out_start,
             const int* __restrict__ pair_info,
             int64_t n, int lvl, int nseg0) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -347,8 +396,8 @@ move_kernel(const float* __restrict__ in_sum, const int* __restrict__ in_cnt,
   }
   if (d < 0) return;
   const int64_t ro = row * n;
-  out_sum[ro + d] = in_sum[ro + i];
-  out_cnt[ro + d] = in_cnt[ro + i];
+  out_r1[ro + d] = in_r1[ro + i];
+  out_r2[ro + d] = in_r2[ro + i];
   out_start[ro + d] = in_start[ro + i];
 }
 
@@ -356,7 +405,8 @@ move_kernel(const float* __restrict__ in_sum, const int* __restrict__ in_cnt,
 // before it).
 template <class Op>
 __global__ void __launch_bounds__(256)
-expand_kernel(const float* __restrict__ g_sum, const int* __restrict__ g_cnt,
+expand_kernel(const float* __restrict__ g_r1,
+              const typename Op::R2* __restrict__ g_r2,
               const int* __restrict__ g_start, const int* __restrict__ nb,
               float* __restrict__ out, int64_t n, int nseg0) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -369,20 +419,22 @@ expand_kernel(const float* __restrict__ g_sum, const int* __restrict__ g_cnt,
     const int mid = (lo + hi + 1) / 2;
     if (g_start[ro + mid] <= i) lo = mid; else hi = mid - 1;
   }
-  out[ro + i] = Op::value(g_sum[ro + lo], g_cnt[ro + lo]);
+  out[ro + i] = Op::value(g_r1[ro + lo], g_r2[ro + lo]);
 }
 
+template <class Op>
 size_t tile_smem_bytes(int tile) {
-  return static_cast<size_t>(tile) * (4 + 2 + 2) +
+  return static_cast<size_t>(tile) * (4 + sizeof(typename Op::S2) + 2) +
          static_cast<size_t>((tile + 1) / 2) * 2 * 4;
 }
 
 // Device scratch for a (rows, n) problem of more than one tile: two
-// buffers of (sum, count, start) slots, two of segment block counts, and
-// the pairs' (dst0, j, b).
+// buffers of (r1, r2, start) slots (4 bytes each), two of segment block
+// counts, and the pairs' (dst0, j, b).  The same for both algebras.
+template <class Op>
 struct Work {
-  float* sum[2];
-  int* cnt[2];
+  float* r1[2];
+  typename Op::R2* r2[2];
   int* start[2];
   int* nb[2];
   int* pair_info;
@@ -397,14 +449,16 @@ size_t work_bytes(int64_t rows, int64_t n) {
          (2 * n * 12 + 2 * nseg0 * 4 + nseg0 * 12);
 }
 
-Work carve(void* work, int64_t rows, int64_t n) {
+template <class Op>
+Work<Op> carve(void* work, int64_t rows, int64_t n) {
+  static_assert(sizeof(typename Op::R2) == 4, "4-byte second registers");
   const int64_t nseg0 = n_tiles_of(n);
   char* p = static_cast<char*>(work);
-  Work w;
+  Work<Op> w;
   for (int k = 0; k < 2; ++k) {
-    w.sum[k] = reinterpret_cast<float*>(p);
+    w.r1[k] = reinterpret_cast<float*>(p);
     p += rows * n * 4;
-    w.cnt[k] = reinterpret_cast<int*>(p);
+    w.r2[k] = reinterpret_cast<typename Op::R2*>(p);
     p += rows * n * 4;
     w.start[k] = reinterpret_cast<int*>(p);
     p += rows * n * 4;
@@ -418,13 +472,13 @@ Work carve(void* work, int64_t rows, int64_t n) {
 }
 
 template <class Op>
-int launch(const float* y, float* out, void* work, int64_t rows, int64_t n,
-           cudaStream_t stream) {
+int launch(const float* x0, const float* x1, float* out, void* work,
+           int64_t rows, int64_t n, cudaStream_t stream) {
   if (rows == 0 || n == 0) return 0;
   if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int tile = static_cast<int>(n <= kTile ? n : kTile);
   const int n_tiles = static_cast<int>(n_tiles_of(n));
-  const size_t smem = tile_smem_bytes(tile);
+  const size_t smem = tile_smem_bytes<Op>(tile);
   cudaError_t err = cudaFuncSetAttribute(
       tile_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -432,12 +486,12 @@ int launch(const float* y, float* out, void* work, int64_t rows, int64_t n,
   const dim3 tgrid(n_tiles, static_cast<unsigned>(rows));
   if (n_tiles == 1) {
     tile_kernel<Op><<<tgrid, kThreads, smem, stream>>>(
-        y, out, nullptr, nullptr, nullptr, nullptr, n, tile, 1);
+        x0, x1, out, nullptr, nullptr, nullptr, nullptr, n, tile, 1);
     return static_cast<int>(cudaGetLastError());
   }
-  Work w = carve(work, rows, n);
+  Work<Op> w = carve<Op>(work, rows, n);
   tile_kernel<Op><<<tgrid, kThreads, smem, stream>>>(
-      y, out, w.sum[0], w.cnt[0], w.start[0], w.nb[0], n, tile, n_tiles);
+      x0, x1, out, w.r1[0], w.r2[0], w.start[0], w.nb[0], n, tile, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int cur = 0;
@@ -446,12 +500,12 @@ int launch(const float* y, float* out, void* work, int64_t rows, int64_t n,
     const dim3 mgrid(static_cast<unsigned>((npairs * 32 + 255) / 256),
                      static_cast<unsigned>(rows));
     merge_kernel<Op><<<mgrid, 256, 0, stream>>>(
-        w.sum[cur], w.cnt[cur], w.nb[cur], w.nb[1 - cur], w.pair_info, n, lvl,
+        w.r1[cur], w.r2[cur], w.nb[cur], w.nb[1 - cur], w.pair_info, n, lvl,
         n_tiles, npairs);
     const dim3 vgrid(static_cast<unsigned>((n + 255) / 256),
                      static_cast<unsigned>(rows));
-    move_kernel<<<vgrid, 256, 0, stream>>>(
-        w.sum[cur], w.cnt[cur], w.start[cur], w.sum[1 - cur], w.cnt[1 - cur],
+    move_kernel<Op><<<vgrid, 256, 0, stream>>>(
+        w.r1[cur], w.r2[cur], w.start[cur], w.r1[1 - cur], w.r2[1 - cur],
         w.start[1 - cur], w.pair_info, n, lvl, n_tiles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -460,15 +514,15 @@ int launch(const float* y, float* out, void* work, int64_t rows, int64_t n,
   const dim3 egrid(static_cast<unsigned>((n + 255) / 256),
                    static_cast<unsigned>(rows));
   expand_kernel<Op><<<egrid, 256, 0, stream>>>(
-      w.sum[cur], w.cnt[cur], w.start[cur], w.nb[cur], out, n, n_tiles);
+      w.r1[cur], w.r2[cur], w.start[cur], w.nb[cur], out, n, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes.  y and out are (rows, n) f32,
-// C-contiguous, on the current device; `work` holds at least
-// pav_scan_l2_work_bytes(rows, n) bytes, 16-byte aligned (none when
+// Plain C entry points, loaded with ctypes.  y, s, w and out are (rows, n)
+// f32, C-contiguous, on the current device; `work` holds at least
+// pav_scan_<reg>_work_bytes(rows, n) bytes, 16-byte aligned (none when
 // n <= 16384).  Returns the first launch's cudaError_t that is not 0.
 extern "C" int64_t pav_scan_l2_work_bytes(int64_t rows, int64_t n) {
   return static_cast<int64_t>(work_bytes(rows, n));
@@ -477,5 +531,15 @@ extern "C" int64_t pav_scan_l2_work_bytes(int64_t rows, int64_t n) {
 extern "C" int pav_scan_l2_launch(const float* y, float* out, void* work,
                                   int64_t rows, int64_t n,
                                   cudaStream_t stream) {
-  return launch<L2>(y, out, work, rows, n, stream);
+  return launch<L2Algebra>(y, nullptr, out, work, rows, n, stream);
+}
+
+extern "C" int64_t pav_scan_kl_work_bytes(int64_t rows, int64_t n) {
+  return static_cast<int64_t>(work_bytes(rows, n));
+}
+
+extern "C" int pav_scan_kl_launch(const float* s, const float* w, float* out,
+                                  void* work, int64_t rows, int64_t n,
+                                  cudaStream_t stream) {
+  return launch<KlAlgebra>(s, w, out, work, rows, n, stream);
 }

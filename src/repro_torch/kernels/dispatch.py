@@ -19,8 +19,8 @@ Forward backends (``isotonic`` op)
                  reference's ``"lax"``.
 * ``"scan"``     the plain divide-and-conquer PAV
                  (``repro_torch.kernels.pav_scan``), on any device; the
-                 reference's ``"scan"``, and the plain version of the l2
-                 kernel.
+                 reference's ``"scan"``, and the plain version of the
+                 kernels.
 * ``"minimax"``  the O(n^2) closed form (``repro_torch.kernels.ref``).
 
 Backward backends: ``"scatter"`` (``repro_torch.kernels.segment_vjp``).

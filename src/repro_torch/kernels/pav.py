@@ -2,12 +2,10 @@
 
 Counterpart of ``repro.kernels.pav``.  Over a (rows, n) batch:
 
-* ``pav_l2``: wrapper around the divide-and-conquer CUDA kernel in
-  ``csrc/pav_scan.cu`` (log2(n) merge levels across threads; see the note
-  there), whose plain version is ``pav_scan.pav_l2_scan``.
-* ``pav_kl``: wrapper around the stack-machine CUDA kernel in
-  ``csrc/pav.cu`` (one thread per row), whose plain version is
-  ``pav_kl_stack``.
+* ``pav_l2`` / ``pav_kl``: wrappers around the two instantiations of the
+  divide-and-conquer CUDA kernel in ``csrc/pav_scan.cu`` (log2(n) merge
+  levels across threads; see the note there), whose plain versions are
+  ``pav_scan.pav_l2_scan`` and ``pav_scan.pav_kl_scan``.
 * Both take CUDA tensors only and raise on any other device; the solve runs
   in f32 and the result is cast back to the input dtype, like the Pallas
   wrappers.  Each launch adds one to ``LAUNCHES[<kernel>]``.
@@ -15,15 +13,14 @@ Counterpart of ``repro.kernels.pav``.  Over a (rows, n) batch:
   ``_pav_body`` that advances all rows together with masked pops, and of
   ``_expand`` as one vectorized gather (it only moves values), on any
   device, in the input's precision (f64 stays f64).  It is the ``"stack"``
-  backend.
+  backend and the CPU default.
 
 The stack machine merges a block into its left neighbour while the
-neighbour's value is ``<=`` its own and ``pav_kl`` does the same in the
-same order, so on the same f32 input the kl outputs agree up to the
-last-place differences of the device's ``expf`` and ``log1pf``.  The
-divide-and-conquer merge pools on strict ``<`` in another order, so
-``pav_l2`` agrees with ``pav_l2_scan`` bit for bit and with
-``pav_l2_stack`` to the last bits.
+neighbour's value is ``<=`` its own; the divide-and-conquer merge pools on
+strict ``<`` in another order, so ``pav_l2`` / ``pav_kl`` agree with
+``pav_l2_scan`` / ``pav_kl_scan`` on the card bit for bit (up to the
+device's ``expf`` / ``log1pf`` for kl) and with the stack machine to the
+last bits.
 """
 
 from __future__ import annotations
@@ -197,22 +194,24 @@ def pav_l2(y: torch.Tensor) -> torch.Tensor:
 
 def pav_kl(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   """Batched entropic isotonic optimization, CUDA (B, N) x (B, N) -> (B, N):
-  the stack-machine kernel of ``csrc/pav.cu``."""
+  the divide-and-conquer kernel of ``csrc/pav_scan.cu``, kl algebra."""
   _check("pav_kl", s, w)
+  rows, n = s.shape
+  if rows > 65535:
+    raise ValueError(f"pav_kl: {rows} rows; the kernel's grid takes at most "
+                     "65535")
   xs = [x.to(torch.float32).contiguous() for x in (s, w)]
-  rows, n = xs[0].shape
   out = torch.empty_like(xs[0])
   if rows == 0 or n == 0:
     return out.to(s.dtype)
-  stack = torch.empty((2, rows, n), dtype=torch.float32, device=out.device)
-  stack_start = torch.empty((rows, n), dtype=torch.int32, device=out.device)
-  launch = _build.entry("pav", "pav_kl_launch",
-                        [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _PTR])
+  work_bytes = _build.entry("pav_scan", "pav_scan_kl_work_bytes",
+                            [_I64, _I64], _I64)(rows, n)
+  work = torch.empty((work_bytes,), dtype=torch.uint8, device=out.device)
+  launch = _build.entry("pav_scan", "pav_scan_kl_launch",
+                        [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _PTR])
   with _build.on_device(out.device):
-    err = launch(
-        xs[0].data_ptr(), xs[1].data_ptr(), out.data_ptr(), stack.data_ptr(),
-        stack_start.data_ptr(), rows, n,
-        _build.current_stream(out.device))
+    err = launch(xs[0].data_ptr(), xs[1].data_ptr(), out.data_ptr(),
+                 work.data_ptr(), rows, n, _build.current_stream(out.device))
   if err != 0:
     raise RuntimeError(f"pav_kl kernel launch failed with CUDA error {err}")
   LAUNCHES["pav_kl"] += 1

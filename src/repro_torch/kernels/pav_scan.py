@@ -25,7 +25,8 @@ difference.  Sums are only ever combined, never differenced.
 
 The merge order differs from the stack machine's, so l2 values differ from
 ``pav_l2_stack`` in the last bits.  ``csrc/pav_scan.cu`` is this
-algorithm as a CUDA kernel (l2 only), held against ``pav_l2_scan``.
+algorithm as a CUDA kernel for both algebras, held against ``pav_l2_scan``
+and ``pav_kl_scan``.
 """
 
 from __future__ import annotations

@@ -4,17 +4,25 @@ Counterpart of ``repro.kernels.soft_topk``.  Per row of logits (T, E), the
 projection of logits/eps onto the k-subset permutahedron (the paper's soft
 top-k, forward only): gates in [0, 1] with row sum k.
 
+After the descending sort, y = s - w with w = (1^k, 0^(E-k)) is
+non-increasing on [0, k) and again on [k, E), so its isotonic fit is one
+merge of those two solved segments: at most one pool, grown from the pair
+k - 1, k by the rules of ``pav_scan._merge_level`` (strict ``<``, both
+sides of a step decided against one pool value, sums only added).  Every
+position outside the pool keeps v = y.
+
 * ``soft_topk_gates``: on a CUDA tensor, the hand-written kernel in
-  ``csrc/soft_topk.cu`` (one warp per row; see the note there); on a CPU
-  tensor, the plain version.  It computes in f32 and returns the input's
-  dtype, like the Pallas wrapper.  Each kernel launch adds one to
-  ``LAUNCHES["soft_topk_gates"]``.
-* ``soft_topk_gates_plain``: sort -> ``pav_l2_stack`` -> un-sort in plain
-  PyTorch, on any device.  It runs the kernel's isotonic arithmetic, and
-  on the card its division by eps is, as in the kernel, a product with
-  the f32 reciprocal of eps, so there the two agree to the last bit on the
-  same f32 logits for every eps.  (The CPU divides: for an eps that is not
-  a power of two, z and so the gates may differ there by an ulp.)
+  ``csrc/soft_topk.cu`` (one warp per row in registers; see the note
+  there); on a CPU tensor, the plain version.  It computes in f32 and
+  returns the input's dtype, like the Pallas wrapper.  Each kernel launch
+  adds one to ``LAUNCHES["soft_topk_gates"]``.
+* ``soft_topk_gates_plain``: the same steps in plain PyTorch on any
+  device: a stable argsort, the pool grown by batched masked steps with
+  the kernel's order of additions, the scatter back.  On the card its
+  division by eps is, as in the kernel, a product with the f32 reciprocal
+  of eps, so there the two agree to the last bit on the same f32 logits
+  for every eps.  (The CPU divides: for an eps that is not a power of
+  two, z and so the gates may differ there by an ulp.)
 
 ``repro_torch.kernels.ref.soft_topk_gates_ref`` (minimax closed form) is
 the independent oracle.
@@ -27,7 +35,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.pav import pav_l2_stack
 
 # Launch count of the kernel; only the wrapper below increments it.
 LAUNCHES = {"soft_topk_gates": 0}
@@ -36,13 +43,6 @@ MAX_EXPERTS = 128
 
 def reset_launches() -> None:
   LAUNCHES["soft_topk_gates"] = 0
-
-
-def _next_pow2(n: int) -> int:
-  p = 1
-  while p < n:
-    p *= 2
-  return p
 
 
 def _check(logits: torch.Tensor, k: int) -> None:
@@ -61,6 +61,37 @@ def _check(logits: torch.Tensor, k: int) -> None:
                      f"E = {e}")
 
 
+def pool_at_k(y: torch.Tensor, k: int) -> torch.Tensor:
+  """Non-increasing isotonic fit of (T, E) rows y that are non-increasing
+  on [0, k) and on [k, E): the merge of those two solved segments.  The
+  pool grows in the kernel's order (left, then right, within a step);
+  every other position keeps its y."""
+  t, e = y.shape
+  if k == 0 or k == e or t == 0:
+    return y.clone()
+  pl = torch.full((t,), k - 1, device=y.device)
+  pr = torch.full((t,), k, device=y.device)
+  pooled = y[:, k - 1] < y[:, k]
+  psum = y[:, k - 1] + y[:, k]
+  count = torch.full((t,), 2.0, dtype=y.dtype, device=y.device)
+  live = pooled
+  while bool(live.any()):
+    gamma = psum / count
+    nl = torch.gather(y, 1, torch.clamp(pl - 1, min=0)[:, None])[:, 0]
+    nr = torch.gather(y, 1, torch.clamp(pr + 1, max=e - 1)[:, None])[:, 0]
+    absorb_l = live & (pl > 0) & (nl < gamma)
+    absorb_r = live & (pr < e - 1) & (gamma < nr)
+    psum = torch.where(absorb_l, psum + nl, psum)
+    psum = torch.where(absorb_r, psum + nr, psum)
+    count = count + absorb_l.to(y.dtype) + absorb_r.to(y.dtype)
+    pl = pl - absorb_l.to(pl.dtype)
+    pr = pr + absorb_r.to(pr.dtype)
+    live = absorb_l | absorb_r
+  pos = torch.arange(e, device=y.device)
+  in_pool = pooled[:, None] & (pl[:, None] <= pos) & (pos <= pr[:, None])
+  return torch.where(in_pool, (psum / count)[:, None], y)
+
+
 def soft_topk_gates_plain(logits: torch.Tensor, k: int,
                           regularization_strength: float = 1.0
                           ) -> torch.Tensor:
@@ -68,11 +99,10 @@ def soft_topk_gates_plain(logits: torch.Tensor, k: int,
   _check(logits, k)
   z = logits.to(torch.float32) / regularization_strength
   e = z.shape[1]
-  w = torch.zeros((e,), dtype=z.dtype, device=z.device)
-  w[:k] = 1
+  w = (torch.arange(e, device=z.device) < k).to(z.dtype)
   sigma = torch.argsort(-z, dim=-1, stable=True)
   s = torch.gather(z, 1, sigma)
-  v = pav_l2_stack(s - w)
+  v = pool_at_k(s - w, k)
   out = torch.empty_like(s).scatter_(1, sigma, s - v)
   return out.to(logits.dtype)
 
@@ -97,10 +127,10 @@ def soft_topk_gates(logits: torch.Tensor, k: int,
     return out.to(logits.dtype)
   launch = _build.entry("soft_topk", "soft_topk_launch", [
       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-      ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
   with _build.on_device(z.device):
-    err = launch(z.data_ptr(), out.data_ptr(), rows, e,
-                 _next_pow2(max(e, 2)), k, float(regularization_strength),
+    err = launch(z.data_ptr(), out.data_ptr(), rows, e, k,
+                 float(regularization_strength),
                  _build.current_stream(z.device))
   if err != 0:
     raise RuntimeError(f"soft_topk_gates kernel launch failed with CUDA "

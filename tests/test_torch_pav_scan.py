@@ -5,16 +5,17 @@ reference's (jitted) and against the port's stack machine, on the same
 numpy inputs: ties and constant rows, n a power of two and not, n = 1, an
 adversarial row that pools across the top level, and f64.  Then the
 ``"scan"`` backend through ``soft_rank`` / ``soft_sort`` with their Lemma 2
-gradients, against the reference's ``"scan"``.  The l2 kernel of
-``csrc/pav_scan.cu`` runs only on the card (``requires_cuda``).
+gradients, against the reference's ``"scan"``.  The l2 and kl kernels of
+``csrc/pav_scan.cu`` run only on the card (``requires_cuda``).
 
 Tolerances: 1e-5 * (1 + max|input|) in f32, 1e-10 in f64
 (``test_torch_common``).  The stack machine pools ties (``<=``) and the
 divide-and-conquer merge does not (``<``), and the two add in different
 orders, so they agree to the last bits and in the number of blocks that
 the backward reads from equal adjacent outputs
-(``segment_vjp.block_starts``).  The kernel keeps the plain version's
-merge order and is held to it bit for bit.
+(``segment_vjp.block_starts``).  The kernels keep the plain version's
+merge order and are held to it bit for bit (kl: the same logaddexp
+formula as ``torch.logaddexp`` on the card).
 """
 
 from __future__ import annotations
@@ -179,4 +180,35 @@ def test_cuda_l2_kernel_matches_plain_version(shape, kind, cuda_device):
   if shape[1] <= 5000:   # the stack machine takes a Python step a column
     stack = pav.pav_l2_stack(yt.to(cuda_device)).cpu()
     assert_close(got.cpu(), stack, y)
+    assert _blocks(got) == _blocks(stack)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,kind", [
+    ((8, 257), "ties"), ((3, 1), "random"), ((4, 16384), "random"),
+    ((3, 40000), "random"), ((1, 70001), "two_ramps"),
+    ((2, 20000), "two_ramps")])
+def test_cuda_kl_kernel_matches_plain_version(shape, kind, cuda_device):
+  """On the card: the kl kernel against the plain divide-and-conquer
+  version on the same f32 inputs, bit for bit (same merges in the same
+  order, logaddexp by torch's formula), and against the stack machine
+  within the contract, with the same number of blocks.  Rows above 16384
+  run the levels above one tile in device memory."""
+  rng = np.random.default_rng(SEED)
+  if kind == "ties":
+    s, w = rows_with_ties(rng, *shape), rows_with_ties(rng, *shape)
+  elif kind == "two_ramps":
+    s, w = two_ramps(*shape), np.zeros(shape)
+  else:
+    s, w = rng.normal(size=shape), rng.normal(size=shape)
+  st, wt = as_torch(s).to(cuda_device), as_torch(w).to(cuda_device)
+  before = pav.LAUNCHES["pav_kl"]
+  got = pav.pav_kl(st, wt)
+  torch.cuda.synchronize()
+  assert pav.LAUNCHES["pav_kl"] == before + 1
+  want = pav_scan.pav_kl_scan(st, wt).cpu()
+  np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+  if shape[1] <= 5000:   # the stack machine takes a Python step a column
+    stack = pav.pav_kl_stack(st, wt).cpu()
+    assert_close(got.cpu(), stack, s, w)
     assert _blocks(got) == _blocks(stack)
