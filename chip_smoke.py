@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Run from a checkout on a machine with an NVIDIA H100 (sm_90a) and the CUDA
-toolkit.  Two paths run on the card: the operator chain (soft rank / sort
-and the losses, on the PAV kernels) and the LM server of
+toolkit.  Three paths run on the card: the operator chain (soft rank /
+sort and the losses, on the PAV kernels), the LM server of
 deepseek-v2-lite-16b at full width and depth (on the soft top-k router and
-flash-attention kernels).  Phases, each printing its own lines; any
-failure raises and the script exits non-zero:
+flash-attention kernels) and its trainer at full width (on the PAV kernel
+and flash attention under autograd).  Phases, each printing its own
+lines; any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit.
 2. build    build ``src/repro_torch/kernels/csrc/*.cu`` with nvcc, one
@@ -64,7 +65,24 @@ failure raises and the script exits non-zero:
             scaled_dot_product_attention as the library yardstick;
             prefill ms and decode tokens/s; one profiled prefill and
             decode step (device busy and idle share, top kernels).
-6. summary  one ``{"kernels": [...]}`` line, then the device line last.
+6. train    the server's model freed, ``repro_torch.launch.train``'s
+            ``main`` on deepseek-v2-lite-16b at full width and 4 of 27
+            layers (the trainer's state at full depth, ~260 GB, needs
+            several cards): random bf16 weights from seed 0, 4 AdamW steps
+            of 8 x 2048 tokens with 10% corrupted targets, the config's
+            grad_accum 8 and remat "full", the soft-LTS token loss (trim
+            0.1).  Every step's launch counts equal the counts from the
+            code (``train_launches_per_step``); losses and grad norms are
+            finite; after step 1 every parameter leaf has a finite,
+            non-zero gradient.  On captured inputs at the training shape:
+            the attention kernel's forward and ``flash_attention_bwd``
+            (against the autograd of the plain version in f32) by their
+            error models; the router's ``soft_topk_mask`` fwd+bwd against
+            the ``scan`` backend on the card; one AdamW update of an expert
+            leaf, card against CPU, within one f32 ulp.  Then the step ms,
+            tokens/s and peak memory, attention forward and backward
+            beside scaled_dot_product_attention's, and one profiled step.
+7. summary  one ``{"kernels": [...]}`` line, then the device line last.
 
 Inputs come from numpy with a fixed seed.  Imports nothing of JAX or of the
 JAX package.
@@ -72,6 +90,7 @@ JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import multiprocessing
@@ -423,8 +442,8 @@ def attn_close(out: torch.Tensor, q, k, v, causal: bool, fa) -> dict:
   return cmp
 
 
-def attn_text(cmp: dict, fa) -> str:
-  return (f"max |kernel - plain in f32| {cmp['max_abs_err']:.3e}, worst "
+def attn_text(cmp: dict, fa, diff: str = "kernel - plain in f32") -> str:
+  return (f"max |{diff}| {cmp['max_abs_err']:.3e}, worst "
           f"|err| / tol {cmp['tol_ratio']:.3f} (limit 1; tol = 2**-7 * (|ref|"
           f" + A)), relative Frobenius error {cmp['rel_frob']:.3e} (limit "
           f"{fa.REL_FROB_LIMIT:.3e}), median |ref| {cmp['median_ref']:.3e}")
@@ -692,11 +711,16 @@ def attn_bound(q, k, v, causal: bool) -> tuple[float, str]:
 PROFILER_TRIES = 3
 
 
-def profile(fn) -> tuple[float, float | None, list[tuple[str, float]]]:
+def profile(fn, ranges=()) -> tuple[float, float | None,
+                                    list[tuple[str, float, int]], dict]:
   """One call of ``fn`` under torch.profiler: (wall ms, device busy ms or
-  None if no session recorded device time, the five kernels with the most
-  device time and their ms).  Busy time is the sum of the kernels' own
-  device times (one stream: they do not overlap)."""
+  None if no session recorded device time, every kernel with its device
+  ms and launch count, the most device time first, and for each name in
+  ``ranges`` (a
+  ``record_function`` range) its host ms and its device span, from its
+  first kernel's start to its last kernel's end, summed over its
+  occurrences).  Busy time is the sum
+  of the kernels' own device times (one stream: they do not overlap)."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as torch_profile
@@ -709,14 +733,23 @@ def profile(fn) -> tuple[float, float | None, list[tuple[str, float]]]:
       fn()
       torch.cuda.synchronize()
       wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    # The ranges (all named repro_...) also show as CUDA events spanning
+    # their kernels: not kernels themselves.
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("repro_")]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy > 0:
-      top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-      return wall, busy, [(e.key[:60], e.self_device_time_total / 1e3)
-                          for e in top]
-  return wall, None, []
+      top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+      spans = {name: [0.0, 0.0] for name in ranges}
+      for e in events:
+        if e.key in spans:
+          cuda = e.device_type == DeviceType.CUDA
+          spans[e.key][cuda] += (e.self_device_time_total if cuda
+                                 else e.cpu_time_total) / 1e3
+      return wall, busy, [(e.key, e.self_device_time_total / 1e3, e.count)
+                          for e in top], spans
+  return wall, None, [], {}
 
 
 def kernel_device_ms(fn, name, calls: int = 20) -> float | None:
@@ -833,8 +866,8 @@ def serve_times(res, rec, serve, st, fa, name_limit):
                                   serve.greedy(state["logits"]), s)
 
   for name, fn in (("prefill", prefill_once), ("decode step", decode_once)):
-    wall, busy, top = profile(fn)
-    kernels = "; ".join(f"{key} {ms:.2f}" for key, ms in top)
+    wall, busy, top, _ = profile(fn)
+    kernels = "; ".join(f"{key[:60]} {ms:.2f}" for key, ms, _ in top[:5])
     busy_text = ("not measured (no profiler session recorded device time)"
                  if busy is None else
                  f"{busy:.2f} ms ({100 * (1 - busy / wall):.0f}% idle)")
@@ -848,6 +881,351 @@ def serve_times(res, rec, serve, st, fa, name_limit):
                f" (runs {', '.join(f'{t:.1f}' for t in decode)}) "
                f"[{name_limit}]")
   return rows, lines
+
+
+# ---------------------------------------------------------------------------
+# The training path (deepseek-v2-lite-16b at full width, 4 of 27 layers).
+# ---------------------------------------------------------------------------
+
+# Depth 4 of 27: the trainer keeps about 16 bytes a parameter (bf16
+# weights and gradients, f32 AdamW moments, f32 gradient accumulators),
+# about 260 GB at the full depth's 16.21e9 parameters and 44 GB at 4
+# layers (2.76e9).  Width, grad_accum 8 and remat "full" are the config's.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 4
+TRAIN_ARGS = ["--arch", ARCH, "--set", f"num_layers={TRAIN_LAYERS}",
+              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--trim-frac", "0.1", "--corrupt", "0.1",
+              "--steps", str(TRAIN_STEPS)]
+EXPERT_LEAF = "layers.0.params.ffn.we_in"     # (64, 2048, 1408) bf16
+TRAIN_RANGES = ("repro_forward_train", "repro_soft_lts_loss",
+                "repro_optimizer_update")
+# Kernel kinds of a train step's profile, by substrings of their names
+# (the first group that matches); the rest is "other".
+KERNEL_GROUPS = {
+    "attention kernel": ("flash_kernel",),
+    "PAV kernel": ("L2Algebra", "KlAlgebra"),
+    "GEMM (cuBLAS nvjet)": ("nvjet",),
+    "GEMM (other, f32 xmma among them)": ("gemm", "xmma"),
+    "elementwise": ("elementwise",),
+    "reductions and scans": ("reduce", "scan", "softmax", "norm"),
+    "index, gather, scatter, sort": ("index", "gather", "scatter", "sort",
+                                     "embedding", "Radix"),
+    "copies": ("copy", "Memcpy", "Memset", "cat"),
+    "other": (),
+}
+
+
+def train_launches_per_step(cfg) -> dict[str, int]:
+  """Kernel launches of one train step, counted from the code: each of
+  the ``grad_accum`` microbatches runs every layer's forward twice (remat
+  "full": once, and again in backward), each pass launching attention
+  once and ``pav_l2`` once (the router's ``soft_topk_mask`` over the
+  microbatch's tokens, one row each, fewer than 65535); the soft-LTS loss
+  sorts each microbatch's tokens in one more ``pav_l2`` launch.  The
+  fused gates and ``pav_kl`` do not run under autograd."""
+  passes = cfg.grad_accum * cfg.num_layers * (2 if cfg.remat == "full"
+                                              else 1)
+  trim = cfg.grad_accum if cfg.loss_trim_fraction > 0 else 0
+  return {"pav_l2": passes + trim, "pav_kl": 0, "soft_topk_gates": 0,
+          "flash_attention": passes}
+
+
+class TrainRecorder:
+  """Wraps, for the train run, the functions the train step calls through
+  their modules, and calls through to each: ``steps.loss_from_batch`` (every
+  microbatch's loss), ``adamw.update`` (the first step's gradients, finite
+  and non-zero on every leaf or not; the launch counts at each step's end;
+  each step's metrics; the last step's inputs and result on
+  ``EXPERT_LEAF``), the attention wrapper (the first call's q, k, v) and
+  the router's ``soft_topk_mask`` (the first call's logits)."""
+
+  def __init__(self, ops, steps, adamw, fa, moe):
+    self.ops, self.steps, self.adamw, self.fa, self.moe = (
+        ops, steps, adamw, fa, moe)
+    self.losses: list[float] = []
+    self.grad_faults: list[str] | None = None
+    self.n_leaves = 0
+    self.step_launches: list[dict[str, int]] = []
+    self.step_metrics: list[dict[str, float]] = []
+    self.leaf: dict = {}
+    self.attn: tuple | None = None
+    self.logits: tuple | None = None
+
+  def __enter__(self):
+    self._orig = (self.steps.loss_from_batch, self.adamw.update,
+                  self.fa.flash_attention, self.moe.soft_topk_mask)
+    loss_fn, update, attn, mask = self._orig
+
+    def loss_rec(cfg, model, batch):
+      total, metrics = loss_fn(cfg, model, batch)
+      self.losses.append(float(metrics["loss"].detach()))
+      return total, metrics
+
+    def update_rec(cfg, grads, state, params, lr_scale=1.0, decay=None):
+      if self.grad_faults is None:
+        self.n_leaves = len(grads)
+        self.grad_faults = [
+            n for n, g in grads.items()
+            if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+      leaf = {"p": params[EXPERT_LEAF].detach().clone(),
+              "g": grads[EXPERT_LEAF].clone(),
+              "m": state["m"][EXPERT_LEAF].clone(),
+              "v": state["v"][EXPERT_LEAF].clone(),
+              "step": int(state["step"]) + 1, "lr_scale": lr_scale,
+              "decay": True if decay is None else decay[EXPERT_LEAF],
+              "cfg": cfg}
+      out = update(cfg, grads, state, params, lr_scale, decay)
+      leaf["after"] = params[EXPERT_LEAF].detach().clone()
+      leaf["clip_scale"] = out[2]["clip_scale"]
+      self.leaf = leaf
+      self.step_metrics.append({k: float(v) for k, v in out[2].items()})
+      torch.cuda.synchronize()
+      self.step_launches.append(self.ops.all_launches())
+      return out
+
+    def attn_rec(q, k, v, causal=True, **opts):
+      if self.attn is None:
+        self.attn = (q.detach().clone(), k.detach().clone(),
+                     v.detach().clone(), causal)
+      return attn(q, k, v, causal, **opts)
+
+    def mask_rec(values, k, *args, **kwargs):
+      if self.logits is None:
+        self.logits = (values.detach().clone(), k, args, kwargs)
+      return mask(values, k, *args, **kwargs)
+
+    (self.steps.loss_from_batch, self.adamw.update, self.fa.flash_attention,
+     self.moe.soft_topk_mask) = loss_rec, update_rec, attn_rec, mask_rec
+    return self
+
+  def __exit__(self, *exc):
+    (self.steps.loss_from_batch, self.adamw.update, self.fa.flash_attention,
+     self.moe.soft_topk_mask) = self._orig
+
+
+def train_path(dev, fa):
+  """The train phase's run: ``launch/train.py``'s ``main`` with every
+  counter from 0, then its checks.  Returns (main's result, recorder,
+  launches)."""
+  from repro_torch.kernels import ops
+  from repro_torch.launch import steps, train
+  from repro_torch.models import moe
+  from repro_torch.optim import adamw
+
+  ops.reset_all_launches()
+  with TrainRecorder(ops, steps, adamw, fa, moe) as rec:
+    res = train.main(TRAIN_ARGS)
+  torch.cuda.synchronize()
+  launches = ops.all_launches()
+  cfg, state = res["cfg"], res["state"]
+  check((cfg.num_layers, cfg.d_model, cfg.grad_accum, cfg.remat,
+         cfg.dtype) == (TRAIN_LAYERS, 2048, 8, "full", "bfloat16"),
+        f"train config {cfg}")
+  check(state.step == TRAIN_STEPS == len(rec.step_launches),
+        f"{state.step} steps taken, {len(rec.step_launches)} updates")
+  per_step = train_launches_per_step(cfg)
+  prev = dict.fromkeys(per_step, 0)
+  for i, counts in enumerate(rec.step_launches):
+    got = {k: counts[k] - prev[k] for k in per_step}
+    check(got == per_step, f"train step {i}: launches {got}, counted from "
+          f"the code {per_step}")
+    prev = counts
+  check(launches == {k: TRAIN_STEPS * n for k, n in per_step.items()},
+        f"train launches {launches}")
+  say(f"train: launches {launches} in {TRAIN_STEPS} steps, {per_step} a "
+      f"step as counted from the code ({cfg.grad_accum} microbatches x "
+      f"{cfg.num_layers} layers x 2 passes under remat, + "
+      f"{cfg.grad_accum} soft-LTS sorts)")
+  res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+  n_micro = TRAIN_STEPS * cfg.grad_accum
+  check(len(rec.losses) == n_micro
+        and all(math.isfinite(x) for x in rec.losses),
+        f"train microbatch losses {rec.losses}")
+  for i, m in enumerate(rec.step_metrics):
+    check(all(math.isfinite(x) for x in m.values()),
+          f"train step {i} metrics {m}")
+  n_params = sum(1 for _ in state.model.parameters())
+  check(rec.grad_faults == [] and rec.n_leaves == n_params,
+        f"first step's gradients: {rec.n_leaves} leaves of {n_params}, "
+        f"zero or not finite: {rec.grad_faults}")
+  accum = cfg.grad_accum
+  say("train: step losses " + ", ".join(
+      f"{statistics.fmean(rec.losses[i * accum:(i + 1) * accum]):.4f}"
+      for i in range(TRAIN_STEPS)) + "; grad norms " + ", ".join(
+      f"{m['grad_norm']:.3f}" for m in rec.step_metrics) + " (all finite);"
+      f" after step 1 all {n_params} parameter leaves had a finite, "
+      "non-zero gradient")
+  return res, rec, launches
+
+
+def adamw_card_vs_cpu(rec, dev) -> str:
+  """The last step's AdamW update of ``EXPERT_LEAF`` computed again by
+  ``adamw.update_leaf`` on the card, with the step's scalars (clip scale,
+  lr, bias corrections) as ``adamw.update`` computed them there (equal,
+  after the cast, to what the trainer wrote), and on the CPU from the same
+  inputs and scalars: the f32 results before the cast within one f32 ulp
+  of each other.  (The scalars themselves come from ``pow`` on the card,
+  which may round otherwise than the CPU's.)"""
+  from repro_torch.optim import adamw
+
+  leaf = rec.leaf
+  cfg = leaf["cfg"]
+  stepf = torch.tensor(leaf["step"], dtype=torch.float32, device=dev)
+  scalars = (leaf["clip_scale"],
+             cfg.lr * torch.as_tensor(leaf["lr_scale"], dtype=torch.float32,
+                                      device=dev),
+             1.0 - cfg.b1 ** stepf, 1.0 - cfg.b2 ** stepf)
+
+  def on(device):
+    return adamw.update_leaf(
+        cfg, *(leaf[k].to(device) for k in ("p", "g", "m", "v")),
+        *(x.to(device) for x in scalars), leaf["decay"])
+
+  card = on(dev)
+  check(torch.equal(card[0].to(leaf["after"].dtype), leaf["after"]),
+        "the trainer's update of the expert leaf is not update_leaf's")
+  card = [x.cpu() for x in card]
+  cpu = on(torch.device("cpu"))
+  parts = []
+  for name, a, b in zip(("p", "m", "v"), card, cpu):
+    ulp = torch.from_numpy(np.spacing(np.abs(b.numpy())))
+    ratio = float(((a - b).abs() / ulp).max())
+    check(ratio <= 1.0, f"AdamW {name}: card and CPU {ratio:.2f} ulp apart")
+    parts.append(f"{name} {int((a != b).sum())} elements differ, at most "
+                 f"{ratio:.2f} ulp")
+  # Why update_leaf takes the square root in f64: the f32 one of the card
+  # and of the CPU on the same v / bc2.
+  vhat = ((leaf["v"] * cfg.b2) / scalars[3]).contiguous()
+  f32_sqrt = int((torch.sqrt(vhat).cpu() != torch.sqrt(vhat.cpu())).sum())
+  return (f"AdamW step {leaf['step']} of {EXPERT_LEAF} "
+          f"{tuple(leaf['p'].shape)}, card vs CPU before the cast: "
+          + "; ".join(parts) + " (limit 1 f32 ulp); an f32 torch.sqrt of "
+          f"the leaf's b2 * v / bc2 differs between card and CPU in "
+          f"{f32_sqrt} of {vhat.numel()} elements"
+          "; update_leaf takes it in f64)")
+
+
+def train_checks(rec, fa, dev) -> tuple[list[str], dict]:
+  """Each piece of the train path on its captured inputs: the attention
+  forward kernel and ``flash_attention_bwd`` by their error models, the
+  router's ``soft_topk_mask`` fwd+bwd against the ``scan`` backend on the
+  card, one AdamW update card against CPU.  Returns the lines and the
+  tensors the times reuse."""
+  import repro_torch as rt
+
+  q, k, v, causal = rec.attn
+  check(tuple(q.shape) == (1, TRAIN_SEQ, 16, 192)
+        and tuple(v.shape) == (1, TRAIN_SEQ, 16, 128),
+        f"captured attention shapes {q.shape}, {v.shape}")
+  with torch.no_grad():
+    out = fa.flash_attention(q, k, v, causal)
+  fwd = attn_close(out, q, k, v, causal, fa)
+  lines = [f"train: flash_attention forward on the captured layer inputs q "
+           f"{tuple(q.shape)} v {tuple(v.shape)}: {attn_text(fwd, fa)}"]
+  gen = torch.Generator(device=dev).manual_seed(SEED)
+  do = torch.randn(out.shape, generator=gen, device=dev,
+                   dtype=torch.bfloat16)
+  grads = fa.flash_attention_bwd(q, k, v, out, do, causal)
+  for name, cmp in fa.compare_bwd_with_plain(grads, q, k, v, do,
+                                             causal).items():
+    text = attn_text(cmp, fa, f"{name} - {name} of the plain version's "
+                     "autograd in f32")
+    check(cmp["finite"] and cmp["tol_ratio"] <= 1.0
+          and cmp["rel_frob"] <= fa.REL_FROB_LIMIT,
+          f"flash_attention_bwd {name}: {text}")
+    lines.append(f"train: flash_attention_bwd {name}: {text}")
+
+  logits, kk, args, kwargs = rec.logits
+  x = logits.reshape(-1, logits.shape[-1])
+  cot = torch.randn(x.shape, generator=gen, device=dev)
+  got = {}
+  for impl in (None, "scan"):
+    xi = x.clone().requires_grad_(True)
+    mask = rt.soft_topk_mask(xi, kk, *args, impl=impl, **kwargs)
+    got[impl] = (mask.detach(), torch.autograd.grad(mask, xi, cot)[0])
+  e_val = close(got[None][0], got["scan"][0])
+  e_grad = close(got[None][1], got["scan"][1])
+  lines.append(f"train: router soft_topk_mask fwd+bwd on the captured "
+               f"logits {tuple(x.shape)} k {kk}, cuda backend vs scan on "
+               f"the card: values {e_val:.3e}, gradients {e_grad:.3e} "
+               "(tol 1e-5 * (1 + max|scan|))")
+  lines.append("train: " + adamw_card_vs_cpu(rec, dev))
+  return lines, {"qkv": (q, k, v), "out": out, "do": do}
+
+
+def train_times(res, rec, captured, fa, name_limit) -> list[str]:
+  """Step ms (median of steps 2 to 4), tokens/s, peak memory; the
+  attention forward and backward at the training shape beside SDPA's;
+  one more step under the profiler."""
+  lines = []
+  trainer, state = res["trainer"], res["state"]
+  times = trainer.step_times[1:]
+  med = statistics.median(times) * 1e3
+  tokens = TRAIN_BATCH * TRAIN_SEQ
+  lines.append(
+      f"times: train {ARCH} {TRAIN_LAYERS} of 27 layers, batch "
+      f"{TRAIN_BATCH} x {TRAIN_SEQ}, grad_accum 8, remat full: step "
+      f"{med:.1f} ms (median of steps 2-{TRAIN_STEPS}: "
+      f"{', '.join(f'{t * 1e3:.1f}' for t in times)}; step 1 "
+      f"{trainer.step_times[0] * 1e3:.1f}), {tokens / med * 1e3:.0f} "
+      f"tokens/s, peak memory {res['peak_gib']:.2f} GiB [{name_limit}]")
+  q, k, v = captured["qkv"]
+  out, do = captured["out"], captured["do"]
+  fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v, True), 20)
+  fwd_dev = kernel_device_ms(lambda: fa.flash_attention(q, k, v, True),
+                             "flash_kernel")
+  bwd = lambda: fa.flash_attention_bwd(q, k, v, out, do, True)  # noqa: E731
+  bwd_ms = median_ms(bwd, 10)
+  bwd_dev = kernel_device_ms(bwd, "", calls=5)
+  qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                for t in (q, k, v))
+  dot = do.transpose(1, 2)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+
+  def sdpa_fwd():
+    with torch.no_grad():
+      sdpa(qt, kt, vt, is_causal=True)
+
+  def sdpa_fwd_bwd():
+    torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot)
+
+  lib_fwd = median_ms(sdpa_fwd, 20)
+  lib_fb = median_ms(sdpa_fwd_bwd, 10)
+  lib_fb_dev = kernel_device_ms(sdpa_fwd_bwd, "", calls=5)
+  bound_ms, bound_by = attn_bound(q, k, v, True)
+  lines.append(
+      f"times: train attention q {tuple(q.shape)} v {tuple(v.shape)} "
+      f"causal: kernel forward {fwd_ms:.4f} ms (device {ms_text(fwd_dev)}, "
+      f"profiler), bound {bound_ms:.5f} ms ({bound_by}); "
+      f"flash_attention_bwd {bwd_ms:.3f} ms (device {ms_text(bwd_dev)}, "
+      f"all its kernels); scaled_dot_product_attention forward "
+      f"{lib_fwd:.4f} ms, forward + backward {lib_fb:.4f} ms (device "
+      f"{ms_text(lib_fb_dev)}), so its backward about "
+      f"{lib_fb - lib_fwd:.4f} ms [{name_limit}]")
+
+  batch = trainer.batch_at(state.step)
+  wall, busy, top, spans = profile(
+      lambda: trainer.train_step(state.model, state.opt_state, batch),
+      TRAIN_RANGES)
+  kernels = "; ".join(f"{key[:60]} {ms:.1f}" for key, ms, _ in top[:5])
+  groups = dict.fromkeys(KERNEL_GROUPS, 0.0)
+  for key, ms, _ in top:
+    groups[next((g for g, pats in KERNEL_GROUPS.items()
+                 if any(p in key for p in pats)), "other")] += ms
+  group_text = ", ".join(f"{g} {ms:.1f}" for g, ms in groups.items())
+  launches = sum(n for _, _, n in top)
+  busy_text = ("not measured (no profiler session recorded device time)"
+               if busy is None else
+               f"{busy:.1f} ms ({100 * (1 - busy / wall):.0f}% idle) in "
+               f"{launches} kernel launches; by kind (ms): {group_text}")
+  span_text = "; ".join(f"{name} host {cpu:.1f} ms, device span "
+                        f"{dev_ms:.1f} ms" for name, (cpu, dev_ms) in
+                        spans.items())
+  lines.append(f"times: profile of one train step: wall {wall:.1f} ms, "
+               f"device busy {busy_text}; ranges (summed over the "
+               f"microbatches): {span_text}; most device time (ms): "
+               f"{kernels} [{name_limit}]")
+  return lines
 
 
 def main() -> int:
@@ -1076,7 +1454,20 @@ def main() -> int:
   for line in lines + serve_lines:
     say(line)
 
-  # 6. summary -------------------------------------------------------------
+  # 6. train ------------------------------------------------------------------
+  # The server's 27-layer model (30.2 GiB) goes before the trainer's state.
+  del serve_res, serve_rec
+  gc.collect()
+  torch.cuda.empty_cache()
+  say(f"train: the server's model freed; "
+      f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still allocated")
+  train_res, train_rec, train_launches = train_path(dev, fa)
+  train_lines, captured = train_checks(train_rec, fa, dev)
+  for line in train_lines + train_times(train_res, train_rec, captured, fa,
+                                        name_limit):
+    say(line)
+
+  # 7. summary -------------------------------------------------------------
   kernels = []
   for kname in ("pav_l2", "pav_kl"):
     row = kernel_rows[(kname, HEADLINE)]
@@ -1086,12 +1477,13 @@ def main() -> int:
         "max_abs_err": max_err[kname], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
-        "shape": list(HEADLINE)})
+        "shape": list(HEADLINE), "train_launches": train_launches[kname]})
   for kname, row in serve_rows.items():
     kernels.append({
         "name": kname, "route": "cuda", "source": SOURCES[kname],
         "replaces": REPLACES[kname], "launches": serve_launches[kname],
-        "max_abs_err": max_err[kname], **row})
+        "max_abs_err": max_err[kname], **row,
+        "train_launches": train_launches[kname]})
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Flash attention forward: the CUDA kernel and its plain version.
+"""Flash attention: the CUDA forward kernel, its backward, plain versions.
 
 Counterpart of ``repro.kernels.flash_attention`` (the TPU kernel) and of
 the chunked attention in ``repro.models.layers.flash_attention``, in the
@@ -6,18 +6,24 @@ JAX layout: q (B, Sq, H, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv),
 output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
 
 * ``flash_attention``: the one entry point the models call.  On a CUDA
-  tensor, the hand-written kernel in ``csrc/flash_attention.cu`` (bf16, f32
-  softmax state, tensor cores; see the note there); on a CPU tensor, the
-  plain version with every option.  Each kernel launch adds one to
-  ``LAUNCHES["flash_attention"]``.
+  tensor, a ``torch.autograd.Function`` whose forward is the hand-written
+  kernel in ``csrc/flash_attention.cu`` (bf16, f32 softmax state, tensor
+  cores; see the note there) and whose backward is ``flash_attention_bwd``;
+  on a CPU tensor, the plain version with every option, differentiated by
+  autograd.  Each kernel launch adds one to ``LAUNCHES["flash_attention"]``.
+* ``flash_attention_bwd``: the gradients of q, k and v, as
+  FlashAttention-2's backward in PyTorch ops over query and key chunks
+  (the reference has no backward kernel: its training attention is the
+  autodiff of the chunked attention).  f32 inside, the input dtype out.
 * ``flash_attention_plain``: the reference's chunked online-softmax
   attention in plain PyTorch, on any device, with its dtype behaviour:
   scores and block outputs in the input dtype, the running max and sum in
   f32.  It also has the reference's sliding window, logit soft-cap and
-  query offset, which the kernel does not take (none is on the serving
-  path; on the card they raise).
-* ``compare_with_plain``: the kernel's error model, held against the
-  plain version in f32 on the same inputs.
+  query offset, which the kernel does not take (none is on the serving or
+  training path; on the card they raise).
+* ``compare_with_plain`` / ``compare_bwd_with_plain``: the error models of
+  the forward kernel and of the backward, held against the plain version
+  (and its autograd) in f32 on the same inputs.
 """
 
 from __future__ import annotations
@@ -164,30 +170,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     raise ValueError("flash_attention: no keys (Skv = 0)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, *, window: int = 0,
-                    q_chunk: int = 512, kv_chunk: int = 1024,
-                    softcap: float = 0.0,
-                    q_offset: int = 0) -> torch.Tensor:
-  """Fused attention forward. q: (B,Sq,H,D); k, v: (B,Skv,Hkv,D|Dv).
-
-  A CUDA tensor runs the kernel (bf16 only; ``q_chunk`` and ``kv_chunk``
-  are the plain version's chunking and do not apply); a CPU tensor the
-  plain version; any other device raises.
-  """
-  if q.device.type == "cpu":
-    return flash_attention_plain(
-        q, k, v, causal=causal, window=window, q_chunk=q_chunk,
-        kv_chunk=kv_chunk, softcap=softcap, q_offset=q_offset)
-  if q.device.type != "cuda":
-    raise ValueError(f"flash_attention takes CPU or CUDA tensors; got "
-                     f"{q.device}")
-  if window > 0 or softcap > 0.0 or q_offset != 0:
-    raise NotImplementedError(
-        "attention with a sliding window, logit soft-cap or query offset "
-        "on the card is not ported yet (ROADMAP.md, queue 1: "
-        "window/softcap attention)")
-  _check(q, k, v)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+  """One launch of the forward kernel on checked CUDA tensors."""
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
   out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
@@ -207,8 +192,119 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   return out
 
 
+class _FlashAttention(torch.autograd.Function):
+  """The kernel's forward under autograd; the backward recomputes the row
+  log-sum-exp from q and k (the kernel does not store it)."""
+
+  @staticmethod
+  def forward(ctx, q, k, v, causal):
+    out = _launch(q, k, v, causal)
+    ctx.causal = causal
+    ctx.save_for_backward(q, k, v, out)
+    return out
+
+  @staticmethod
+  def backward(ctx, do):
+    q, k, v, out = ctx.saved_tensors
+    return (*flash_attention_bwd(q, k, v, out, do, ctx.causal), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, *, window: int = 0,
+                    q_chunk: int = 512, kv_chunk: int = 1024,
+                    softcap: float = 0.0,
+                    q_offset: int = 0) -> torch.Tensor:
+  """Fused attention forward. q: (B,Sq,H,D); k, v: (B,Skv,Hkv,D|Dv).
+
+  A CUDA tensor runs the kernel (bf16 only; ``q_chunk`` and ``kv_chunk``
+  are the plain version's chunking and do not apply), differentiable
+  through ``flash_attention_bwd``; a CPU tensor the plain version; any
+  other device raises.
+  """
+  if q.device.type == "cpu":
+    return flash_attention_plain(
+        q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+        kv_chunk=kv_chunk, softcap=softcap, q_offset=q_offset)
+  if q.device.type != "cuda":
+    raise ValueError(f"flash_attention takes CPU or CUDA tensors; got "
+                     f"{q.device}")
+  if window > 0 or softcap > 0.0 or q_offset != 0:
+    raise NotImplementedError(
+        "attention with a sliding window, logit soft-cap or query offset "
+        "on the card is not ported yet (ROADMAP.md, queue 1: "
+        "window/softcap attention)")
+  _check(q, k, v)
+  return _FlashAttention.apply(q, k, v, bool(causal))
+
+
 # ---------------------------------------------------------------------------
-# Error model of the kernel.
+# Backward: FlashAttention-2's algorithm in PyTorch ops.
+# ---------------------------------------------------------------------------
+
+
+def _scores(q_blk, k_blk, q0: int, k0: int, scale: float, causal: bool):
+  """Masked f32 scores of a block, (B, Hkv, G, cq, ckv); q_blk (B, cq, Hkv,
+  G, D) and k_blk (B, ckv, Hkv, D) in f32, starting at positions q0, k0."""
+  s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
+  if causal:
+    q_pos = torch.arange(q0, q0 + q_blk.shape[1], device=s.device)
+    kv_pos = torch.arange(k0, k0 + k_blk.shape[1], device=s.device)
+    s = s.masked_fill(kv_pos[None, :] > q_pos[:, None], _NEG_INF)
+  return s
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, *, q_chunk: int = 512,
+                        kv_chunk: int = 1024):
+  """Gradients (dq, dk, dv) of attention at (q, k, v), output ``o`` and
+  output cotangent ``do``, in the layouts and dtypes of q, k and v.
+
+  FlashAttention-2's backward over query chunks of ``q_chunk`` rows and
+  key chunks of ``kv_chunk`` (a ragged last chunk allowed; with ``causal``
+  a key chunk wholly after a query chunk is skipped).  Per query chunk,
+  first the row log-sum-exp of the masked scores S * scale, merged chunk
+  by chunk; then, per key chunk, P = exp(S * scale - lse), dV += P^T dO,
+  dP = dO V^T, dS = P * (dP - D) with D = rowsum(dO * O), dQ += dS K * scale
+  and dK += dS^T Q * scale, the G query heads of a kv head summed into its
+  dK and dV.  Everything is f32 inside, on any device.
+  """
+  b, sq, h, d = q.shape
+  _, skv, hkv, dv = v.shape
+  g = h // hkv
+  scale = 1.0 / math.sqrt(d)
+  f32 = torch.float32
+  qf = q.to(f32).reshape(b, sq, hkv, g, d)
+  kf, vf = k.to(f32), v.to(f32)
+  dof = do.to(f32).reshape(b, sq, hkv, g, dv)
+  delta = torch.einsum("bqhgc,bqhgc->bhgq", dof,
+                       o.to(f32).reshape(b, sq, hkv, g, dv))
+  dq, dk, dvv = (torch.zeros_like(x) for x in (qf, kf, vf))
+  for q0 in range(0, sq, q_chunk):
+    q1 = min(q0 + q_chunk, sq)
+    q_blk, do_blk = qf[:, q0:q1], dof[:, q0:q1]
+    blocks = [(k0, min(k0 + kv_chunk, skv)) for k0 in range(0, skv, kv_chunk)
+              if not causal or k0 < q1]
+    lse = None
+    for k0, k1 in blocks:
+      part = torch.logsumexp(
+          _scores(q_blk, kf[:, k0:k1], q0, k0, scale, causal), dim=-1)
+      lse = part if lse is None else torch.logaddexp(lse, part)
+    d_blk = delta[..., q0:q1, None]
+    for k0, k1 in blocks:
+      k_blk, v_blk = kf[:, k0:k1], vf[:, k0:k1]
+      p = torch.exp(_scores(q_blk, k_blk, q0, k0, scale, causal)
+                    - lse[..., None])
+      dvv[:, k0:k1] += torch.einsum("bhgqk,bqhgc->bkhc", p, do_blk)
+      ds = p * (torch.einsum("bqhgc,bkhc->bhgqk", do_blk, v_blk) - d_blk)
+      dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk)
+      dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, q_blk)
+  return ((dq * scale).reshape(b, sq, h, d).to(q.dtype),
+          (dk * scale).to(k.dtype), dvv.to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Error models of the kernel and of the backward.
 # ---------------------------------------------------------------------------
 
 # Unit roundoff of bf16 (8 significant bits).
@@ -248,3 +344,68 @@ def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                         / torch.linalg.vector_norm(ref)),
       "median_ref": float(ref.abs().median()),
   }
+
+
+def _magnitudes(q, k, v, do, causal: bool):
+  """The backward's terms over absolute values, in f32, dense: for each
+  of dq, dk, dv the same sums as the gradient with every factor replaced
+  by its size, D by A_D = rowsum(|dO| * (|O| + A)) (A the attention over
+  |v|: the forward kernel's own error bound is 2 * BF16_U * (|O| + A))."""
+  b, sq, h, d = q.shape
+  hkv = k.shape[2]
+  g = h // hkv
+  qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+  kh, vh = (x.repeat_interleave(g, dim=2) for x in (kf, vf))
+  s = torch.einsum("bqhd,bkhd->bhqk", qf, kh) / math.sqrt(d)
+  if causal:
+    mask = torch.ones(sq, k.shape[1], dtype=torch.bool,
+                      device=s.device).tril()
+    s = s.masked_fill(~mask, _NEG_INF)
+  p = torch.softmax(s, dim=-1)
+  o = torch.einsum("bhqk,bkhc->bqhc", p, vh).abs()
+  a_fwd = torch.einsum("bhqk,bkhc->bqhc", p, vh.abs())
+  a_d = torch.sum(dof.abs() * (o + a_fwd), dim=-1).transpose(1, 2)
+  a_ds = p * (torch.einsum("bqhc,bkhc->bhqk", dof.abs(), vh.abs())
+              + a_d[..., None])
+  scale = 1.0 / math.sqrt(d)
+  a_dq = torch.einsum("bhqk,bkhd->bqhd", a_ds, kh.abs()) * scale
+  a_dk = torch.einsum("bhqk,bqhd->bkhd", a_ds, qf.abs()) * scale
+  a_dv = torch.einsum("bhqk,bqhc->bkhc", p, dof.abs())
+  fold = lambda x: x.reshape(x.shape[:2] + (hkv, g, x.shape[-1])).sum(3)
+  return a_dq, fold(a_dk), fold(a_dv)
+
+
+def compare_bwd_with_plain(grads, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           causal: bool) -> dict[str, dict[str, float]]:
+  """``grads`` = (dq, dk, dv) against the autograd of the plain version in
+  f32 on the same inputs, by the error model of the forward carried
+  through the backward.
+
+  ``flash_attention_bwd`` computes in f32 from the kernel's bf16 output O,
+  which is within 2 * BF16_U * (|O| + A) of the exact one; through
+  D = rowsum(dO * O) that moves each gradient by at most 2 * BF16_U times
+  its term over absolute values (``_magnitudes``: A_dq, A_dk, A_dv), and
+  the cast of the result to bf16 adds BF16_U * |grad|.  So, as for the
+  forward, element (i, c) of each gradient is held within 2 * BF16_U *
+  (|ref_ic| + A_ic) (``tol_ratio`` at most 1) and the relative Frobenius
+  error within REL_FROB_LIMIT.  Returns, by gradient name, the keys of
+  ``compare_with_plain``.
+  """
+  xs = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+  ref = flash_attention_plain(*xs, causal=causal)
+  refs = torch.autograd.grad(ref, xs, do.float())
+  out = {}
+  for name, got, want, a in zip(("dq", "dk", "dv"), grads, refs,
+                                _magnitudes(q, k, v, do, causal)):
+    err = (got.float() - want).abs()
+    tol = torch.clamp(2 * BF16_U * (want.abs() + a), min=1e-30)
+    out[name] = {
+        "finite": bool(torch.isfinite(got).all()),
+        "max_abs_err": float(err.max()),
+        "tol_ratio": float((err / tol).max()),
+        "rel_frob": float(torch.linalg.vector_norm(err)
+                          / torch.linalg.vector_norm(want)),
+        "median_ref": float(want.abs().median()),
+    }
+  return out

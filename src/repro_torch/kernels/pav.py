@@ -8,7 +8,9 @@ Counterpart of ``repro.kernels.pav``.  Over a (rows, n) batch:
   ``pav_scan.pav_l2_scan`` and ``pav_scan.pav_kl_scan``.
 * Both take CUDA tensors only and raise on any other device; the solve runs
   in f32 and the result is cast back to the input dtype, like the Pallas
-  wrappers.  Each launch adds one to ``LAUNCHES[<kernel>]``.
+  wrappers.  Each launch adds one to ``LAUNCHES[<kernel>]``; a batch of
+  more than 65535 rows (the grid's limit) is launched in slices of 65535,
+  one launch each.
 * ``pav_l2_stack`` / ``pav_kl_stack``: the plain stack machine, a port of
   ``_pav_body`` that advances all rows together with masked pops, and of
   ``_expand`` as one vectorized gather (it only moves values), on any
@@ -166,29 +168,50 @@ def _check(name: str, *xs: torch.Tensor) -> None:
     raise ValueError(f"{name}: n = {x.shape[1]} does not fit int32 starts")
 
 
+# The kernels' grid takes at most this many rows (gridDim.y); a larger
+# batch is launched in slices of it, one launch (and one count) a slice.
+MAX_GRID_ROWS = 65535
+
+
+def row_slices(rows: int) -> list[tuple[int, int]]:
+  """[start, stop) row ranges of at most ``MAX_GRID_ROWS`` rows each."""
+  return [(r, min(r + MAX_GRID_ROWS, rows))
+          for r in range(0, rows, MAX_GRID_ROWS)]
+
+
+def _launch_slices(kname: str, reg: str, ins: list[torch.Tensor],
+                   out: torch.Tensor) -> None:
+  """Launch the ``reg`` instantiation of ``csrc/pav_scan.cu`` on every row
+  slice of the f32, contiguous ``ins`` into ``out``, sharing one work
+  buffer sized for the largest slice (the launches queue on one stream)."""
+  rows, n = out.shape
+  if rows == 0 or n == 0:
+    return
+  slices = row_slices(rows)
+  work_bytes = _build.entry("pav_scan", f"pav_scan_{reg}_work_bytes",
+                            [_I64, _I64], _I64)(slices[0][1], n)
+  work = torch.empty((work_bytes,), dtype=torch.uint8, device=out.device)
+  launch = _build.entry("pav_scan", f"pav_scan_{reg}_launch",
+                        [_PTR] * (len(ins) + 2) + [_I64, _I64, _PTR])
+  stream = _build.current_stream(out.device)
+  with _build.on_device(out.device):
+    for lo, hi in slices:
+      err = launch(*(x[lo:hi].data_ptr() for x in ins),
+                   out[lo:hi].data_ptr(), work.data_ptr(), hi - lo, n,
+                   stream)
+      if err != 0:
+        raise RuntimeError(f"{kname} kernel launch failed with CUDA error "
+                           f"{err}")
+      LAUNCHES[kname] += 1
+
+
 def pav_l2(y: torch.Tensor) -> torch.Tensor:
   """Batched isotonic regression (non-increasing), CUDA (B, N) -> (B, N):
   the divide-and-conquer kernel of ``csrc/pav_scan.cu``."""
   _check("pav_l2", y)
-  rows, n = y.shape
-  if rows > 65535:
-    raise ValueError(f"pav_l2: {rows} rows; the kernel's grid takes at most "
-                     "65535")
   x = y.to(torch.float32).contiguous()
   out = torch.empty_like(x)
-  if rows == 0 or n == 0:
-    return out.to(y.dtype)
-  work_bytes = _build.entry("pav_scan", "pav_scan_l2_work_bytes",
-                            [_I64, _I64], _I64)(rows, n)
-  work = torch.empty((work_bytes,), dtype=torch.uint8, device=x.device)
-  launch = _build.entry("pav_scan", "pav_scan_l2_launch",
-                        [_PTR, _PTR, _PTR, _I64, _I64, _PTR])
-  with _build.on_device(x.device):
-    err = launch(x.data_ptr(), out.data_ptr(), work.data_ptr(), rows, n,
-                 _build.current_stream(x.device))
-  if err != 0:
-    raise RuntimeError(f"pav_l2 kernel launch failed with CUDA error {err}")
-  LAUNCHES["pav_l2"] += 1
+  _launch_slices("pav_l2", "l2", [x], out)
   return out.to(y.dtype)
 
 
@@ -196,23 +219,7 @@ def pav_kl(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   """Batched entropic isotonic optimization, CUDA (B, N) x (B, N) -> (B, N):
   the divide-and-conquer kernel of ``csrc/pav_scan.cu``, kl algebra."""
   _check("pav_kl", s, w)
-  rows, n = s.shape
-  if rows > 65535:
-    raise ValueError(f"pav_kl: {rows} rows; the kernel's grid takes at most "
-                     "65535")
   xs = [x.to(torch.float32).contiguous() for x in (s, w)]
   out = torch.empty_like(xs[0])
-  if rows == 0 or n == 0:
-    return out.to(s.dtype)
-  work_bytes = _build.entry("pav_scan", "pav_scan_kl_work_bytes",
-                            [_I64, _I64], _I64)(rows, n)
-  work = torch.empty((work_bytes,), dtype=torch.uint8, device=out.device)
-  launch = _build.entry("pav_scan", "pav_scan_kl_launch",
-                        [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _PTR])
-  with _build.on_device(out.device):
-    err = launch(xs[0].data_ptr(), xs[1].data_ptr(), out.data_ptr(),
-                 work.data_ptr(), rows, n, _build.current_stream(out.device))
-  if err != 0:
-    raise RuntimeError(f"pav_kl kernel launch failed with CUDA error {err}")
-  LAUNCHES["pav_kl"] += 1
+  _launch_slices("pav_kl", "kl", xs, out)
   return out.to(s.dtype)

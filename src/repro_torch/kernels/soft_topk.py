@@ -14,8 +14,9 @@ position outside the pool keeps v = y.
 * ``soft_topk_gates``: on a CUDA tensor, the hand-written kernel in
   ``csrc/soft_topk.cu`` (one warp per row in registers; see the note
   there); on a CPU tensor, the plain version.  It computes in f32 and
-  returns the input's dtype, like the Pallas wrapper.  Each kernel launch
-  adds one to ``LAUNCHES["soft_topk_gates"]``.
+  returns the input's dtype, like the Pallas wrapper.  It is forward only
+  and raises on logits that require grad while grad is enabled.  Each
+  kernel launch adds one to ``LAUNCHES["soft_topk_gates"]``.
 * ``soft_topk_gates_plain``: the same steps in plain PyTorch on any
   device: a stable argsort, the pool grown by batched masked steps with
   the kernel's order of additions, the scatter back.  On the card its
@@ -112,8 +113,14 @@ def soft_topk_gates(logits: torch.Tensor, k: int,
   """Fused soft top-k gate mass for each row of ``logits`` (T, E).
 
   Gates in [0, 1]^E summing to k per row.  A CUDA tensor runs the kernel;
-  a CPU tensor the plain version; any other device raises.
+  a CPU tensor the plain version; any other device raises.  The gate is
+  forward only, as in the reference: logits that require grad while grad
+  is enabled raise (``core.soft_topk_mask`` is the differentiable route).
   """
+  if torch.is_grad_enabled() and logits.requires_grad:
+    raise RuntimeError(
+        "soft_topk_gates is forward only and has no backward: under "
+        "autograd use repro_torch.core.soft_topk_mask (the router does)")
   if logits.device.type == "cpu":
     return soft_topk_gates_plain(logits, k, regularization_strength)
   if logits.device.type != "cuda":

@@ -40,10 +40,13 @@ def _sync(device: torch.device) -> None:
     torch.cuda.synchronize(device)
 
 
-def resolve_device(name: str, smoke: bool) -> torch.device:
+def resolve_device(name: str, smoke: bool,
+                   program: str = "the server") -> torch.device:
+  """The device of ``--device``: the card, raising where there is none;
+  the CPU only for ``--smoke`` configs."""
   device = torch.device(name)
   if device.type == "cuda" and not torch.cuda.is_available():
-    raise RuntimeError("CUDA is not available: the server runs on the card "
+    raise RuntimeError(f"CUDA is not available: {program} runs on the card "
                        "(pass --device cpu with --smoke to run the plain "
                        "versions on the CPU)")
   if device.type == "cpu" and not smoke:

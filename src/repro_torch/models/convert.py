@@ -5,8 +5,10 @@
 returns the port's ``Transformer`` with the same weights.  The reference
 stacks each segment's layers along a leading ``reps`` axis
 (``seg<i>/l<j>_<kind>/...``, one slice per scan step); this splits them
-into one module per layer, in the order the scan runs them.  Every leaf
-keeps its JAX layout (``wq`` (d, h, nd+rd), ``w_uk`` (r, h, nd),
+into one module per layer, in the order the scan runs them
+(``split_layers``; ``port_tree`` maps any pytree of that layout, such as
+the reference's gradients, onto the port's leaves the same way).  Every
+leaf keeps its JAX layout (``wq`` (d, h, nd+rd), ``w_uk`` (r, h, nd),
 ``router`` (d, E) f32, ...).
 """
 
@@ -32,21 +34,31 @@ def _map(tree, fn):
   return fn(tree)
 
 
-def from_jax_params(cfg, params_np: dict, device="cpu") -> Transformer:
-  """The reference's parameters (numpy leaves) as the port's model."""
-  check_supported(cfg)
+def split_layers(cfg, params_np: dict) -> list[dict]:
+  """The reference's stacked segments as one dict per layer, in the order
+  the scan runs them (numpy leaves, each a slice of its stack)."""
   layers = []
   for si, (cycle, reps) in enumerate(cfg.plan_segments()):
     seg = params_np[f"seg{si}"]
     for rep in range(reps):
       for j, kind in enumerate(cycle):
         layers.append(_map(seg[f"l{j}_{kind}"],
-                           lambda a, r=rep: _tensor(np.asarray(a)[r],
-                                                    device)))
+                           lambda a, r=rep: np.asarray(a)[r]))
+  return layers
 
-  def top(name):
-    return _map(params_np[name], lambda a: _tensor(a, device))
 
-  return Transformer(cfg, {"embed": top("embed"), "lm_head": top("lm_head"),
-                           "final_norm": top("final_norm"),
-                           "layers": layers})
+def port_tree(cfg, params_np: dict, device="cpu") -> dict:
+  """A pytree in the reference's layout (parameters, or gradients of
+  them) as the port's tree of tensors: ``embed``, ``lm_head``,
+  ``final_norm`` and ``layers`` (``split_layers``)."""
+  check_supported(cfg)
+  tree = {name: _map(params_np[name], lambda a: _tensor(a, device))
+          for name in ("embed", "lm_head", "final_norm")}
+  tree["layers"] = [_map(layer, lambda a: _tensor(a, device))
+                    for layer in split_layers(cfg, params_np)]
+  return tree
+
+
+def from_jax_params(cfg, params_np: dict, device="cpu") -> Transformer:
+  """The reference's parameters (numpy leaves) as the port's model."""
+  return Transformer(cfg, port_tree(cfg, params_np, device))

@@ -1,12 +1,13 @@
-"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embedding, LM head.
+"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embedding, LM head, loss.
 
 Counterpart of ``repro.models.layers``, for the layers the MLA + MoE
-serving path runs; attention is ``repro_torch.kernels.flash_attention``,
-which dispatches by device itself.  Parameters are plain dicts of tensors
-in the JAX layouts (``w_in`` (d, f), ``table`` (V, d), ...), so the same
-pytree maps one to one.  The reference's ``shard_activation`` calls are dropped: the
-port runs on one card, and without sharding rules that call is the
-identity in the reference too (``repro.sharding.specs.shard_activation``).
+serving and training paths run; attention is
+``repro_torch.kernels.flash_attention``, which dispatches by device itself.
+Parameters are plain dicts of tensors in the JAX layouts (``w_in`` (d, f),
+``table`` (V, d), ...), so the same pytree maps one to one.  The
+reference's ``shard_activation`` calls are dropped: the port runs on one
+card, and without sharding rules that call is the identity in the
+reference too (``repro.sharding.specs.shard_activation``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = dict[str, torch.Tensor]
 
@@ -98,3 +100,32 @@ def lm_head_logits(w: torch.Tensor, x: torch.Tensor,
   if softcap > 0.0:
     logits = torch.tanh(logits / softcap) * softcap
   return logits
+
+
+def _chunk_nll(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
+               softcap: float) -> torch.Tensor:
+  logits = lm_head_logits(w, x, softcap)
+  logz = torch.logsumexp(logits, dim=-1)
+  gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+  return logz - gold
+
+
+def lm_loss_chunked(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
+                    *, chunk: int = 1024, softcap: float = 0.0
+                    ) -> torch.Tensor:
+  """Per-token NLL (B, S) in f32 without materializing (B, S, V).
+
+  The sequence is cut into chunks of the largest divisor of S not above
+  ``chunk`` (the reference's scan); each chunk runs under
+  ``torch.utils.checkpoint``, so backward recomputes its f32 logits and
+  only one chunk's are alive at a time (420 MB at V = 102400 and a chunk
+  of 1024 tokens).
+  """
+  b, s, _ = x.shape
+  chunk = min(chunk, s)
+  while s % chunk:
+    chunk -= 1
+  return torch.cat([
+      checkpoint(_chunk_nll, w, x[:, i:i + chunk], targets[:, i:i + chunk],
+                 softcap, use_reentrant=False)
+      for i in range(0, s, chunk)], dim=1)

@@ -7,8 +7,14 @@ top-k, row sum k):
 * in serving (no autograd), the fused ``soft_topk_gates``: its CUDA kernel
   on the card, its plain version on the CPU;
 * under autograd, ``repro_torch.core.soft_topk_mask`` with its exact
-  Lemma 2 backward (the reference calls the same operator with its
-  minimax backend; the port's default backend gives the same values).
+  Lemma 2 backward (on the card its forward is the PAV kernel; the
+  reference calls the same operator with its minimax backend, and the
+  port's default backend gives the same values).  Remat keeps to one
+  route: the trainer's ``torch.utils.checkpoint`` is non-reentrant, so
+  the forward and its recompute in backward both run with grad enabled
+  and route on the same gates (a reentrant checkpoint would run the
+  forward under ``no_grad``, on the fused gates, and near ties could route
+  differently in the recompute).
 
 Dispatch stays hard top-k with capacity, as one-hot einsums within groups
 of ``moe_group_size`` tokens; the token count is padded to a multiple of

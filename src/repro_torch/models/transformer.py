@@ -1,12 +1,15 @@
-"""Model assembly for serving: the ``mla_moe`` layer stack, prefill, decode.
+"""Model assembly: the ``mla_moe`` layer stack, training pass, prefill, decode.
 
-Counterpart of ``repro.models.transformer`` for the serving passes of the
-``mla_moe`` kind (deepseek-v2-lite: MLA attention + MoE FFN with the soft
-top-k router).  Where the reference stacks a segment's layers under
-``lax.scan`` (with ``jax.checkpoint`` remat, which has no role in
-serving), the port keeps an ``nn.ModuleList`` of one module per layer, in
-the order the scan visits them.  Other layer kinds, frontends and the
-training pass raise ``NotImplementedError``.
+Counterpart of ``repro.models.transformer`` for the ``mla_moe`` kind
+(deepseek-v2-lite: MLA attention + MoE FFN with the soft top-k router).
+Where the reference stacks a segment's layers under ``lax.scan``, the
+port keeps an ``nn.ModuleList`` of one module per layer, in the order the
+scan visits them.  ``forward_train`` gives the per-token loss and the aux
+loss, with the reference's remat: ``"full"`` recomputes each layer in
+backward (``torch.utils.checkpoint``, non-reentrant, the counterpart of
+``jax.checkpoint(nothing_saveable)`` around each scan step), ``"none"``
+keeps its activations.  Other layer kinds, frontends and remat
+``"dots"`` raise ``NotImplementedError``.
 
 ``init_params`` builds random weights with the reference's distributions
 and scales (``mla_init``, ``moe_init``, ``embed_init``, the LM head)
@@ -21,6 +24,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -47,7 +51,8 @@ def check_supported(cfg) -> None:
 
 class ParamTree(nn.Module):
   """A nested dict of tensors as a module: tensors become parameters
-  (frozen: serving computes no gradients), dicts become sub-modules."""
+  (frozen, as serving wants them; the trainer turns gradients on with
+  ``requires_grad_``), dicts become sub-modules."""
 
   def __init__(self, tree: dict):
     super().__init__()
@@ -86,6 +91,11 @@ class Layer(nn.Module):
     h2 = L.norm_apply(p["norm2"], x, cfg.norm)
     ff, aux = MOE.moe_apply(p["ffn"], h2, cfg)
     return x + ff.to(x.dtype), aux, cache
+
+  def apply_train(self, x, positions):
+    """(x, aux) of the training pass; the unit that remat recomputes."""
+    x, aux, _ = self.apply_seq(x, positions)
+    return x, aux
 
   def apply_decode(self, x, cache, pos: int):
     """x: (B, d).  Returns (x, cache), the cache updated in place."""
@@ -188,6 +198,40 @@ def init_params(cfg, seed: int = 0, device="cpu") -> Transformer:
 
 def count_params(model: nn.Module) -> int:
   return sum(p.numel() for p in model.parameters())
+
+
+def decay_mask(model: Transformer) -> dict[str, bool]:
+  """Which parameters AdamW decays, by name.  The reference decays the
+  leaves of ndim >= 2 in its own layouts, where every layer's leaves carry
+  their segment's stacking axis: so every layer leaf (norm scales too),
+  and of the others the embedding and the LM head, not the final norm."""
+  return {name: name.startswith("layers.") or p.dim() >= 2
+          for name, p in model.named_parameters()}
+
+
+# ---------------------------------------------------------------------------
+# Training pass
+# ---------------------------------------------------------------------------
+
+
+def forward_train(cfg, model: Transformer, batch: dict):
+  """Per-token NLL (B, S) in f32 and the aux loss (a 0-d f32 tensor)."""
+  if cfg.remat not in ("none", "full"):
+    raise L.not_ported(f"remat {cfg.remat!r}", "remat \"dots\"")
+  x = L.embed_apply(model.embed.tree(), batch["tokens"],
+                    scale=cfg.tie_embeddings)
+  positions = torch.arange(x.shape[1], device=x.device)
+  aux = torch.zeros((), dtype=torch.float32, device=x.device)
+  for layer in model.layers:
+    if cfg.remat == "full":
+      x, a = checkpoint(layer.apply_train, x, positions, use_reentrant=False)
+    else:
+      x, a = layer.apply_train(x, positions)
+    aux = aux + a
+  x = L.norm_apply(model.final_norm.tree(), x, cfg.norm)
+  loss = L.lm_loss_chunked(model.lm_head.w, x, batch["targets"],
+                           chunk=cfg.xent_chunk, softcap=cfg.logit_softcap)
+  return loss, aux
 
 
 # ---------------------------------------------------------------------------

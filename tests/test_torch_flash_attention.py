@@ -180,3 +180,120 @@ def test_error_model_holds_rounding_and_catches_a_mask_error():
   cmp = fa.compare_with_plain(bad, q, k, v, True)
   assert cmp["tol_ratio"] > 1.0, cmp
   assert cmp["rel_frob"] > fa.REL_FROB_LIMIT, cmp
+
+
+# ---------------------------------------------------------------------------
+# Backward.
+# ---------------------------------------------------------------------------
+
+BWD_CASES = {
+    # name: (B, Sq, Skv, H, Hkv, D, Dv, causal, q_chunk, kv_chunk)
+    "causal_mla_widths": (2, 32, 32, 4, 4, 24, 16, True, 16, 16),
+    "causal_gqa_ragged": (2, 37, 37, 6, 2, 24, 16, True, 16, 7),
+    "noncausal_gqa": (1, 12, 20, 6, 3, 8, 8, False, 5, 6),
+    "causal_one_chunk": (1, 9, 9, 2, 1, 8, 4, True, 512, 1024),
+}
+
+
+def _plain_grads(q, k, v, do, causal):
+  """The autograd of the plain version: (out, dq, dk, dv)."""
+  xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+  out = fa.flash_attention_plain(*xs, causal=causal)
+  return (out.detach(), *torch.autograd.grad(out, xs, do))
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_matches_plain_autograd_f32(case):
+  """f32 in, f32 out: within 1e-5 * (1 + max|want|) of the autograd of the
+  plain version (the same sums in another order)."""
+  b, sq, skv, h, hkv, d, dv, causal, qc, kc = BWD_CASES[case]
+  q, k, v = (as_torch(x) for x in _inputs(b, sq, skv, h, hkv, d, dv))
+  do = as_torch(rng.normal(size=(b, sq, h, dv)))
+  out, *want = _plain_grads(q, k, v, do, causal)
+  got = fa.flash_attention_bwd(q, k, v, out, do, causal, q_chunk=qc,
+                               kv_chunk=kc)
+  for g, w, x in zip(got, want, (q, k, v)):
+    assert g.dtype == torch.float32 and g.shape == x.shape
+    assert_close(g, w, w)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_bf16_within_error_model(case):
+  """bf16 in and out, O rounded to bf16 as the kernel gives it: every
+  gradient within the error model of ``compare_bwd_with_plain``."""
+  b, sq, skv, h, hkv, d, dv, causal, qc, kc = BWD_CASES[case]
+  q, k, v = (as_torch(x, torch.bfloat16)
+             for x in _inputs(b, sq, skv, h, hkv, d, dv))
+  do = as_torch(rng.normal(size=(b, sq, h, dv)), torch.bfloat16)
+  out = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                 causal=causal).to(torch.bfloat16)
+  got = fa.flash_attention_bwd(q, k, v, out, do, causal, q_chunk=qc,
+                               kv_chunk=kc)
+  assert [g.dtype for g in got] == [torch.bfloat16] * 3
+  for name, cmp in fa.compare_bwd_with_plain(got, q, k, v, do,
+                                             causal).items():
+    assert cmp["finite"], name
+    assert cmp["tol_ratio"] <= 1.0, (name, cmp)
+    assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, (name, cmp)
+
+
+def test_backward_error_model_catches_a_mask_error():
+  """The gradients of non-causal attention held as causal ones fail."""
+  q, k, v = (as_torch(x, torch.bfloat16)
+             for x in _inputs(1, 64, 64, 4, 2, 32, 16))
+  do = as_torch(rng.normal(size=(1, 64, 4, 16)), torch.bfloat16)
+  out = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                 causal=False).to(torch.bfloat16)
+  bad = fa.flash_attention_bwd(q, k, v, out, do, False)
+  for name, cmp in fa.compare_bwd_with_plain(bad, q, k, v, do,
+                                             True).items():
+    assert cmp["tol_ratio"] > 1.0 and cmp["rel_frob"] > fa.REL_FROB_LIMIT, (
+        name, cmp)
+
+
+def test_autograd_function_saves_and_differentiates(monkeypatch):
+  """The card's route without the card: the autograd Function around the
+  forward launch, with the launch replaced by the plain version, gives
+  the plain version's autograd gradients through flash_attention_bwd."""
+  q, k, v = (as_torch(x) for x in _inputs(2, 20, 20, 4, 2, 24, 16))
+  do = as_torch(rng.normal(size=(2, 20, 4, 16)))
+  calls = []
+
+  def plain_launch(q, k, v, causal):
+    calls.append(causal)
+    return fa.flash_attention_plain(q, k, v, causal=causal)
+
+  monkeypatch.setattr(fa, "_launch", plain_launch)
+  xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+  out = fa._FlashAttention.apply(*xs, True)
+  assert out.grad_fn is not None and calls == [True]
+  got = torch.autograd.grad(out, xs, do)
+  _, *want = _plain_grads(q, k, v, do, True)
+  for g, w in zip(got, want):
+    assert_close(g, w, w)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(1, 256, 256, 16, 16, 192, 128, True),
+                                   (2, 100, 100, 8, 2, 192, 128, True),
+                                   (1, 77, 130, 4, 4, 192, 128, False)])
+def test_cuda_gradients_reach_q_k_and_v(shape, cuda_device):
+  """On the card the kernel's output carries a grad_fn: q, k and v each
+  get a finite, non-zero gradient, within the backward's error model of
+  the plain version's autograd in f32."""
+  b, sq, skv, h, hkv, d, dv, causal = shape
+  xs = [as_torch(x, torch.bfloat16).to(cuda_device).requires_grad_(True)
+        for x in _inputs(b, sq, skv, h, hkv, d, dv)]
+  before = fa.LAUNCHES["flash_attention"]
+  out = fa.flash_attention(*xs, causal)
+  assert out.grad_fn is not None
+  assert fa.LAUNCHES["flash_attention"] == before + 1
+  do = as_torch(rng.normal(size=out.shape), torch.bfloat16).to(cuda_device)
+  grads = torch.autograd.grad(out, xs, do)
+  torch.cuda.synchronize()
+  for g in grads:
+    assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+  for name, cmp in fa.compare_bwd_with_plain(
+      grads, *(x.detach() for x in xs), do, causal).items():
+    assert cmp["tol_ratio"] <= 1.0, (name, cmp)
+    assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, (name, cmp)

@@ -47,6 +47,9 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.smoke\n"
       "import repro_torch.data.pipeline, repro_torch.models.convert\n"
       "import repro_torch.launch.serve, repro_torch.launch.steps\n"
+      "import repro_torch.launch.train, repro_torch.optim.adamw\n"
+      "import repro_torch.optim.schedule, repro_torch.optim.compression\n"
+      "import repro_torch.checkpoint.checkpointer, repro_torch.obs.metrics\n"
       "bad = sorted(m for m in sys.modules\n"
       "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
       "print(bad)\n"

@@ -212,3 +212,27 @@ def test_cuda_kl_kernel_matches_plain_version(shape, kind, cuda_device):
     stack = pav.pav_kl_stack(st, wt).cpu()
     assert_close(got.cpu(), stack, s, w)
     assert _blocks(got) == _blocks(stack)
+
+
+def test_row_slices_cover_the_batch_in_grid_sized_launches():
+  assert pav.row_slices(0) == []
+  assert pav.row_slices(5) == [(0, 5)]
+  assert pav.row_slices(65535) == [(0, 65535)]
+  assert pav.row_slices(70000) == [(0, 65535), (65535, 70000)]
+  assert pav.row_slices(3 * 65535 + 1)[-1] == (3 * 65535, 3 * 65535 + 1)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kname", ["pav_l2", "pav_kl"])
+def test_cuda_kernels_take_more_rows_than_the_grid(kname, cuda_device):
+  """70000 rows (the grid takes 65535): two launches, and bit for bit
+  the plain divide and conquer on every row."""
+  rng = np.random.default_rng(SEED)
+  args = [as_torch(rng.normal(size=(70000, 64))).to(cuda_device)
+          for _ in range(1 if kname == "pav_l2" else 2)]
+  before = pav.LAUNCHES[kname]
+  got = getattr(pav, kname)(*args)
+  torch.cuda.synchronize()
+  assert pav.LAUNCHES[kname] == before + 2
+  want = getattr(pav_scan, f"{kname}_scan")(*args)
+  np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())

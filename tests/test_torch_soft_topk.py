@@ -180,6 +180,29 @@ def test_gates_reject_bad_arguments_and_count_no_launch_on_cpu():
   assert ops.all_launches() == before
 
 
+def _gates_refuse_autograd(device) -> None:
+  """Logits that require grad raise while grad is enabled; detached,
+  under no_grad, or not requiring grad, they run."""
+  x = torch.randn(8, 64, device=device, requires_grad=True)
+  before = ops.all_launches()
+  with pytest.raises(RuntimeError, match="forward only"):
+    soft_topk.soft_topk_gates(x, 6)
+  assert ops.all_launches() == before
+  with torch.no_grad():
+    soft_topk.soft_topk_gates(x, 6)
+  soft_topk.soft_topk_gates(x.detach(), 6)
+
+
+def test_gates_raise_under_autograd_on_cpu():
+  _gates_refuse_autograd(torch.device("cpu"))
+
+
+@pytest.mark.requires_cuda
+def test_gates_raise_under_autograd_on_the_card(cuda_device):
+  _gates_refuse_autograd(cuda_device)
+  torch.cuda.synchronize()
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("eps", [1.0, 0.3, 1e-2])
 @pytest.mark.parametrize("shape", [(4096, 64), (8, 64), (33, 100), (5, 8)])
