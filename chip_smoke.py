@@ -1153,22 +1153,104 @@ def train_checks(rec, fa, dev) -> tuple[list[str], dict]:
   return lines, {"qkv": (q, k, v), "out": out, "do": do}
 
 
+def timed_steps(trainer, state, n: int) -> list[float]:
+  """Seconds of ``n`` more train steps, timed as ``Trainer.run`` times
+  them (a sync before, the loss read back after), with no recorder around
+  the step's functions."""
+  times = []
+  for _ in range(n):
+    batch = trainer.batch_at(state.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, state.opt_state, metrics = trainer.train_step(
+        state.model, state.opt_state, batch)
+    loss = float(metrics["loss"])
+    times.append(time.perf_counter() - t0)
+    check(math.isfinite(loss), f"train step {state.step} loss {loss}")
+    state.step += 1
+  return times
+
+
+def sliced_sqrt_rn(x, sqrt_rn, n: int) -> torch.Tensor:
+  """``sqrt_rn`` over slices of ``n`` elements, so that each slice's f64
+  copy could stay in L2 (a yardstick, not used by the trainer)."""
+  out = torch.empty_like(x)
+  for xs, os in zip(x.view(-1).split(n), out.view(-1).split(n)):
+    os.copy_(sqrt_rn(xs))
+  return out
+
+
+def optimizer_times(trainer, state, name_limit) -> str:
+  """``adamw.update`` over the trainer's whole state with random bf16
+  gradients (CUDA-event medians), with each square root in turn:
+  ``sqrt_rn`` (the trainer's), PyTorch's f32 ``torch.sqrt`` (not correctly
+  rounded on the card) and the f64 round trip in three passes, then
+  ``sqrt_rn`` again; and each square root alone on ``EXPERT_LEAF``, also
+  ``sqrt_rn`` in slices."""
+  from repro_torch.models import transformer as T
+  from repro_torch.optim import adamw
+
+  dev = trainer.device
+  params = dict(state.model.named_parameters())
+  gen = torch.Generator(device=dev).manual_seed(SEED)
+  grads = {n: torch.randn(p.shape, generator=gen, device=dev,
+                          dtype=p.dtype) for n, p in params.items()}
+  cfg, decay = trainer.opt_cfg, T.decay_mask(state.model)
+  adam = state.opt_state["adam"]
+  roots = {"sqrt_rn": adamw.sqrt_rn, "f32 torch.sqrt": torch.sqrt,
+           "f64 round trip": lambda x: torch.sqrt(
+               x.to(torch.float64)).to(torch.float32),
+           "sqrt_rn in 2^22-element slices": lambda x: sliced_sqrt_rn(
+               x, adamw.sqrt_rn, 1 << 22)}
+  runs = []
+  try:
+    for name in ("sqrt_rn", "f32 torch.sqrt", "f64 round trip", "sqrt_rn"):
+      adamw.sqrt_rn = roots[name]
+      ms = median_ms(lambda: adamw.update(cfg, grads, adam, params, 1.0,
+                                          decay), 3)
+      runs.append(f"{name} {ms:.1f}")
+  finally:
+    adamw.sqrt_rn = roots["sqrt_rn"]
+  del grads
+  x = adam["v"][EXPERT_LEAF].float().abs()
+  alone = ", ".join(f"{name} {median_ms(lambda: fn(x), 10):.3f}"
+                    for name, fn in roots.items())
+  n = sum(p.numel() for p in params.values())
+  dtype = str(next(iter(params.values())).dtype).removeprefix("torch.")
+  return (f"times: adamw.update of all {len(params)} leaves ({n:,} "
+          f"parameters, {dtype} gradients) by square root, in this order "
+          f"(ms):"
+          f" {'; '.join(runs)}; the square root alone on {EXPERT_LEAF} "
+          f"{tuple(x.shape)} f32 (ms): {alone} [{name_limit}]")
+
+
 def train_times(res, rec, captured, fa, name_limit) -> list[str]:
-  """Step ms (median of steps 2 to 4), tokens/s, peak memory; the
-  attention forward and backward at the training shape beside SDPA's;
-  one more step under the profiler."""
+  """Step ms (median of 3 steps after the recorded run), tokens/s, peak
+  memory; the attention forward and backward at the training shape beside
+  SDPA's; one more step under the profiler; the optimizer by square
+  root."""
   lines = []
   trainer, state = res["trainer"], res["state"]
-  times = trainer.step_times[1:]
+  dev = trainer.device
+  recorded = trainer.step_times
+  rec.leaf = {}     # the recorder's copies of the expert leaf (2.6 GB)
+  torch.cuda.reset_peak_memory_stats(dev)
+  times = timed_steps(trainer, state, 3)
+  peak = torch.cuda.max_memory_allocated(dev) / 2**30
   med = statistics.median(times) * 1e3
   tokens = TRAIN_BATCH * TRAIN_SEQ
   lines.append(
       f"times: train {ARCH} {TRAIN_LAYERS} of 27 layers, batch "
       f"{TRAIN_BATCH} x {TRAIN_SEQ}, grad_accum 8, remat full: step "
-      f"{med:.1f} ms (median of steps 2-{TRAIN_STEPS}: "
-      f"{', '.join(f'{t * 1e3:.1f}' for t in times)}; step 1 "
-      f"{trainer.step_times[0] * 1e3:.1f}), {tokens / med * 1e3:.0f} "
-      f"tokens/s, peak memory {res['peak_gib']:.2f} GiB [{name_limit}]")
+      f"{med:.1f} ms (median of 3 steps after the recorded run, no "
+      f"recorder: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+      f"{tokens / med * 1e3:.0f} tokens/s; the recorded run's steps 1-"
+      f"{TRAIN_STEPS}, with the recorder's syncs and clones: "
+      f"{', '.join(f'{t * 1e3:.1f}' for t in recorded)} (median of steps "
+      f"2-{TRAIN_STEPS} {statistics.median(recorded[1:]) * 1e3:.1f}, "
+      f"{tokens / statistics.median(recorded[1:]):.0f} tokens/s); peak memory "
+      f"{peak:.2f} GiB ({res['peak_gib']:.2f} in the recorded run) "
+      f"[{name_limit}]")
   q, k, v = captured["qkv"]
   out, do = captured["out"], captured["do"]
   fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v, True), 20)
@@ -1225,6 +1307,7 @@ def train_times(res, rec, captured, fa, name_limit) -> list[str]:
                f"device busy {busy_text}; ranges (summed over the "
                f"microbatches): {span_text}; most device time (ms): "
                f"{kernels} [{name_limit}]")
+  lines.append(optimizer_times(trainer, state, name_limit))
   return lines
 
 

@@ -18,8 +18,8 @@ from repro_torch.optim.compression import ef_int8_roundtrip, init_residual
 
 def loss_from_batch(cfg, model, batch: dict):
   """(total loss, {"loss", "aux_loss"}): the mean token loss, soft-trimmed
-  when ``cfg.loss_trim_fraction > 0`` (paper §6.4 over the batch's
-  tokens flattened into one row), plus 0.01 times the aux loss."""
+  when ``cfg.loss_trim_fraction > 0`` (paper §6.4, per sequence: one row
+  per sequence of the microbatch), plus 0.01 times the aux loss."""
   with record_function("repro_forward_train"):
     token_losses, aux = T.forward_train(cfg, model, batch)
   if cfg.loss_trim_fraction > 0:

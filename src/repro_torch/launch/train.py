@@ -65,10 +65,13 @@ class Trainer:
                ckpt_dir: str | None = None, ckpt_every: int = 50,
                compress_grads: bool = False, total_steps: int = 1000,
                corrupt_fraction: float = 0.0, seed: int = 0,
-               device="cpu"):
+               device: str = "cuda", smoke: bool = False):
+    """``device`` as ``--device`` reads it: the card by default, raising
+    where there is none; the CPU only where ``smoke`` says ``cfg`` is a
+    smoke config."""
+    self.device = resolve_device(str(device), smoke, "the trainer")
     self.cfg = cfg
     self.opt_cfg = opt_cfg
-    self.device = torch.device(device)
     self.seed = seed
     self.pipeline = pipeline_for_arch(
         cfg, batch, seq, seed=seed, corrupt_fraction=corrupt_fraction)
@@ -252,14 +255,13 @@ def main(argv=None) -> dict:
     over["router"] = args.router
   if over:
     cfg = dataclasses.replace(cfg, **over)
-  device = resolve_device(args.device, args.smoke, "the trainer")
-
   opt_cfg = adamw.AdamWConfig(lr=args.lr)
   trainer = Trainer(cfg, opt_cfg, batch=args.batch, seq=args.seq,
                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                     compress_grads=args.compress_grads,
                     total_steps=args.steps, corrupt_fraction=args.corrupt,
-                    seed=args.seed, device=device)
+                    seed=args.seed, device=args.device, smoke=args.smoke)
+  device = trainer.device
   replaced = trainer.install_preemption_handler()
   try:
     if device.type == "cuda":

@@ -69,6 +69,18 @@ def global_norm(tree: dict) -> torch.Tensor:
                         for x in tree.values()))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+  """The correctly rounded square root of an f32 tensor, in f32.
+
+  PyTorch's f32 square root on the card is not correctly rounded
+  (``chip_smoke.py`` counts where it differs from the CPU's).  The square
+  root of the f64 value rounded once to f32 is (53 >= 2 * 24 + 2 bits), so
+  the root is taken in f64 and written straight into an f32 tensor: on
+  the card one f64 copy of ``x`` is made and the f64 root is never stored.
+  """
+  return torch.sqrt(x.to(torch.float64), out=torch.empty_like(x))
+
+
 def update_leaf(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2,
                 decay: bool):
   """One leaf's step in f32: (new p, new m, new v) before any cast.
@@ -77,16 +89,13 @@ def update_leaf(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2,
   card as on the CPU, so the two agree bit for bit: ``scale``, ``lr``,
   ``bc1`` and ``bc2`` are 0-d f32 tensors on the leaf's device (a division
   by a Python number is a product with its reciprocal on the card), and
-  the square root is taken in f64 and rounded to f32 (PyTorch's f32
-  square root on the card is not correctly rounded, and ``chip_smoke.py``
-  counts where it differs from the CPU's; a square root rounded through
-  f64 is correctly rounded).
+  the square root is ``sqrt_rn``.
   """
   b1, b2 = cfg.b1, cfg.b2
   g32 = g.to(torch.float32) * scale
   m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
   v32 = b2 * v.to(torch.float32) + (1 - b2) * g32 * g32
-  root = torch.sqrt((v32 / bc2).to(torch.float64)).to(torch.float32)
+  root = sqrt_rn(v32 / bc2)
   step = (m32 / bc1) / (root + cfg.eps)
   if decay:
     step = step + cfg.weight_decay * p.to(torch.float32)

@@ -125,12 +125,14 @@ def test_four_steps_equal_two_restore_two(tmp_path, capsys):
   # Two steps of a 4-step schedule, then a new process's worth of state.
   cfg = whole["cfg"]
   first = train.Trainer(cfg, whole["trainer"].opt_cfg, batch=2, seq=16,
-                        ckpt_dir=str(tmp_path / "b"), total_steps=4)
+                        ckpt_dir=str(tmp_path / "b"), total_steps=4,
+                        device="cpu", smoke=True)
   state = first.init_or_restore()
   first.run(state, 2)
   assert ckpt.latest_step(str(tmp_path / "b")) == 2
   second = train.Trainer(cfg, whole["trainer"].opt_cfg, batch=2, seq=16,
-                         ckpt_dir=str(tmp_path / "b"), total_steps=4)
+                         ckpt_dir=str(tmp_path / "b"), total_steps=4,
+                         device="cpu", smoke=True)
   state = second.init_or_restore()
   assert state.step == 2 and "resumed from step 2" in capsys.readouterr().out
   state, metrics = second.run(state, 2)

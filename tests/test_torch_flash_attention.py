@@ -6,8 +6,10 @@ the reference's chunked attention ``repro.models.layers.flash_attention``
 on the same numpy inputs, in f32: causal and not, GQA, the MLA smoke
 widths (D = 24, Dv = 16), chunks that do not divide S, and the sliding
 window, soft-cap and query offset the reference also has.  Tolerance
-1e-5 * (1 + max|input|) (``test_torch_common``).  The kernel itself runs
-only on the card (``requires_cuda``).
+1e-5 * (1 + max|input|) (``test_torch_common``).  The backward
+``flash_attention_bwd`` against ``jax.vjp`` of the same reference and
+against the plain version's autograd.  The kernel itself runs only on
+the card (``requires_cuda``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from test_torch_common import (  # noqa: E402
     as_torch,
     assert_close,
     cuda_device,  # noqa: F401
+    jax_vjp,
 )
 
 from repro.models import layers as jlayers  # noqa: E402
@@ -214,6 +217,25 @@ def test_backward_matches_plain_autograd_f32(case):
                                kv_chunk=kc)
   for g, w, x in zip(got, want, (q, k, v)):
     assert g.dtype == torch.float32 and g.shape == x.shape
+    assert_close(g, w, w)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_matches_reference_vjp(case):
+  """f32: dq, dk, dv within 1e-5 * (1 + max|want|) of ``jax.vjp`` of the
+  reference's chunked attention (its training attention) on the same
+  inputs and cotangent, O being the reference's forward output."""
+  b, sq, skv, h, hkv, d, dv, causal, qc, kc = BWD_CASES[case]
+  q, k, v = _inputs(b, sq, skv, h, hkv, d, dv)
+  do = rng.normal(size=(b, sq, h, dv))
+  out, want = jax_vjp(
+      lambda a, b_, c: jlayers.flash_attention(
+          a, b_, c, causal=causal, q_chunk=qc, kv_chunk=kc),
+      (q, k, v), do)
+  got = fa.flash_attention_bwd(*(as_torch(x) for x in (q, k, v)),
+                               as_torch(out), as_torch(do), causal,
+                               q_chunk=qc, kv_chunk=kc)
+  for g, w in zip(got, want):
     assert_close(g, w, w)
 
 

@@ -25,6 +25,7 @@ from test_torch_common import (  # noqa: E402
     as_torch,
     assert_close,
     composed_ref,  # noqa: F401
+    cuda_device,  # noqa: F401
 )
 
 from repro.optim import adamw as jadamw  # noqa: E402
@@ -122,6 +123,35 @@ def test_adamw_bf16_leaf_is_the_cast_of_the_f32_update():
   assert params["p"].dtype == torch.bfloat16
   assert torch.equal(params["p"], want.to(torch.bfloat16))
   assert torch.equal(state["m"]["p"], m32)
+
+
+def _sqrt_inputs() -> torch.Tensor:
+  """f32 values over the exponent range, subnormals, 0, exact squares,
+  the largest f32 and inf."""
+  rng = np.random.default_rng(93)
+  x = np.concatenate([
+      rng.random(4096) * 10.0 ** rng.integers(-38, 38, 4096),
+      np.array([0.0, 1e-45, 1e-40, 1.0, 4.0, 2.25, 3.4028235e38, np.inf]),
+  ]).astype(np.float32)
+  return torch.from_numpy(x)
+
+
+def test_sqrt_rn_is_the_correctly_rounded_root():
+  """Bit for bit the f64 root rounded once to f32 (correctly rounded),
+  in f32, on the CPU."""
+  x = _sqrt_inputs()
+  got = adamw.sqrt_rn(x)
+  want = np.sqrt(x.numpy().astype(np.float64)).astype(np.float32)
+  assert got.dtype == torch.float32
+  np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.requires_cuda
+def test_sqrt_rn_on_the_card_equals_the_cpu(cuda_device):
+  x = _sqrt_inputs()
+  got = adamw.sqrt_rn(x.to(cuda_device))
+  assert got.dtype == torch.float32 and got.device.type == "cuda"
+  assert torch.equal(got.cpu(), adamw.sqrt_rn(x))
 
 
 @pytest.mark.parametrize("step", [0, 3, 10, 40, 100, 150])

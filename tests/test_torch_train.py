@@ -241,6 +241,25 @@ def test_default_device_is_the_card():
     train.main(["--arch", ARCH, "--smoke", "--steps", "1"])
 
 
+@pytest.mark.parametrize("kwargs, exc", [
+    ({}, RuntimeError),                           # the card, by default
+    ({"smoke": True}, RuntimeError),
+    ({"device": "cpu"}, ValueError),              # the CPU needs smoke
+])
+def test_trainer_built_directly_runs_on_the_card(kwargs, exc):
+  """``Trainer`` resolves its device as ``--device`` does: built without
+  one it raises where there is no card, and it takes the CPU only for a
+  smoke config."""
+  if exc is RuntimeError and torch.cuda.is_available():
+    pytest.skip("a card is present: the default device runs")
+  with pytest.raises(exc):
+    train.Trainer(smoke_config(ARCH), adamw.AdamWConfig(), batch=2,
+                  seq=16, **kwargs)
+  cpu = train.Trainer(smoke_config(ARCH), adamw.AdamWConfig(), batch=2,
+                      seq=16, device="cpu", smoke=True)
+  assert cpu.device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("argv, exc", [
     (["--plan", "plan.json"], NotImplementedError),
     (["--bench-json", "out.json"], NotImplementedError),
