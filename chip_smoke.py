@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from a checkout on a machine with an NVIDIA H100 (sm_90a) and the CUDA
-toolkit.  Three paths run on the card: the operator chain (soft rank /
-sort and the losses, on the PAV kernels), the LM server of
+toolkit.  Four paths run on the card: the operator chain (soft rank /
+sort and the losses, on the PAV kernels), the soft-op serving engine
+(``launch/serve.py --engine``, on the PAV kernels), the LM server of
 deepseek-v2-lite-16b at full width and depth (on the soft top-k router and
 flash-attention kernels) and its trainer at full width (on the PAV kernel
 and flash attention under autograd).  Phases, each printing its own
@@ -45,7 +46,25 @@ lines; any failure raises and the script exits non-zero:
             counter must equal the number of its operator calls.  The
             (128, 1000) values and gradients are held against the port on
             the CPU (plain backends), and z = -theta/eps is compared
-            across the two devices.
+            across the two devices.  Fault F2's check: soft_rank /
+            soft_sort (l2, kl) on f64 tensors on the card (the built-in
+            plan's scan route) against the CPU at 1e-10, values and
+            gradients, with no PAV launch.
+   engine   ``repro_torch.launch.serve.main(["--engine", ...])`` with the
+            reference's defaults (500 requests of n 64 to 4096 from seed
+            0, max batch 32, max wait 2 ms, queue 1024, soft_rank and
+            soft_sort l2 desc), writing a BENCH artifact that
+            ``repro_torch.obs.artifacts`` validates; then 500 requests over
+            the 12 desc or undirected ops (l2 and kl).  Each with the PAV
+            counters from 0: no shed, no error, ``aot_cache_miss`` 0 after
+            warm-up, every cell on the cuda backend, and ``pav_l2`` /
+            ``pav_kl`` launched once per executed l2 / kl batch plus once
+            per warmed cell.  Every vector result equals the unpadded port
+            call on the card bit for bit (scalars within 1e-5 relative),
+            and every result is within 1e-5 * (1 + max|CPU|) of the
+            unpadded port call on the CPU (computed by the CPU workers).
+            Padding at the buckets' edges (n = 64, 65, 2048, 2049, 4096,
+            random and ties) is held bit for bit too.
    serve    ``repro_torch.launch.serve`` on deepseek-v2-lite-16b: random
             bf16 weights from seed 0, 8 prompts of 512 tokens from the
             port's TokenPipeline, prefill and 31 greedy decode steps.  Each
@@ -64,7 +83,13 @@ lines; any failure raises and the script exits non-zero:
             plain versions and, for attention,
             scaled_dot_product_attention as the library yardstick;
             prefill ms and decode tokens/s; one profiled prefill and
-            decode step (device busy and idle share, top kernels).
+            decode step (device busy and idle share, top kernels); the
+            engine's default stream three more times (warm-up seconds,
+            req/s, p50/p95/p99 latency, batch occupancy, padding waste) and
+            the PAV kernels at its largest cell (32, 4096); the fused
+            projection's two Lemma 2 backwards, ``segscan`` and
+            ``scatter``, at the train step's and the operators' shapes,
+            against the built-in plan's cuda backward rule.
 6. train    the server's model freed, ``repro_torch.launch.train``'s
             ``main`` on deepseek-v2-lite-16b at full width and 4 of 27
             layers (the trainer's state at full depth, ~260 GB, needs
@@ -97,6 +122,7 @@ import multiprocessing
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
@@ -399,20 +425,385 @@ def main_path(rt, pav, dev, theta_np, target_np, cot_np, tokens_np):
         f"gradients {e_grad:.3e} (tol 1e-5 * (1 + max|CPU|))")
 
   # soft_rank's z = -theta / eps on both devices.  PyTorch's CUDA division
-  # by a Python scalar multiplies by the scalar's f32 reciprocal; the CPU
-  # divides.
+  # by a Python scalar multiplies by the reciprocal rounded to f32; the
+  # operators divide by a 0-dim tensor on the card (operators._div_eps), as
+  # the CPU divides.
+  from repro_torch.core.operators import _div_eps
   theta = to_dev(theta_np[shape], cpu)
-  z_card = ((-theta.to(dev)) / EPS).cpu()
+  z_op = _div_eps(-theta.to(dev), EPS).cpu()
+  z_scalar = ((-theta.to(dev)) / 2.9).cpu()
   z_cpu = (-theta) / EPS
-  z_recip = (-theta) * (torch.tensor(1.0) / torch.tensor(EPS))
-  differ = int((z_card != z_cpu).sum())
-  ulps = float(((z_card - z_cpu).abs() / torch.finfo(torch.float32).eps
-                / z_cpu.abs()).max())
-  say(f"main: z = -theta/eps {shape}: card differs from CPU division in "
-      f"{differ} of {z_cpu.numel()} elements (at most {ulps:.2f} ulp of |z|),"
-      f" from CPU multiplication by the f32 reciprocal of eps in "
-      f"{int((z_card != z_recip).sum())}")
+  check(torch.equal(z_op, z_cpu), "the operators' z differs on the card")
+  say(f"main: z = -theta/eps {shape}: the operators' division on the card "
+      f"equals the CPU's in all {z_cpu.numel()} elements; PyTorch's CUDA "
+      f"division by the Python scalar 2.9 differs from the CPU's in "
+      f"{int((z_scalar != (-theta) / 2.9).sum())}")
   return launches, token_run
+
+
+def f64_on_the_card(rt, pav, dev, rng) -> list[str]:
+  """Fault F2's check: soft_rank / soft_sort, l2 and kl, on f64 tensors on
+  the card (the built-in plan sends them to ``scan``) against the CPU at
+  1e-10 * (1 + max|CPU|), values and gradients; no PAV kernel launches."""
+  x_np = rng.normal(size=(8, 1000)) * 3
+  cot = rng.normal(size=x_np.shape)
+  before = dict(pav.LAUNCHES)
+  lines = []
+  for opname in ("soft_rank", "soft_sort"):
+    for reg in ("l2", "kl"):
+      res = []
+      for device in (dev, torch.device("cpu")):
+        x = torch.tensor(x_np, dtype=torch.float64, device=device,
+                         requires_grad=True)
+        out = getattr(rt, opname)(x, EPS, reg)
+        (g,) = torch.autograd.grad(out, x, torch.tensor(cot, device=device))
+        check(out.dtype == g.dtype == torch.float64,
+              f"f64 {opname} {reg}: dtype {out.dtype}")
+        res.append((out.detach(), g))
+      e_out = close(res[0][0], res[1][0], rel=1e-10)
+      e_grad = close(res[0][1], res[1][1], rel=1e-10)
+      lines.append(f"{opname}_{reg} values {e_out:.2e}, gradients "
+                   f"{e_grad:.2e}")
+  torch.cuda.synchronize()
+  check(dict(pav.LAUNCHES) == before, "f64 on the card launched a PAV kernel")
+  return lines
+
+
+# ---------------------------------------------------------------------------
+# The soft-op serving engine (repro_torch.serving).
+# ---------------------------------------------------------------------------
+
+ENGINE_REQUESTS, ENGINE_SEED = 500, 0
+# The n at which the engine's buckets (64, 128, ..., 4096) change.
+ENGINE_EDGES = (64, 65, 2048, 2049, 4096)
+
+
+def engine_all_ops() -> tuple[str, ...]:
+  """The 12 kl and l2 serving ops that are descending or have no
+  direction."""
+  from repro_torch.serving import SERVING_OPS
+  return tuple(k for k in sorted(SERVING_OPS) if not k.endswith("/asc"))
+
+
+def engine_unpadded(rt, req, device) -> torch.Tensor:
+  """The unpadded port call that one engine request stands for."""
+  x = torch.from_numpy(np.asarray(req.values)).to(device)
+  op, reg = req.op.split("/")[:2]
+  extra = req.extras
+  if op == "soft_sort":
+    return rt.soft_sort(x, req.eps, reg)
+  if op == "soft_rank":
+    return rt.soft_rank(x, req.eps, reg)
+  if op == "soft_topk":
+    return rt.soft_topk_mask(x, extra["k"], req.eps, reg)
+  if op == "projection":
+    return rt.projection_permutahedron(
+        x, torch.from_numpy(extra["w"]).to(device), reg)
+  if op == "spearman":
+    return rt.soft_spearman_loss(
+        x, torch.from_numpy(extra["target"]).to(device), req.eps, reg,
+        direction="DESCENDING")
+  return rt.soft_lts_loss(x, extra["trim"], req.eps, reg)
+
+
+def engine_on_cpu(ops, lo: int, hi: int):
+  """Worker process: requests lo..hi of the engine's stream over ``ops``,
+  each as its unpadded port call on the CPU (the stack machine).  Returns
+  the results and the seconds it took."""
+  sys.path.insert(0, str(ROOT / "src"))
+  import repro_torch as rt
+  from repro_torch.serving import synthetic_stream
+  torch.set_num_threads(1)
+  t0 = time.perf_counter()
+  reqs = synthetic_stream(ENGINE_REQUESTS, seed=ENGINE_SEED, ops=ops)[lo:hi]
+  with torch.inference_mode():
+    out = [engine_unpadded(rt, r, torch.device("cpu")).numpy() for r in reqs]
+  return out, time.perf_counter() - t0
+
+
+def engine_cpu_jobs(pool):
+  """Both streams' CPU comparisons, in halves, on the CPU workers."""
+  from repro_torch.serving.engine import EngineConfig
+  half = ENGINE_REQUESTS // 2
+  return {name: [pool.submit(engine_on_cpu, ops, lo, lo + half)
+                 for lo in (0, half)]
+          for name, ops in (("default", EngineConfig().ops),
+                            ("all ops", engine_all_ops()))}
+
+
+def engine_run_checks(name, rt, dev, engine, requests, results, cells,
+                      launches, metrics) -> dict:
+  """One stream's checks on the card: no shed and no error, no cell built
+  on the request path, every cell on the cuda backend, one PAV launch a
+  batch and a warmed cell, and every vector result bit for bit the
+  unpadded port call on the card (scalars within 1e-5 * (1 + |card|))."""
+  from repro_torch.serving import SERVING_OPS, STATUS_ERROR, STATUS_OK
+  statuses = [r.status for r in results]
+  check(STATUS_ERROR not in statuses,
+        f"engine {name}: {statuses.count(STATUS_ERROR)} errors: "
+        f"{next((r.detail for r in results if r.status == STATUS_ERROR), '')}")
+  check(not metrics.counters("serving_error"),
+        f"engine {name}: {metrics.counters('serving_error')}")
+  check(statuses.count(STATUS_OK) == len(requests),
+        f"engine {name}: {len(requests) - statuses.count(STATUS_OK)} shed")
+  misses = metrics.counter_value("aot_cache_miss")
+  check(misses == 0, f"engine {name}: aot_cache_miss {misses} after warm-up")
+  keys = engine.cache.keys()
+  backends = {k[1] for k in keys}
+  check(backends == {"cuda"}, f"engine {name}: cells on {backends}")
+  check(len(keys) == cells, f"engine {name}: {len(keys)} cells, {cells} warmed")
+  cells_by = {"l2": 0, "kl": 0}
+  for k in keys:
+    cells_by[SERVING_OPS[k[0]].regularization] += 1
+  batches = {reg: sum(v for key, v in metrics.counters(
+      "serving_batch_exec").items() if f"regularization={reg}" in key)
+      for reg in ("l2", "kl")}
+  for reg, kname in (("l2", "pav_l2"), ("kl", "pav_kl")):
+    want = cells_by[reg] + batches[reg]
+    check(launches[kname] == want,
+          f"engine {name}: {kname} {launches[kname]} launches for "
+          f"{batches[reg]} batches + {cells_by[reg]} warm-up cells")
+  for kname in ("soft_topk_gates", "flash_attention"):
+    check(launches[kname] == 0,
+          f"engine {name}: {kname} {launches[kname]} launches")
+  say(f"engine: {name}: launches {launches} = executed batches {batches} + "
+      f"warm-up cells {cells_by}; 0 shed, 0 errors, aot_cache_miss 0; every "
+      "cell on the cuda backend")
+  differ, worst = 0, 0.0
+  for req, res in zip(requests, results):
+    want = engine_unpadded(rt, req, dev)
+    if SERVING_OPS[req.op].output == "vector":
+      differ += int(not np.array_equal(res.value, want.cpu().numpy()))
+    else:
+      err = abs(res.value - float(want))
+      worst = max(worst, err / (1.0 + abs(float(want))))
+  check(differ == 0, f"engine {name}: {differ} vector results not bit for "
+        "bit the unpadded call on the card")
+  check(worst <= 1e-5, f"engine {name}: scalar results {worst:.3e} off")
+  say(f"engine: {name}: every vector result of {len(requests)} bit for bit "
+      "the unpadded port call on the card; scalar results within "
+      f"{worst:.2e} * (1 + |card|)")
+  return {"results": results, "batches": batches, "launches": launches}
+
+
+def engine_edges(rt, dev, rng) -> None:
+  """Padding at the buckets' edges on the card: each vector op (l2 and kl)
+  on one padded row of n = 64, 65, 2048, 2049 and 4096, random and with
+  ties, bit for bit the unpadded call."""
+  from repro_torch.serving import Request
+  from repro_torch.serving.bucketing import BucketPolicy
+  from repro_torch.serving.ops import SERVING_OPS, bound_op
+  policy = BucketPolicy.pow2(64, 4096, 1)
+  keys = [k for k in engine_all_ops() if SERVING_OPS[k].output == "vector"]
+  checked = 0
+  for n in ENGINE_EDGES:
+    bucket = policy.bucket_for(n)
+    for kind in ("random", "ties"):
+      v = rng.normal(size=n).astype(np.float32) * 3
+      if kind == "ties":
+        v = np.round(v) / 2
+      w = np.abs(rng.normal(size=n)).astype(np.float32) + 0.1
+      for key in keys:
+        extras = {"k": max(1, n // 5), "w": w}
+        req = Request(op=key, values=v, eps=0.3, extras=extras)
+        row = np.zeros((1, bucket), np.float32)
+        row[0, :n] = v
+        args = [torch.from_numpy(row), torch.tensor([n]),
+                torch.tensor([0.3], dtype=torch.float32)]
+        if key.startswith("soft_topk"):
+          args.append(torch.tensor([extras["k"]]))
+        elif key.startswith("projection"):
+          wr = np.zeros((1, bucket), np.float32)
+          wr[0, :n] = w
+          args.append(torch.from_numpy(wr))
+        with torch.inference_mode():
+          got = bound_op(key)(*[a.to(dev) for a in args])[0, :n]
+          want = engine_unpadded(rt, req, dev)
+        check(torch.equal(got, want),
+              f"engine: {key} n {n} {kind}: padded differs from unpadded "
+              f"by {float((got - want).abs().max()):.3e}")
+        checked += 1
+  say(f"engine: {checked} padded rows at n = {ENGINE_EDGES} (random and "
+      "ties, every vector op, l2 and kl) bit for bit the unpadded call on "
+      "the card")
+
+
+def engine_path(rt, dev, serve, kops, rng) -> dict:
+  """The engine phase: ``launch/serve.py --engine`` with the reference's
+  defaults, then a stream over all 12 desc / undirected ops, each with
+  every kernel's launch count from 0, then their checks, the bucket edges
+  and the artifact."""
+  from repro_torch.obs import artifacts, metrics
+  from repro_torch.serving import EngineConfig, ServingEngine, \
+      synthetic_stream
+  metrics.set_enabled(True)
+  runs = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    bench = str(Path(tmp) / "BENCH_engine.json")
+    metrics.reset()
+    kops.reset_all_launches()
+    res = serve.main(["--engine", "--bench-json", bench])
+    torch.cuda.synchronize()
+    launches = kops.all_launches()
+    errors = artifacts.validate_file(bench)
+    check(not errors, f"engine: the BENCH artifact is invalid: {errors}")
+    with open(bench) as f:
+      payload = json.load(f)
+  check(res["engine"].device == dev, f"engine ran on {res['engine'].device}")
+  runs["default"] = engine_run_checks(
+      "default stream", rt, dev, res["engine"], res["requests"],
+      res["results"], res["warm_cells"], launches, metrics)
+  runs["default"]["summary"] = res
+  say(f"engine: BENCH artifact valid (repro_torch.obs.artifacts), "
+      f"{len(payload['results'])} result, plan "
+      f"{payload['meta']['plan_name']} {payload['meta']['plan_hash']}, "
+      f"platform {payload['meta']['platform']}")
+
+  ops = engine_all_ops()
+  metrics.reset()
+  kops.reset_all_launches()
+  engine = ServingEngine(EngineConfig(ops=ops, max_batch=32,
+                                      aot_capacity=1024))
+  t0 = time.perf_counter()
+  cells = engine.warmup()
+  warm_s = time.perf_counter() - t0
+  requests = synthetic_stream(ENGINE_REQUESTS, seed=ENGINE_SEED, ops=ops)
+  t0 = time.perf_counter()
+  results = engine.serve(requests)
+  wall = time.perf_counter() - t0
+  torch.cuda.synchronize()
+  launches = kops.all_launches()
+  say(f"engine: all {len(ops)} ops: warmed {cells} cells in {warm_s:.2f} s;"
+      f" served {len(results)} in {wall:.3f} s "
+      f"({len(results) / wall:.0f} req/s), CPU workers busy")
+  runs["all ops"] = engine_run_checks(
+      f"all {len(ops)} ops", rt, dev, engine, requests, results, cells,
+      launches, metrics)
+  engine_edges(rt, dev, rng)
+  return runs
+
+
+def engine_cpu_checks(runs, futures) -> None:
+  """Every engine result within 1e-5 * (1 + max|CPU|) of the unpadded
+  port call on the CPU (the workers' results)."""
+  for name, futs in futures.items():
+    want, seconds = [], 0.0
+    for fut in futs:
+      out, sec = fut.result()
+      want += out
+      seconds += sec
+    worst = 0.0
+    for res, ref in zip(runs[name]["results"], want):
+      got = torch.as_tensor(np.asarray(res.value, np.float32))
+      worst = max(worst, close(got.reshape(np.shape(ref)),
+                               torch.from_numpy(np.asarray(ref))))
+    say(f"engine: {name}: every result within 1e-5 * (1 + max|CPU|) of "
+        f"the unpadded port call on the CPU (worst |diff| {worst:.3e}; "
+        f"CPU {seconds:.1f} s)")
+
+
+ENGINE_TIMED_RUNS = 3
+ENGINE_KERNEL_SHAPE = (32, 4096)   # max batch x largest bucket
+# The Lemma 2 backward's shapes: the train step's router rows, its soft-LTS
+# row, and the operators' shapes.
+BACKWARD_SHAPES = ((2048, 64), (1, 2048), (128, 1000), (128, 10000))
+
+
+def engine_times(serve, pav, pav_scan, segment_vjp, dev, rng, record,
+                 name_limit):
+  """Phase 5, engine: the default stream again, after the CPU workers
+  (warm-up seconds, req/s, latency percentiles, occupancy, padding waste),
+  and the PAV kernels at the engine's largest cell (32, 4096) beside their
+  plain versions (held to them, as in phase 3) and bounds."""
+  lines, rows = [], {}
+  for i in range(ENGINE_TIMED_RUNS):
+    r = serve.main(["--engine"])
+    lines.append(
+        f"times: engine default stream, run {i + 1}: warm-up "
+        f"{r['warm_cells']} cells {r['warm_s']:.3f} s; {r['ok']} served, "
+        f"{r['shed']} shed in {r['wall_s'] * 1e3:.1f} ms = "
+        f"{r['req_per_s']:.0f} req/s; p50/p95/p99 latency "
+        f"{r['p50_us']:.0f}/{r['p95_us']:.0f}/{r['p99_us']:.0f} us; mean "
+        f"batch occupancy {r['occupancy_pct']:.1f}%, padding waste "
+        f"{r['padding_waste_pct']:.1f}%; aot_cache_miss {r['aot_cache_miss']}"
+        f" [{name_limit}]")
+  rows_n = ENGINE_KERNEL_SHAPE
+  theta = to_dev(rng.normal(size=rows_n), dev)
+  s, w = main_solver_inputs(theta, None)
+  for kname, args in (("pav_l2", ((s - w).contiguous(),)),
+                      ("pav_kl", (s, w))):
+    kernel = getattr(pav, kname)
+    out = kernel(*args)
+    blocks = int(segment_vjp.block_starts(out).sum())
+    push, merge, block = OPS[kname]
+    n_el = rows_n[0] * rows_n[1]
+    n_ops = n_el * push + (n_el - blocks) * merge + blocks * block
+    bytes_ms = n_el * BYTES_PER_ELEM[kname] / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    ms = median_ms(lambda: kernel(*args), 20)
+    dev_ms = kernel_device_ms(lambda: kernel(*args), DEVICE_NAMES[kname], 20)
+    plain = getattr(pav_scan, f"{kname}_scan")
+    plain_ms = median_ms(lambda: plain(*args), 3)
+    held = hold(kname, f"{rows_n} soft_rank input", out, plain(*args),
+                record, KL_ON_CARD if kname == "pav_kl" else None)
+    rows[kname] = {"engine_ms": ms, "engine_device_ms": dev_ms}
+    lines.append(
+        f"times: {kname} {rows_n} (the engine's largest cell, soft_rank "
+        f"input) kernel {ms:.4f} ms (device {ms_text(dev_ms)}, profiler), "
+        f"plain {plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}), {blocks} "
+        f"blocks; {held} [{name_limit}]")
+  return rows, lines
+
+
+def backward_times(pav, dispatch, dev, rng, name_limit):
+  """Phase 5: the two Lemma 2 backwards of the fused projection,
+  ``segscan`` and ``scatter``, at the train step's and the operators'
+  shapes (CUDA-event medians), held to each other within 1e-5 * (1 +
+  max|scatter|); the built-in plan's cuda backward rule must be the
+  faster one wherever one is faster by a quarter or more."""
+  from repro_torch import plan as plan_mod
+  from repro_torch.kernels import segment_vjp
+  lines, slower = [], []
+  for rows, n in BACKWARD_SHAPES:
+    y = to_dev(rng.normal(size=(rows, n)), dev)
+    v = pav.pav_l2(y)
+    starts = segment_vjp.block_starts(v)
+    g = to_dev(rng.normal(size=(rows, n)), dev)
+    s_kl = torch.sort(to_dev(rng.normal(size=(rows, n)), dev),
+                      descending=True).values
+    w_kl = to_dev(rng.normal(size=(rows, n)), dev)
+    regs = ("l2",) if rows in (2048, 1) else ("l2", "kl")
+    for reg in regs:
+      args = ((g, starts) if reg == "l2" else (s_kl, w_kl, g, starts))
+      outs, times = {}, {}
+      for b in ("segscan", "scatter"):
+        fn = lambda b=b: dispatch.dispatch_backward("projection", reg, b,
+                                                    *args)
+        outs[b] = fn()
+        times[b] = median_ms(fn, 20)
+      for a, c in zip(*(o if isinstance(o, tuple) else (o,)
+                        for o in (outs["segscan"], outs["scatter"]))):
+        close(a, c)
+      ratio = times["segscan"] / times["scatter"]
+      slower.append(ratio)
+      lines.append(f"times: projection backward {reg} ({rows}, {n}): "
+                   f"segscan {times['segscan']:.4f} ms, scatter "
+                   f"{times['scatter']:.4f} ms (segscan / scatter "
+                   f"{ratio:.2f}) [{name_limit}]")
+  rule, _, _ = plan_mod.resolve_via_plans(
+      "backward", "projection", "l2", platform="cuda", dtype="float32",
+      shape=(128, 1000), plan=plan_mod.builtin_plan())
+  decisive = [r for r in slower if r >= 1.25 or r <= 0.8]
+  faster = "scatter" if sum(r > 1 for r in decisive) > len(decisive) / 2 \
+      else "segscan"
+  if decisive:
+    check(rule == faster, f"the built-in cuda backward rule is {rule}, but "
+          f"{faster} is faster at {len(decisive)} of {len(slower)} shapes")
+  lines.append(f"times: projection backward: segscan / scatter "
+               f"{min(slower):.2f}-{max(slower):.2f}; the built-in plan's "
+               f"cuda rule: {rule} [{name_limit}]")
+  return lines
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +913,93 @@ def pav_scan_checks(rng, dev, pav, pav_scan, theta_np, tokens_np, record,
             "machine on the card: " +
             hold("pav_kl vs stack", f"{(rows, n)} {kind}", out, stack,
                  record, "the stack machine pools in another order"))
+
+
+# The engine's cells that phase 3 holds the PAV kernels on: its largest,
+# a single short row, and two between; rows 1-32, n = bucket.
+ENGINE_HOLD_SHAPES = ((32, 4096), (1, 64), (8, 2048), (32, 128))
+ENGINE_HOLD_OPS = ("soft_rank/l2/desc", "soft_sort/l2/desc",
+                   "soft_rank/kl/desc", "soft_sort/kl/desc")
+
+
+def engine_kernel_inputs(dispatch, dev, rng):
+  """The PAV kernels' inputs at the engine's shapes, as the engine's
+  cells make them: batches assembled by ``ServingEngine._assemble`` (real
+  rows with their pad tails, then pad rows) run through the bound
+  soft_rank / soft_sort ops, with the cuda isotonic backend's inputs
+  captured on the way.  Yields (kernel, what, inputs)."""
+  from repro_torch.serving import EngineConfig, Request, ServingEngine
+  from repro_torch.serving.ops import bound_op, padded_op
+  engine = ServingEngine(EngineConfig(ops=ENGINE_HOLD_OPS, max_batch=32,
+                                      device=dev.type))
+  captured = []
+  saved = {}
+  for reg in ("l2", "kl"):
+    key = ("isotonic", reg, "cuda")
+    saved[key] = fn = dispatch._REGISTRY[key]
+
+    def capture(*args, fn=fn, kname=f"pav_{reg}"):
+      captured.append((kname, tuple(a.clone() for a in args)))
+      return fn(*args)
+
+    dispatch._REGISTRY[key] = capture
+  try:
+    for rows, bucket in ENGINE_HOLD_SHAPES:
+      lo = 1 if bucket == 64 else bucket // 2 + 1
+      # Row 0 full, the others padded; the (32, 128) batch ends in three
+      # pad rows; the single row is a padded one.
+      real = rows - 3 if (rows, bucket) == (32, 128) else rows
+      ns = [37] if rows == 1 else [bucket] + [
+          int(n) for n in rng.integers(lo, bucket, size=real - 1)]
+      for kind in ("random", "ties"):
+        for key in ENGINE_HOLD_OPS:
+          reqs = []
+          for n in ns:
+            v = rng.normal(size=n).astype(np.float32) * 3
+            if kind == "ties":
+              v = np.round(v) / 2
+            reqs.append(Request(op=key, values=v,
+                                eps=float(rng.choice([0.1, 0.3, 1.0]))))
+          args = engine._assemble(padded_op(key), reqs, rows, bucket)
+          start = len(captured)
+          with torch.no_grad():
+            bound_op(key)(*[torch.from_numpy(a).to(dev) for a in args])
+          for kname, inputs in captured[start:]:
+            yield (kname, f"({rows}, {bucket}) {key} {kind}, "
+                   f"{len(ns)} real rows", inputs)
+  finally:
+    dispatch._REGISTRY.update(saved)
+
+
+def engine_kernel_checks(dev, pav, pav_scan, record, rng) -> None:
+  """Phase 3, engine shapes: ``pav_l2`` / ``pav_kl`` bit for bit against
+  ``pav_l2_scan`` / ``pav_kl_scan`` on the card (kl: an ulp only for the
+  stated reason), on the inputs the engine's padded soft_rank / soft_sort
+  cells give them (pad tails and pad rows included) and on random rows,
+  at every shape of ``ENGINE_HOLD_SHAPES``."""
+  from repro_torch.kernels import dispatch
+  held = 0
+  for kname, what, args in engine_kernel_inputs(dispatch, dev, rng):
+    out = getattr(pav, kname)(*args)
+    plain = getattr(pav_scan, f"{kname}_scan")(*args)
+    reason = KL_ON_CARD if kname == "pav_kl" else None
+    text = hold(kname, f"engine {what}", out, plain, record, reason)
+    say(f"kernels: {kname} engine cell {what}, plain divide and conquer on "
+        f"the card: {text}")
+    held += 1
+  for rows, n in ENGINE_HOLD_SHAPES:
+    y, (s, w) = solver_inputs(rng, rows, n, "random")
+    for kname, args in (("pav_l2", (y,)), ("pav_kl", (s, w))):
+      args = [to_dev(a, dev) for a in args]
+      out = getattr(pav, kname)(*args)
+      plain = getattr(pav_scan, f"{kname}_scan")(*args)
+      reason = KL_ON_CARD if kname == "pav_kl" else None
+      text = hold(kname, f"({rows}, {n}) random", out, plain, record, reason)
+      say(f"kernels: {kname} ({rows}, {n}) random input, plain divide and "
+          f"conquer on the card: {text}")
+      held += 1
+  say(f"kernels: {held} engine-shape comparisons of pav_l2 / pav_kl with "
+      f"their plain versions at {ENGINE_HOLD_SHAPES}")
 
 
 class Recorder:
@@ -1403,10 +1881,15 @@ def main() -> int:
                      out, f"{kname}_stack",
                      tuple(a.cpu().numpy() for a in args)))
   pav_scan_checks(rng, dev, pav, pav_scan, theta_np, tokens_np, record, jobs)
+  engine_kernel_checks(dev, pav, pav_scan, record,
+                       np.random.default_rng([SEED, 3]))
 
   pool = ProcessPoolExecutor(max_workers=CPU_WORKERS,
                              mp_context=multiprocessing.get_context("spawn"))
   try:
+    # The engine's streams as unpadded calls on the CPU go first: the
+    # engine phase's comparisons wait for them.
+    engine_futures = engine_cpu_jobs(pool)
     futures = [pool.submit(plain_on_cpu, job[4], job[5]) for job in jobs]
     token_future = pool.submit(token_loss_on_cpu, tokens_np)
     say(f"kernels: {len(jobs)} comparisons at (1, {TOKENS}) and (128, 10000)"
@@ -1416,6 +1899,13 @@ def main() -> int:
     # 4. main path ------------------------------------------------------------
     launches, token_run = main_path(rt, pav, dev, theta_np, target_np,
                                     cot_np, tokens_np)
+    say("main: f64 on the card (the scan backend) vs the CPU, within 1e-10 "
+        "* (1 + max|CPU|), no PAV launch: " + "; ".join(
+            f64_on_the_card(rt, pav, dev, np.random.default_rng([SEED, 2]))))
+
+    # engine ------------------------------------------------------------------
+    engine_rng = np.random.default_rng([SEED, 16])
+    engine_runs = engine_path(rt, dev, serve, kops, engine_rng)
     # The serving path runs on the card while the CPU workers finish.
     serve_res, serve_launches, serve_rec, serve_err = serve_path(
         dev, serve, kops, st, fa)
@@ -1442,6 +1932,7 @@ def main() -> int:
     say(f"main: soft_trimmed_token_loss ({TOKENS},) card vs CPU port: value "
         f"{e_out:.3e}, gradients {e_grad:.3e} (tol 1e-5 * (1 + max|CPU|); "
         f"CPU {seconds:.1f} s)")
+    engine_cpu_checks(engine_runs, engine_futures)
     say(f"kernels: waited {time.perf_counter() - t0:.1f} s for the CPU "
         "workers after phase 4")
     for kname in ("pav_l2", "pav_kl"):
@@ -1534,7 +2025,12 @@ def main() -> int:
                f" fwd+bwd {both:.4f} ms [{name_limit}]")
   serve_rows, serve_lines = serve_times(serve_res, serve_rec, serve, st, fa,
                                         name_limit)
-  for line in lines + serve_lines:
+  engine_rows, engine_lines = engine_times(serve, pav, pav_scan, segment_vjp,
+                                           dev, engine_rng, record,
+                                           name_limit)
+  from repro_torch.kernels import dispatch
+  backward_lines = backward_times(pav, dispatch, dev, engine_rng, name_limit)
+  for line in lines + serve_lines + engine_lines + backward_lines:
     say(line)
 
   # 6. train ------------------------------------------------------------------
@@ -1560,13 +2056,18 @@ def main() -> int:
         "max_abs_err": max_err[kname], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
-        "shape": list(HEADLINE), "train_launches": train_launches[kname]})
+        "shape": list(HEADLINE), "train_launches": train_launches[kname],
+        "engine_launches": engine_runs["default"]["launches"][kname],
+        "engine_all_ops_launches": engine_runs["all ops"]["launches"][kname],
+        "engine_shape": list(ENGINE_KERNEL_SHAPE), **engine_rows[kname]})
   for kname, row in serve_rows.items():
     kernels.append({
         "name": kname, "route": "cuda", "source": SOURCES[kname],
         "replaces": REPLACES[kname], "launches": serve_launches[kname],
         "max_abs_err": max_err[kname], **row,
-        "train_launches": train_launches[kname]})
+        "train_launches": train_launches[kname],
+        "engine_launches": engine_runs["default"]["launches"][kname],
+        "engine_all_ops_launches": engine_runs["all ops"]["launches"][kname]})
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,9 @@ from repro_torch.kernels import dispatch as _d
 class _IsotonicL2(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, y, impl):
-    v = _d.dispatch("isotonic", "l2", impl, y)
+  def forward(ctx, y, impl, plan):
+    v = _d.dispatch("isotonic", "l2", impl, y, plan=plan)
+    ctx.plan = plan
     ctx.save_for_backward(v)
     return v
 
@@ -34,15 +35,17 @@ class _IsotonicL2(torch.autograd.Function):
   def backward(ctx, g):
     # Lemma 2 (Q): dv/dy is block-diagonal with blocks 11^T/|B| (symmetric).
     (v,) = ctx.saved_tensors
-    return _d.dispatch_backward("isotonic", "l2", None, v, g), None
+    return (_d.dispatch_backward("isotonic", "l2", None, v, g,
+                                 plan=ctx.plan), None, None)
 
 
 class _IsotonicKL(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, s, w, impl):
+  def forward(ctx, s, w, impl, plan):
     w_b = w.expand(s.shape)
-    v = _d.dispatch("isotonic", "kl", impl, s, w_b)
+    v = _d.dispatch("isotonic", "kl", impl, s, w_b, plan=plan)
+    ctx.plan = plan
     ctx.save_for_backward(s, w, v)
     return v
 
@@ -52,23 +55,26 @@ class _IsotonicKL(torch.autograd.Function):
     # Lemma 2 (E): B_j = 1 (x) softmax(s_B); transpose-multiply:
     #   grad_s = softmax(s_B) * sum(g_B);  grad_w = -softmax(w_B) * sum(g_B).
     grad_s, grad_w = _d.dispatch_backward("isotonic", "kl", None, s,
-                                          w.expand(s.shape), v, g)
+                                          w.expand(s.shape), v, g,
+                                          plan=ctx.plan)
     # Un-broadcast the w gradient if w was unbatched.
     if w.shape != s.shape:
       grad_w = grad_w.reshape((-1,) + tuple(w.shape)).sum(0)
-    return grad_s, grad_w, None
+    return grad_s, grad_w, None, None
 
 
-def isotonic_l2(y: torch.Tensor, impl: str | None = None) -> torch.Tensor:
-  """Isotonic regression: argmin ||v - y||^2, v non-increasing (last axis)."""
-  return _IsotonicL2.apply(y, impl)
+def isotonic_l2(y: torch.Tensor, impl: str | None = None,
+                plan=None) -> torch.Tensor:
+  """Isotonic regression: argmin ||v - y||^2, v non-increasing (last axis).
+  ``plan`` pins an execution plan for the forward and the backward."""
+  return _IsotonicL2.apply(y, impl, plan)
 
 
-def isotonic_kl(s: torch.Tensor, w: torch.Tensor,
-                impl: str | None = None) -> torch.Tensor:
+def isotonic_kl(s: torch.Tensor, w: torch.Tensor, impl: str | None = None,
+                plan=None) -> torch.Tensor:
   """Entropic-regularization isotonic optimization (paper Eq. 8), last axis.
 
   ``w`` may be unbatched (shape (n,)); its gradient is summed over the
-  batch.
+  batch.  ``plan`` pins an execution plan for the forward and the backward.
   """
-  return _IsotonicKL.apply(s, w, impl)
+  return _IsotonicKL.apply(s, w, impl, plan)

@@ -22,6 +22,21 @@ def _rho(n: int, like: torch.Tensor) -> torch.Tensor:
   return torch.arange(n, 0, -1, dtype=like.dtype, device=like.device)
 
 
+def _div_eps(x: torch.Tensor, eps: float) -> torch.Tensor:
+  """``x / eps``, rounded as one division on every device.
+
+  PyTorch's CUDA division by a Python scalar multiplies by the reciprocal
+  rounded to the tensor's dtype, which moves z = rho / eps by an ulp
+  against the CPU's division; at soft-sort ranges (n / eps in the
+  thousands) that ulp is 1e-4 of an output of order 1.  A 0-dim tensor on
+  the device divides exactly as the CPU does.  Half inputs keep the scalar
+  (their z is rounded to the half anyway).
+  """
+  if x.is_cuda and x.dtype in (torch.float32, torch.float64):
+    return x / torch.full((), eps, dtype=x.dtype, device=x.device)
+  return x / eps
+
+
 def _ctx_perm(sort_context: SortContext | None, descending: bool):
   """(sigma, sigma^{-1}) of the context's values in the given direction.
 
@@ -79,7 +94,7 @@ def soft_sort(values: torch.Tensor, regularization_strength: float = 1.0,
   n = values.shape[-1]
   # ASCENDING is -P(rho/eps, -theta): same sorted z, negated weights.
   w = values if descending else -values
-  z = (_rho(n, values) / eps).expand(values.shape)
+  z = _div_eps(_rho(n, values), eps).expand(values.shape)
   out = projection_permutahedron(
       z, w, regularization, impl, z_is_sorted=True,
       w_perm=_ctx_perm(sort_context, descending=descending))
@@ -117,7 +132,7 @@ def soft_rank(values: torch.Tensor, regularization_strength: float = 1.0,
   eps = regularization_strength
   # DESCENDING projects -theta/eps; ASCENDING projects +theta/eps.  Sorting
   # z descending is sorting theta ascending (resp. descending).
-  z = (-values if descending else values) / eps
+  z = _div_eps(-values if descending else values, eps)
   return projection_permutahedron(
       z, _rho(values.shape[-1], values), regularization, impl,
       w_is_sorted=True,
@@ -138,7 +153,7 @@ def soft_rank_kl_direct(values: torch.Tensor,
   """
   descending = _check_direction(direction)
   eps = regularization_strength
-  z = (-values if descending else values) / eps
+  z = _div_eps(-values if descending else values, eps)
   w = torch.log(_rho(values.shape[-1], values))
   return torch.exp(projection_permutahedron(
       z, w, "kl", impl, w_is_sorted=True,
@@ -165,7 +180,7 @@ def soft_topk_mask(values: torch.Tensor, k: int,
   w = torch.zeros((n,), dtype=values.dtype, device=values.device)
   w[:k] = 1
   return projection_permutahedron(
-      values / eps, w, regularization, impl, w_is_sorted=True,
+      _div_eps(values, eps), w, regularization, impl, w_is_sorted=True,
       z_perm=_ctx_perm(sort_context, descending=True))
 
 

@@ -5,16 +5,25 @@
 Counterpart of ``repro.core.projection``.  ``P(w)`` is permutation-invariant
 in ``w``, so ``w`` need not be sorted by the caller.  Two registered
 pipelines compute it (keys ``("projection", regularization, path)``,
-selected by ``path=`` > ``REPRO_TORCH_PROJECTION`` > ``"fused"``):
+selected by ``path=`` > ``REPRO_TORCH_PROJECTION`` > the execution plans,
+which resolve to ``"fused"``):
 
 ``"fused"`` (default)
     One ``torch.autograd.Function`` around sort + isotonic solve + gather.
-    The forward saves sigma, sigma^{-1}, tau^{-1} and the solver's block
-    starts; the backward is gather ->
-    Lemma 2 segment algebra -> gather, with no re-sort.  ``z_is_sorted`` /
-    ``w_is_sorted`` skip sorts the caller guarantees, and ``z_perm`` /
-    ``w_perm`` supply precomputed (sigma, sigma^{-1}) pairs, for example
-    from a ``SortContext``.
+    When a gradient is wanted, the forward saves sigma, sigma^{-1},
+    tau^{-1} and the solver's block starts (``segscan`` derives each
+    position's block start/end indices from them in the backward); the
+    backward is gather -> Lemma 2 segment algebra -> gather, with no
+    re-sort.
+    Without autograd (``no_grad``, ``inference_mode``) the forward saves
+    nothing.  ``z_is_sorted`` / ``w_is_sorted`` skip sorts the caller
+    guarantees, and ``z_perm`` / ``w_perm`` supply precomputed
+    (sigma, sigma^{-1}) pairs, for example from a ``SortContext``.  An
+    unbatched ``w`` on the CPU is sorted once per distinct vector (a small
+    process cache keyed by its bytes, counters ``sort_reuse_hit`` /
+    ``sort_reuse_miss``); on the card it is sorted on the device every
+    call, since hashing its values would copy it to the host and
+    synchronise.
 
 ``"composed"``
     The reference chain of differentiable primitives (descending sorts,
@@ -31,6 +40,8 @@ batch.
 from __future__ import annotations
 
 import functools
+import hashlib
+from collections import OrderedDict
 
 import torch
 
@@ -43,6 +54,7 @@ from repro_torch.core.permutations import (
 )
 from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.kernels import segment_vjp as _svjp
+from repro_torch.obs import metrics as _metrics
 
 _REGS = ("l2", "kl")
 _HALF_DTYPES = (torch.bfloat16, torch.float16)
@@ -54,7 +66,7 @@ _HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _composed_projection(regularization: str, z: torch.Tensor,
-                         w: torch.Tensor, impl: str | None, *,
+                         w: torch.Tensor, impl: str | None, plan=None, *,
                          z_is_sorted: bool = False, w_is_sorted: bool = False,
                          z_perm=None, w_perm=None) -> torch.Tensor:
   """z: (..., n); w: (n,) or broadcastable to z.shape.
@@ -71,11 +83,41 @@ def _composed_projection(regularization: str, z: torch.Tensor,
     w_sorted, _ = sort_descending(w.expand(z.shape))
   s, sigma = sort_descending(z)
   if regularization == "l2":
-    v = isotonic_l2(s - w_sorted, impl)
+    v = isotonic_l2(s - w_sorted, impl, plan)
   else:
-    v = isotonic_kl(s, w_sorted, impl)
+    v = isotonic_kl(s, w_sorted, impl, plan)
   # out = z - v_{sigma^{-1}}, i.e. out[sigma_k] = z[sigma_k] - v[k].
   return z - apply_inverse_permutation(v, sigma)
+
+
+# ---------------------------------------------------------------------------
+# Sorted-weight cache for unbatched weights on the CPU.
+# ---------------------------------------------------------------------------
+
+_W_CACHE_CAP = 64
+_w_sorted_cache: OrderedDict[tuple, tuple] = OrderedDict()
+
+
+def _sorted_w_unbatched(ws: torch.Tensor):
+  """(tau, tau^{-1}) of an unbatched CPU weight row, sorted once per
+  distinct vector in a small bounded process cache: an eager eps sweep
+  that re-projects onto the same permutahedron pays for one weight sort.
+  The key is the row's bytes; CUDA rows never come here (their bytes are
+  on the device)."""
+  host = ws.detach().contiguous()
+  key = (tuple(host.shape), str(host.dtype),
+         hashlib.sha1(host.numpy().tobytes()).hexdigest())
+  hit = key in _w_sorted_cache
+  _metrics.counter_inc("sort_reuse_hit" if hit else "sort_reuse_miss",
+                       source="w_cache")
+  if hit:
+    _w_sorted_cache.move_to_end(key)
+  else:
+    tau = argsort_descending(host)
+    while len(_w_sorted_cache) >= _W_CACHE_CAP:
+      _w_sorted_cache.popitem(last=False)
+    _w_sorted_cache[key] = (tau, inverse_permutation(tau))
+  return _w_sorted_cache[key]
 
 
 # ---------------------------------------------------------------------------
@@ -104,8 +146,8 @@ def _gather(x: torch.Tensor, idx: torch.Tensor | None) -> torch.Tensor:
 class _FusedProjection(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, z, w, regularization, impl, z_is_sorted, w_is_sorted,
-              z_perm, w_perm):
+  def forward(ctx, z, w, regularization, impl, plan, z_is_sorted,
+              w_is_sorted, z_perm, w_perm, save):
     n = z.shape[-1]
     if z_is_sorted:
       s, sigma, sigma_inv = z, None, None
@@ -126,6 +168,9 @@ class _FusedProjection(torch.autograd.Function):
     elif w_perm is not None:
       tau, tau_inv = w_perm
       w_sorted = torch.gather(ws, -1, tau)
+    elif ws.dim() == 1 and ws.device.type == "cpu":
+      tau, tau_inv = _sorted_w_unbatched(ws)
+      w_sorted = torch.gather(ws, -1, tau)
     else:
       tau = argsort_descending(ws)
       w_sorted = torch.gather(ws, -1, tau)
@@ -133,18 +178,20 @@ class _FusedProjection(torch.autograd.Function):
 
     if regularization == "l2":
       w_b = None
-      v = _dispatch.dispatch("isotonic", "l2", impl, s - w_sorted)
+      v = _dispatch.dispatch("isotonic", "l2", impl, s - w_sorted, plan=plan)
     else:
       w_b = w_sorted.expand(s.shape)
-      v = _dispatch.dispatch("isotonic", "kl", impl, s, w_b)
+      v = _dispatch.dispatch("isotonic", "kl", impl, s, w_b, plan=plan)
+    out = z - _gather(v, sigma_inv)
+    if not save:
+      return out
 
     starts = _svjp.block_starts(v.reshape(-1, n))
-    out = z - _gather(v, sigma_inv)
-
     ctx.regularization = regularization
+    ctx.plan = plan
     ctx.w_shape = w.shape
-    ctx.save_for_backward(
-        sigma, sigma_inv, tau_inv, starts, s if regularization == "kl" else None, w_b)
+    ctx.save_for_backward(sigma, sigma_inv, tau_inv, starts,
+                          s if regularization == "kl" else None, w_b)
     return out
 
   @staticmethod
@@ -158,11 +205,11 @@ class _FusedProjection(torch.autograd.Function):
     g_v = -_gather(g, sigma)
     if ctx.regularization == "l2":
       g_y = _dispatch.dispatch_backward("projection", "l2", None, g_v,
-                                        starts)
+                                        starts, plan=ctx.plan)
       g_s, g_ws = g_y, -g_y
     else:
       g_s, g_ws = _dispatch.dispatch_backward(
-          "projection", "kl", None, s, w_b, g_v, starts)
+          "projection", "kl", None, s, w_b, g_v, starts, plan=ctx.plan)
 
     # z cotangent: identity term plus the solve term mapped back through
     # sigma^{-1} (a gather: sigma^{-1} is already a residual).
@@ -174,15 +221,17 @@ class _FusedProjection(torch.autograd.Function):
       g_w = _gather(_unbroadcast(g_ws, ctx.w_shape), tau_inv)
     else:
       g_w = _unbroadcast(_gather(g_ws, tau_inv), ctx.w_shape)
-    return g_z, g_w, None, None, None, None, None, None
+    return g_z, g_w, None, None, None, None, None, None, None, None
 
 
 def _fused_projection(regularization: str, z: torch.Tensor, w: torch.Tensor,
-                      impl: str | None, *, z_is_sorted: bool = False,
-                      w_is_sorted: bool = False, z_perm=None,
-                      w_perm=None) -> torch.Tensor:
-  return _FusedProjection.apply(z, w, regularization, impl, bool(z_is_sorted),
-                                bool(w_is_sorted), z_perm, w_perm)
+                      impl: str | None, plan=None, *,
+                      z_is_sorted: bool = False, w_is_sorted: bool = False,
+                      z_perm=None, w_perm=None) -> torch.Tensor:
+  save = torch.is_grad_enabled() and (z.requires_grad or w.requires_grad)
+  return _FusedProjection.apply(z, w, regularization, impl, plan,
+                                bool(z_is_sorted), bool(w_is_sorted), z_perm,
+                                w_perm, save)
 
 
 for _reg in _REGS:
@@ -199,7 +248,7 @@ for _reg in _REGS:
 
 def projection_permutahedron(
     z: torch.Tensor, w: torch.Tensor, regularization: str = "l2",
-    impl: str | None = None, *, path: str | None = None,
+    impl: str | None = None, *, path: str | None = None, plan=None,
     z_is_sorted: bool = False, w_is_sorted: bool = False,
     z_perm=None, w_perm=None) -> torch.Tensor:
   """Project ``z`` onto the permutahedron generated by ``w`` (paper §4).
@@ -220,7 +269,13 @@ def projection_permutahedron(
   impl : {"auto", "cuda", "stack", "scan", "minimax"} or None
       Isotonic backend (``repro_torch.kernels.dispatch``).
   path : {"auto", "fused", "composed"} or None
-      Pipeline; None defers to ``REPRO_TORCH_PROJECTION``, then "fused".
+      Pipeline; None defers to ``REPRO_TORCH_PROJECTION``, then the plans
+      ("fused").
+  plan : repro_torch.plan.ExecutionPlan or None
+      Pin an execution plan for every decision of this call (forward
+      backend, backward backend, projection path); the fused backward
+      keeps it, so it also governs a backward run after a ``use_plan``
+      scope has closed.
   z_is_sorted, w_is_sorted : bool
       Caller guarantees the argument is already descending along the last
       axis; the fused path skips that sort.
@@ -237,10 +292,10 @@ def projection_permutahedron(
   if z.dtype in _HALF_DTYPES:
     # The whole pipeline runs promoted; only the result is demoted.
     out = _dispatch.dispatch_projection(
-        z.float(), w.float(), regularization, impl, path,
+        z.float(), w.float(), regularization, impl, path, plan=plan,
         z_is_sorted=z_is_sorted, w_is_sorted=w_is_sorted, z_perm=z_perm,
         w_perm=w_perm)
     return out.to(z.dtype)
   return _dispatch.dispatch_projection(
-      z, w, regularization, impl, path, z_is_sorted=z_is_sorted,
+      z, w, regularization, impl, path, plan=plan, z_is_sorted=z_is_sorted,
       w_is_sorted=w_is_sorted, z_perm=z_perm, w_perm=w_perm)

@@ -6,9 +6,11 @@ Counterpart of ``repro.kernels.pav``.  Over a (rows, n) batch:
   divide-and-conquer CUDA kernel in ``csrc/pav_scan.cu`` (log2(n) merge
   levels across threads; see the note there), whose plain versions are
   ``pav_scan.pav_l2_scan`` and ``pav_scan.pav_kl_scan``.
-* Both take CUDA tensors only and raise on any other device; the solve runs
-  in f32 and the result is cast back to the input dtype, like the Pallas
-  wrappers.  Each launch adds one to ``LAUNCHES[<kernel>]``; a batch of
+* Both take f32 CUDA tensors only and raise on any other device or dtype:
+  the kernels solve in f32, and a silent f32 solve of an f64 input would
+  return f64 with f32 precision (dispatch promotes halves to f32, and the
+  built-in plan sends f64 on the card to ``scan``).  Each launch adds one
+  to ``LAUNCHES[<kernel>]``; a batch of
   more than 65535 rows (the grid's limit) is launched in slices of 65535,
   one launch each.
 * ``pav_l2_stack`` / ``pav_kl_stack``: the plain stack machine, a port of
@@ -157,8 +159,10 @@ def _check(name: str, *xs: torch.Tensor) -> None:
     if t.device.type != "cuda":
       raise ValueError(f"{name} launches a CUDA kernel and takes CUDA "
                        f"tensors only; got a tensor on {t.device}")
-    if not t.is_floating_point():
-      raise TypeError(f"{name} takes floating tensors; got {t.dtype}")
+    if t.dtype != torch.float32:
+      raise TypeError(f"{name} solves in f32 and takes float32 tensors "
+                      f"only; got {t.dtype} (f64 on the card: the scan "
+                      "backend)")
     if t.dim() != 2 or t.shape != x.shape:
       raise ValueError(f"{name} takes (rows, n) tensors of one shape; got "
                        f"{[tuple(u.shape) for u in xs]}")
@@ -209,17 +213,17 @@ def pav_l2(y: torch.Tensor) -> torch.Tensor:
   """Batched isotonic regression (non-increasing), CUDA (B, N) -> (B, N):
   the divide-and-conquer kernel of ``csrc/pav_scan.cu``."""
   _check("pav_l2", y)
-  x = y.to(torch.float32).contiguous()
+  x = y.contiguous()
   out = torch.empty_like(x)
   _launch_slices("pav_l2", "l2", [x], out)
-  return out.to(y.dtype)
+  return out
 
 
 def pav_kl(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   """Batched entropic isotonic optimization, CUDA (B, N) x (B, N) -> (B, N):
   the divide-and-conquer kernel of ``csrc/pav_scan.cu``, kl algebra."""
   _check("pav_kl", s, w)
-  xs = [x.to(torch.float32).contiguous() for x in (s, w)]
+  xs = [x.contiguous() for x in (s, w)]
   out = torch.empty_like(xs[0])
   _launch_slices("pav_kl", "kl", xs, out)
-  return out.to(s.dtype)
+  return out

@@ -1,14 +1,22 @@
 """Backward passes for the isotonic and projection VJPs (paper Lemma 2).
 
-Counterpart of ``repro.kernels.segment_vjp``, in its ``"scatter"``
-formulation.  The Jacobian of an isotonic solve is block-diagonal with
-rank-1 blocks recovered from runs of equal values in the forward output, so
-every VJP is a composition of three within-block primitives over a
-(rows, n) batch: sum-broadcast, mean-broadcast and softmax.  Per-row block
-ids are offset into one global id space and reduced with ``scatter_add_``
-and ``scatter_reduce_(..., "amax")``, which are exact up to the order of
-the additions.  Block sums are never taken as differences of cumulative
-sums, which cancel at n = 2**20.
+Counterpart of ``repro.kernels.segment_vjp``.  The Jacobian of an isotonic
+solve is block-diagonal with rank-1 blocks recovered from runs of equal
+values in the forward output, so every VJP is a composition of three
+within-block primitives over a (rows, n) batch: sum-broadcast,
+mean-broadcast and softmax.  Two interchangeable formulations are
+registered in the backward table of ``repro_torch.kernels.dispatch``:
+
+* ``"segscan"``: blocks are contiguous runs, so each within-block
+  reduction is a segmented inclusive scan (a Hillis-Steele doubling in
+  log2(n) passes of tensor ops, carrying a reset flag at block starts)
+  read at the block's end position.  No scatter; the reference's default.
+* ``"scatter"``: per-row block ids are offset into one global id space and
+  reduced with ``scatter_add_`` and ``scatter_reduce_(..., "amax")``.
+
+Both are exact up to the order of the additions.  Block sums are never
+taken as differences of cumulative sums, which cancel at soft-sort dynamic
+ranges and at n = 2**20.
 """
 
 from __future__ import annotations
@@ -37,11 +45,7 @@ def _ids_from_starts(starts: torch.Tensor) -> torch.Tensor:
 
 def start_end_indices(
     starts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-  """Per-position block start/end indices from the start mask; (B, n) each.
-
-  Ported with the block recovery; only the reference's ``segscan``
-  backward reads them, and the port has no ``segscan`` yet.
-  """
+  """Per-position block start/end indices from the start mask; (B, n) each."""
   b, n = starts.shape
   iota = torch.arange(n, device=starts.device).expand(b, n)
   start_idx = torch.cummax(torch.where(starts, iota, 0), dim=1).values
@@ -49,6 +53,58 @@ def start_end_indices(
   end_idx = torch.flip(torch.cummin(
       torch.flip(torch.where(ends, iota, n - 1), (-1,)), dim=1).values, (-1,))
   return start_idx, end_idx
+
+
+# ---------------------------------------------------------------------------
+# "segscan" primitives: segmented prefix scans + block-end gathers.
+# ---------------------------------------------------------------------------
+
+
+def _seg_scan(x: torch.Tensor, starts: torch.Tensor, combine) -> torch.Tensor:
+  """Inclusive segmented scan along the last axis, resetting at starts.
+
+  Hillis-Steele doubling over the associative pair (value, flag):
+  (va, fa) . (vb, fb) = (vb if fb else combine(va, vb), fa | fb).  Pass
+  ``k`` combines every position with the one 2**k to its left, so each
+  output is a tree of depth log2(n) over its block's prefix, never a
+  difference of sums.
+  """
+  n = x.shape[-1]
+  v, f = x, starts
+  shift = 1
+  while shift < n:
+    vr, fr = v[..., shift:], f[..., shift:]
+    v = torch.cat([v[..., :shift],
+                   torch.where(fr, vr, combine(v[..., :-shift], vr))], dim=-1)
+    f = torch.cat([f[..., :shift], fr | f[..., :-shift]], dim=-1)
+    shift *= 2
+  return v
+
+
+def _seg_total(x: torch.Tensor, starts: torch.Tensor, end_idx: torch.Tensor,
+               combine) -> torch.Tensor:
+  """Within-block reduction broadcast to every position of the block."""
+  return torch.gather(_seg_scan(x, starts, combine), -1, end_idx)
+
+
+def seg_sum_bcast(g: torch.Tensor, starts: torch.Tensor,
+                  end_idx: torch.Tensor) -> torch.Tensor:
+  return _seg_total(g, starts, end_idx, torch.add)
+
+
+def seg_mean_bcast(g: torch.Tensor, starts: torch.Tensor,
+                   start_idx: torch.Tensor,
+                   end_idx: torch.Tensor) -> torch.Tensor:
+  cnt = (end_idx - start_idx + 1).to(g.dtype)
+  return seg_sum_bcast(g, starts, end_idx) / cnt
+
+
+def seg_softmax(x: torch.Tensor, starts: torch.Tensor,
+                end_idx: torch.Tensor) -> torch.Tensor:
+  """Softmax within each contiguous block (max-shifted, exact, stable)."""
+  m = _seg_total(x, starts, end_idx, torch.maximum)
+  ex = torch.exp(x - m)
+  return ex / _seg_total(ex, starts, end_idx, torch.add)
 
 
 # ---------------------------------------------------------------------------
@@ -97,9 +153,27 @@ def scatter_softmax(x: torch.Tensor, bid: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def isotonic_l2_bwd_segscan(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+  """Lemma 2 (Q): dv/dy has blocks 11^T/|B| -> within-block mean of g."""
+  starts = block_starts(v)
+  start_idx, end_idx = start_end_indices(starts)
+  return seg_mean_bcast(g, starts, start_idx, end_idx)
+
+
 def isotonic_l2_bwd_scatter(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
   """Lemma 2 (Q): dv/dy has blocks 11^T/|B| -> within-block mean of g."""
   return scatter_mean_bcast(g, block_ids(v))
+
+
+def isotonic_kl_bwd_segscan(s: torch.Tensor, w: torch.Tensor,
+                            v: torch.Tensor, g: torch.Tensor):
+  """Lemma 2 (E): grad_s = softmax(s_B) * sum(g_B) and
+  grad_w = -softmax(w_B) * sum(g_B)."""
+  starts = block_starts(v)
+  _, end_idx = start_end_indices(starts)
+  gs = seg_sum_bcast(g, starts, end_idx)
+  return (seg_softmax(s, starts, end_idx) * gs,
+          -seg_softmax(w, starts, end_idx) * gs)
 
 
 def isotonic_kl_bwd_scatter(s: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
@@ -112,14 +186,29 @@ def isotonic_kl_bwd_scatter(s: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
 
 
 # Projection backward passes (fused whole-pipeline VJP): the same algebra,
-# consuming the block starts the fused forward saved as a residual.  The
-# reference's versions also take start/end indices, which only its
-# ``segscan`` formulation reads; the port has no ``segscan`` yet.
+# consuming the block starts that the fused forward saved as a residual
+# (``segscan`` derives each position's block start/end indices from them).
+
+
+def projection_l2_bwd_segscan(g: torch.Tensor,
+                              starts: torch.Tensor) -> torch.Tensor:
+  """Lemma 2 (Q) with precomputed blocks: within-block mean of g."""
+  start_idx, end_idx = start_end_indices(starts)
+  return seg_mean_bcast(g, starts, start_idx, end_idx)
 
 
 def projection_l2_bwd_scatter(g: torch.Tensor,
                               starts: torch.Tensor) -> torch.Tensor:
   return scatter_mean_bcast(g, _ids_from_starts(starts))
+
+
+def projection_kl_bwd_segscan(s: torch.Tensor, w: torch.Tensor,
+                              g: torch.Tensor, starts: torch.Tensor):
+  """Lemma 2 (E) with precomputed blocks: softmax-weighted block sums."""
+  _, end_idx = start_end_indices(starts)
+  gs = seg_sum_bcast(g, starts, end_idx)
+  return (seg_softmax(s, starts, end_idx) * gs,
+          -seg_softmax(w, starts, end_idx) * gs)
 
 
 def projection_kl_bwd_scatter(s: torch.Tensor, w: torch.Tensor,

@@ -18,8 +18,10 @@ from repro_torch.optim.compression import ef_int8_roundtrip, init_residual
 
 def loss_from_batch(cfg, model, batch: dict):
   """(total loss, {"loss", "aux_loss"}): the mean token loss, soft-trimmed
-  when ``cfg.loss_trim_fraction > 0`` (paper §6.4, per sequence: one row
-  per sequence of the microbatch), plus 0.01 times the aux loss."""
+  when ``cfg.loss_trim_fraction > 0`` (paper §6.4), plus 0.01 times the aux
+  loss.  The trim runs over all of the microbatch's tokens as one row:
+  ``soft_trimmed_token_loss`` flattens its input, so the (batch, seq)
+  reshape does not make it per sequence, as in the reference."""
   with record_function("repro_forward_train"):
     token_losses, aux = T.forward_train(cfg, model, batch)
   if cfg.loss_trim_fraction > 0:

@@ -18,8 +18,10 @@ asynchronously every ``--ckpt-every`` steps and synchronously at the end
 start.  Steps slower than twice the rolling median are flagged as
 stragglers.  The model runs on the card (``--device cuda``, the default,
 which raises where there is none); ``--device cpu`` runs the kernels'
-plain versions and is for ``--smoke`` configs only.  ``--plan`` and
-``--bench-json`` are not ported yet.
+plain versions and is for ``--smoke`` configs only.  ``--plan FILE``
+installs an execution plan (``repro_torch.plan`` JSON) for every dispatch
+decision; ``--bench-json FILE`` writes a schema-v1 BENCH artifact of the
+step times (``Trainer.bench_results``) at the end.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import time
 import torch
 from torch.profiler import record_function
 
+from repro_torch import plan as repro_plan
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs.base import get_config
 from repro_torch.configs.smoke import smoke_config
@@ -41,7 +44,7 @@ from repro_torch.data.pipeline import pipeline_for_arch
 from repro_torch.launch import steps as ST
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import not_ported
+from repro_torch.obs import artifacts as obs_artifacts
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import cosine_with_warmup
@@ -177,7 +180,7 @@ class Trainer:
     return state, metrics
 
   def bench_results(self, final_metrics) -> list[dict]:
-    """Summary of the run's step times."""
+    """The run's step times as schema-v1 BENCH results."""
     times = sorted(self._step_times)
     if not times:
       return []
@@ -231,9 +234,11 @@ def parser() -> argparse.ArgumentParser:
                   help="seed of the random weights and the batches")
   ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
   ap.add_argument("--bench-json", default=None, metavar="PATH",
-                  help="a BENCH artifact of the run (not ported yet)")
+                  help="write a schema-v1 BENCH artifact (step-time "
+                       "distribution + dispatch metrics) on exit")
   ap.add_argument("--plan", default=None, metavar="PLAN_JSON",
-                  help="an execution plan (not ported yet)")
+                  help="install an ExecutionPlan (repro_torch.plan JSON) as "
+                       "the active plan for every dispatch decision")
   ap.add_argument("--set", action="append", dest="overrides")
   return ap
 
@@ -243,10 +248,7 @@ def main(argv=None) -> dict:
   the last step's metrics."""
   args = parser().parse_args(argv)
   if args.plan:
-    raise not_ported("--plan (execution plans)", "plan/ and obs/artifacts")
-  if args.bench_json:
-    raise not_ported("--bench-json (BENCH artifacts)",
-                     "plan/ and obs/artifacts")
+    repro_plan.set_active_plan(repro_plan.load_plan(args.plan))
   cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
   over = parse_overrides(args.overrides)
   if args.trim_frac:
@@ -281,6 +283,13 @@ def main(argv=None) -> dict:
   if device.type == "cuda":
     print(f"[train] max memory allocated "
           f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+  if args.bench_json:
+    obs_artifacts.write_bench_artifact(
+        args.bench_json, trainer.bench_results(metrics),
+        obs_artifacts.collect_meta(
+            device=device, suite="train", arch=args.arch,
+            smoke=bool(args.smoke), batch=args.batch, seq=args.seq,
+            steps=state.step, **repro_plan.plan_provenance()))
   return {"cfg": cfg, "trainer": trainer, "state": state,
           "metrics": metrics}
 

@@ -1,8 +1,15 @@
 """Mixture-of-Experts FFN with the paper's soft top-k router.
 
-Counterpart of ``repro.models.moe``.  The router's gate mass is the
-projection of the router logits onto the k-subset permutahedron (soft
-top-k, row sum k):
+Counterpart of ``repro.models.moe``.  Two routers (``cfg.router``):
+
+``softmax_topk``
+    The baseline (the reference's ``ArchConfig`` default): the softmax
+    probabilities of the k largest, renormalised; the gradient reaches only
+    the selected experts' logits.
+``soft_topk``
+    The paper's router: the gate mass is the projection of the router
+    logits onto the k-subset permutahedron (soft top-k, row sum k), with a
+    dense gradient to every expert's logit:
 
 * in serving (no autograd), the fused ``soft_topk_gates``: its CUDA kernel
   on the card, its plain version on the CPU;
@@ -34,15 +41,23 @@ import torch.nn.functional as F
 
 from repro_torch.core.operators import soft_topk_mask
 from repro_torch.kernels import soft_topk as _st
-from repro_torch.models.layers import Params, not_ported, mlp_apply
+from repro_torch.models.layers import Params, mlp_apply
+
+ROUTERS = ("softmax_topk", "soft_topk")
 
 
 def _router_weights(cfg, logits: torch.Tensor):
   """logits: (..., E) f32 -> (combine weights, router probs)."""
-  if cfg.router != "soft_topk":
-    raise not_ported(f"router {cfg.router!r}", "other layer kinds")
+  if cfg.router not in ROUTERS:
+    raise ValueError(f"router must be one of {ROUTERS}, got {cfg.router!r}")
   k = cfg.experts_per_token
   probs = torch.softmax(logits, dim=-1)
+  if cfg.router == "softmax_topk":
+    # Every expert whose probability reaches the k-th largest (ties kept).
+    topv = torch.topk(probs, k, dim=-1).values
+    w = torch.where(probs >= topv[..., -1:], probs, 0.0)
+    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
+    return w, probs
   if torch.is_grad_enabled() and logits.requires_grad:
     mask = soft_topk_mask(logits, k, cfg.router_eps)
   else:

@@ -56,6 +56,20 @@ def _key(name: str, labels: dict) -> str:
   return f"{name}{{{inner}}}"
 
 
+def key(name: str, /, **labels) -> str:
+  """The flattened instance name ``name{k=v,...}`` of a counter."""
+  return _key(name, labels)
+
+
+def bump(flat_key: str) -> None:
+  """Increment the counter whose flattened name (``key``) was formatted
+  once beforehand: the dispatch hot path's ``counter_inc``."""
+  if not enabled():
+    return
+  with _lock:
+    _counters[flat_key] = _counters.get(flat_key, 0) + 1
+
+
 def counter_inc(name: str, value: int = 1, /, **labels) -> None:
   """Increment counter ``name{labels}`` by ``value`` (no-op when off)."""
   if not enabled():

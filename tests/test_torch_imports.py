@@ -50,6 +50,11 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import repro_torch.launch.train, repro_torch.optim.adamw\n"
       "import repro_torch.optim.schedule, repro_torch.optim.compression\n"
       "import repro_torch.checkpoint.checkpointer, repro_torch.obs.metrics\n"
+      "import repro_torch.plan, repro_torch.obs.artifacts\n"
+      "import repro_torch.obs.timing, repro_torch.serving.ops\n"
+      "import repro_torch.serving.bucketing, repro_torch.serving.admission\n"
+      "import repro_torch.serving.aot_cache, repro_torch.serving.engine\n"
+      "import repro_torch.serving, repro_torch.kernels.segment_vjp\n"
       "bad = sorted(m for m in sys.modules\n"
       "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
       "print(bad)\n"

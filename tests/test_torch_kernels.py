@@ -168,3 +168,42 @@ def test_cuda_kernel_matches_plain_version(reg, cuda_device):
     want = pav.pav_kl_stack(as_torch(s), as_torch(w))
   torch.cuda.synchronize()
   assert_close(got.cpu(), want, s, w)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_kernels_refuse_other_dtypes(cuda_device):
+  """The kernels solve in f32: an f64 (or f16) tensor raises instead of
+  coming back f64 with f32 precision, and nothing is launched."""
+  before = dict(pav.LAUNCHES)
+  for dt in (torch.float64, torch.float16):
+    y = torch.zeros((2, 5), dtype=dt, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+      pav.pav_l2(y)
+    with pytest.raises(TypeError, match="float32"):
+      pav.pav_kl(y, y)
+  assert pav.LAUNCHES == before
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("op", ["soft_rank", "soft_sort"])
+@pytest.mark.parametrize("reg", ["l2", "kl"])
+def test_f64_on_the_card_agrees_with_the_cpu(op, reg, cuda_device):
+  """F2: an f64 call on the card goes to ``scan`` (the built-in plan's
+  rule before the cuda rule) and agrees with the CPU at 1e-10 * (1 +
+  max|input|), values and gradients; no kernel is launched."""
+  from repro_torch import core
+  x = rows_with_ties(rng, 6, 33) * 3
+  cot = rng.normal(size=x.shape)
+  fn = getattr(core, op)
+  outs = []
+  before = dict(pav.LAUNCHES)
+  for device in (cuda_device, torch.device("cpu")):
+    xt = torch.tensor(x, dtype=torch.float64, device=device,
+                      requires_grad=True)
+    out = fn(xt, 0.3, reg)
+    (g,) = torch.autograd.grad(out, xt, torch.tensor(cot, device=device))
+    assert out.dtype == g.dtype == torch.float64
+    outs.append((out.detach().cpu(), g.cpu()))
+  assert pav.LAUNCHES == before
+  assert_close(outs[0][0], outs[1][0], x, contract=CONTRACT_F64)
+  assert_close(outs[0][1], outs[1][1], x, cot, contract=CONTRACT_F64)

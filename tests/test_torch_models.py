@@ -1,7 +1,8 @@
 """Port of the serving path's model layers against the reference.
 
 MLA (expanded prefill form and absorbed decode form) and the MoE FFN with
-the soft top-k router, on ``smoke_config("deepseek-v2-lite-16b")`` in f32,
+the soft top-k router and the softmax top-k baseline router, on
+``smoke_config("deepseek-v2-lite-16b")`` in f32,
 with the reference's own random weights carried across by
 ``from_jax_params``, on the same numpy activations.  Also the configs and
 the token pipeline, which the port keeps as its own copies.  Tolerance
@@ -38,6 +39,7 @@ from repro_torch.configs.smoke import smoke_config  # noqa: E402
 from repro_torch.data.pipeline import pipeline_for_arch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import convert, layers, mla, moe  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 
 ARCH = "deepseek-v2-lite-16b"
 rng = np.random.default_rng(53)
@@ -222,3 +224,73 @@ def test_dispatch_respects_capacity_and_takes_first_of_equals():
   np.testing.assert_array_equal(dispatch[0, :, :, 0].numpy(),
                                 [[1, 0, 0], [0, 0, 0], [0, 0, 1]])
   np.testing.assert_allclose(combine.sum().item(), 1.0)
+
+
+def test_softmax_topk_router_matches_reference(smoke):
+  """The baseline router (the reference's ``ArchConfig`` default): values
+  and gradients against the reference; the gradient reaches only the
+  selected experts' logits plus the softmax's coupling."""
+  jcfg, cfg, _, _ = smoke
+  jcfg = dataclasses.replace(jcfg, router="softmax_topk")
+  cfg = dataclasses.replace(cfg, router="softmax_topk")
+  x = rng.normal(size=(2, 5, cfg.num_experts))
+  cot = rng.normal(size=x.shape)
+  w, _ = assert_vjp_parity(lambda a: jmoe._router_weights(jcfg, a)[0],
+                           lambda a: moe._router_weights(cfg, a)[0], (x,),
+                           cot)
+  assert int((w > 0).sum(-1).min()) == int((w > 0).sum(-1).max()) == \
+      cfg.experts_per_token
+  with pytest.raises(ValueError, match="router"):
+    moe._router_weights(dataclasses.replace(cfg, router="hash"),
+                        as_torch(x))
+
+
+def _router_grads_port(cfg, params, batch):
+  model = convert.from_jax_params(cfg, params).requires_grad_(True)
+  loss, aux = T.forward_train(cfg, model, batch)
+  total = torch.mean(loss) + 0.01 * aux
+  names, leaves = zip(*[(n, p) for n, p in model.named_parameters()
+                        if n.endswith("ffn.router")])
+  return dict(zip(names, torch.autograd.grad(total, leaves)))
+
+
+def _router_grads_reference(jcfg, cfg, params, batch):
+  def loss(p):
+    tl, aux = jtransformer.forward_train(jcfg, p, batch)
+    return jnp.mean(tl) + 0.01 * aux
+
+  g = jax.jit(jax.grad(loss))(params)
+  tree = convert.port_tree(cfg, jax.tree.map(np.asarray, g))
+  return {n: p for n, p in T.Transformer(cfg, tree).named_parameters()
+          if n.endswith("ffn.router")}
+
+
+def test_soft_topk_router_vs_softmax_router_gradients(smoke):
+  """Port of the reference's test of the same name: the paper's router
+  sends gradient to every expert logit, softmax top-k only to the selected
+  ones, so the soft router's gradient has at least as many non-zero
+  entries.  Each router's router gradients are also held to the
+  reference's (1e-4 * (1 + max|want|), the trainer tests' bound for
+  gradients through the MoE dispatch)."""
+  jcfg, cfg, params, _ = smoke
+  b = jpipeline(jcfg, 2, 16, seed=7).batch_at(0)
+  jbatch = {k: jnp.asarray(b[k]) for k in ("tokens", "targets")}
+  tbatch = {k: torch.from_numpy(b[k]).long() for k in ("tokens", "targets")}
+  flat = {}
+  for router in ("soft_topk", "softmax_topk"):
+    jc = dataclasses.replace(jcfg, router=router)
+    c = dataclasses.replace(cfg, router=router)
+    got = _router_grads_port(c, params, tbatch)
+    want = _router_grads_reference(jc, c, params, jbatch)
+    assert sorted(got) == sorted(want)
+    for name, g in got.items():
+      w = want[name].detach().numpy()
+      np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                 atol=1e-4 * (1 + np.abs(w).max()),
+                                 err_msg=f"{router} {name}")
+    flat[router] = np.concatenate([g.numpy().ravel() for g in got.values()])
+  assert np.isfinite(flat["soft_topk"]).all()
+  assert np.isfinite(flat["softmax_topk"]).all()
+  nz_soft = np.mean(np.abs(flat["soft_topk"]) > 1e-12)
+  nz_hard = np.mean(np.abs(flat["softmax_topk"]) > 1e-12)
+  assert nz_soft >= nz_hard

@@ -25,6 +25,7 @@ from test_torch_common import (  # noqa: E402
     assert_close,
     assert_vjp_parity,
     composed_ref,  # noqa: F401
+    cuda_device,  # noqa: F401
     rows_with_ties,
     sorted_desc,
 )
@@ -192,3 +193,30 @@ def test_sort_properties():
   # scaling: s_eps(c * x) = P(rho / eps, c * x) = c * s_{c * eps}(x)
   assert torch.allclose(core.soft_sort(2.0 * x, 0.7), 2.0 * core.soft_sort(
       x, 1.4), atol=1e-4)
+
+
+def test_eps_division_is_a_division():
+  """The operators' z = x / eps is one division: on the CPU the same as
+  dividing by the scalar (eps rounded to the tensor's dtype)."""
+  from repro_torch.core.operators import _div_eps
+  x = as_torch(rng.normal(size=(3, 50)) * 7)
+  for eps in (0.7, 2.9, 1.2897623193945442, 1e-3):
+    assert torch.equal(_div_eps(x, eps), x / eps)
+    assert torch.equal(_div_eps(x.double(), eps), x.double() / eps)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("op", ["soft_sort", "soft_rank"])
+def test_eps_division_on_the_card_is_the_cpus(op, cuda_device):
+  """On the card z = x / eps equals the CPU's bit for bit (PyTorch's CUDA
+  division by a Python scalar would multiply by the rounded reciprocal,
+  an ulp of n / eps off, which is 1e-4 of soft_sort's output at n / eps
+  = 6000), so the operator on the card (the l2 kernel) equals the CPU's
+  ``scan`` backend (the kernel's plain version) bit for bit."""
+  from repro_torch.core.operators import _div_eps
+  x = rng.normal(size=(4, 700))
+  for eps in (2.9, 1.2897623193945442, 0.11014354978460848):
+    xt = as_torch(x)
+    assert torch.equal(_div_eps(xt.to(cuda_device), eps).cpu(), xt / eps)
+    got = getattr(core, op)(xt.to(cuda_device), eps).cpu()
+    assert torch.equal(got, getattr(core, op)(xt, eps, impl="scan"))

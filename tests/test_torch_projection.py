@@ -25,6 +25,7 @@ from test_torch_common import (  # noqa: E402
     composed_ref,  # noqa: F401
     rows_with_ties,
     sorted_desc,
+    torch_vjp,
 )
 
 from repro.core.projection import (  # noqa: E402
@@ -107,3 +108,55 @@ def test_projection_path_selection(monkeypatch):
     dispatch.resolve_projection(None)
   with pytest.raises(ValueError, match="regularization"):
     projection_permutahedron(torch.zeros(3), torch.zeros(3), "entropy")
+
+
+def test_unbatched_w_on_the_cpu_is_sorted_once():
+  """The sorted-``w`` cache: the same unbatched CPU weights are sorted on
+  the first call (``sort_reuse_miss``) and served from the cache after
+  (``sort_reuse_hit``); results equal the composed path's within the
+  contract, and a batched ``w`` does not touch the cache."""
+  from repro_torch.obs import metrics
+  metrics.set_enabled(True)
+  metrics.reset()
+  w = rng.normal(size=(9,))
+  for eps in (0.5, 1.0, 2.0):
+    z = rng.normal(size=(3, 9)) / eps
+    got = projection_permutahedron(as_torch(z), as_torch(w), "l2")
+    want = projection_permutahedron(as_torch(z), as_torch(w), "l2",
+                                    path="composed")
+    assert_close(got, want, z, w)
+  projection_permutahedron(as_torch(z), as_torch(np.tile(w, (3, 1))), "l2")
+  assert metrics.counter_value("sort_reuse_miss", source="w_cache") == 1
+  assert metrics.counter_value("sort_reuse_hit", source="w_cache") == 2
+  metrics.set_enabled(None)
+  metrics.reset()
+
+
+@pytest.mark.parametrize("backward", ["segscan", "scatter"])
+def test_block_indices_are_saved_only_for_segscan(backward, monkeypatch):
+  """The block start/end indices are computed only by the ``segscan``
+  backward, from the saved starts (``scatter`` reads the starts only),
+  and never without autograd; gradients equal the composed path's within
+  the contract."""
+  from repro_torch.kernels import segment_vjp
+  monkeypatch.setenv(dispatch.BWD_ENV_VAR, backward)
+  calls = []
+  orig = segment_vjp.start_end_indices
+
+  def counted(starts):
+    calls.append(starts.shape)
+    return orig(starts)
+
+  monkeypatch.setattr(segment_vjp, "start_end_indices", counted)
+  z, w = rng.normal(size=(3, 8)), rng.normal(size=(8,))
+  with torch.no_grad():
+    projection_permutahedron(as_torch(z), as_torch(w), "kl")
+  assert calls == []
+  got = torch_vjp(lambda a: projection_permutahedron(a, as_torch(w), "kl"),
+                  (z,), np.ones_like(z))
+  want = torch_vjp(lambda a: projection_permutahedron(
+      a, as_torch(w), "kl", path="composed"), (z,), np.ones_like(z))
+  assert_close(got[1][0], want[1][0], z, w)
+  # segscan: once in the fused backward and once in the composed path's
+  # isotonic backward.
+  assert len(calls) == (2 if backward == "segscan" else 0)

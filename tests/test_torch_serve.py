@@ -107,7 +107,6 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("argv, exc", [
     (["--arch", ARCH, "--device", "cpu"], ValueError),   # full size on CPU
-    (["--arch", ARCH, "--smoke", "--engine"], NotImplementedError),
     (["--arch", "llama3.2-1b", "--smoke", "--device", "cpu"],
      NotImplementedError),
 ])

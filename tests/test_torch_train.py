@@ -15,6 +15,7 @@ metrics within 1e-4 relative.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -36,6 +37,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim import schedule as jschedule  # noqa: E402
+from repro_torch import core  # noqa: E402
 from repro_torch.configs.smoke import smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
@@ -228,6 +230,64 @@ def test_command_line_smoke_on_cpu(capsys, tmp_path):
   assert (tmp_path / "step_0000000003" / "manifest.json").is_file()
 
 
+def test_trim_runs_over_the_microbatch_as_one_row(monkeypatch):
+  """``loss_from_batch`` trims all of a microbatch's tokens as one row
+  (``soft_trimmed_token_loss`` flattens), not each sequence apart: at
+  batch 2 the two readings differ, and the loss is the one-row reading.
+  Row 0's losses are four times row 1's, so a per-row trim would drop
+  tokens of both rows; the one-row trim drops row 0's largest.  Exact
+  equality with the one-row call (the same ops on the same values); the
+  per-row mean is far off."""
+  _, cfg = _configs(loss_trim_fraction=0.25, loss_trim_eps=1e-2)
+  x = np.random.default_rng(0).gamma(2.0, 1.25, (2, 8))
+  x[0] *= 4.0
+  tl = as_torch(x)
+  monkeypatch.setattr(steps.T, "forward_train",
+                      lambda cfg, model, batch: (tl, torch.zeros(())))
+  _, m = steps.loss_from_batch(cfg, None, {})
+  one_row = core.soft_trimmed_token_loss(tl.reshape(-1), 0.25, 1e-2)
+  per_row = torch.stack([core.soft_trimmed_token_loss(r, 0.25, 1e-2)
+                         for r in tl]).mean()
+  assert torch.equal(m["loss"], one_row)
+  assert float(per_row - one_row) > 0.5
+  np.testing.assert_allclose([float(one_row), float(per_row)],
+                             [2.2590797, 2.9069772], rtol=1e-6)
+
+
+def test_plan_and_bench_json_on_the_cpu(tmp_path, capsys):
+  """``--plan`` installs the plan for every decision of the run and
+  ``--bench-json`` writes an artifact that both packages' validators
+  accept, naming the plan."""
+  from repro.obs import artifacts as jartifacts
+  from repro_torch import plan as plan_mod
+  from repro_torch.obs import artifacts, metrics
+  plan = plan_mod.ExecutionPlan(name="train-scan", rules=(
+      plan_mod.PlanRule("forward", "scan"),
+      plan_mod.PlanRule("backward", "scatter")))
+  plan_path, bench = tmp_path / "plan.json", tmp_path / "BENCH_train.json"
+  plan.save(str(plan_path))
+  metrics.reset()
+  try:
+    train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
+                "2", "--trim-frac", "0.1", "--batch", "2", "--seq", "16",
+                "--plan", str(plan_path), "--bench-json", str(bench)])
+    decided = metrics.counters("plan_decide")
+  finally:
+    plan_mod.set_active_plan(None)
+  assert decided["plan_decide{backend=scan,kind=forward,plan=train-scan,"
+                 "source=plan}"] > 0
+  assert decided["plan_decide{backend=scatter,kind=backward,"
+                 "plan=train-scan,source=plan}"] > 0
+  assert not any("source=builtin" in k and "kind=forward" in k
+                 for k in decided)
+  assert artifacts.validate_file(str(bench)) == []
+  assert jartifacts.validate_file(str(bench)) == []
+  payload = json.loads(bench.read_text())
+  assert payload["meta"]["plan_name"] == "train-scan"
+  assert payload["meta"]["plan_hash"] == plan.plan_hash()
+  assert payload["results"][0]["steps_timed"] == 2
+
+
 def test_overrides_cut_the_depth():
   assert train.parse_overrides(["num_layers=4", "router_eps=0.5",
                                 "remat=full", "fsdp=False"]) == {
@@ -261,8 +321,6 @@ def test_trainer_built_directly_runs_on_the_card(kwargs, exc):
 
 
 @pytest.mark.parametrize("argv, exc", [
-    (["--plan", "plan.json"], NotImplementedError),
-    (["--bench-json", "out.json"], NotImplementedError),
     (["--device", "cpu"], ValueError),           # full size on the CPU
 ])
 def test_what_is_not_trained_raises(argv, exc):
