@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Run from a checkout on a machine with an NVIDIA H100 (sm_90a) and the CUDA
-toolkit.  Four paths run on the card: the operator chain (soft rank /
+toolkit.  Six paths run on the card: the operator chain (soft rank /
 sort and the losses, on the PAV kernels), the soft-op serving engine
 (``launch/serve.py --engine``, on the PAV kernels), the LM server of
 deepseek-v2-lite-16b at full width and depth (on the soft top-k router and
-flash-attention kernels) and its trainer at full width (on the PAV kernel
-and flash attention under autograd).  Phases, each printing its own
-lines; any failure raises and the script exits non-zero:
+the flash-attention kernel at MLA's widths) and its trainer at full width
+(on the PAV kernel and flash attention under autograd), and the LM server
+and trainer of llama3.2-1b, the dense GQA family, at full width and depth
+(on the flash-attention kernel at head width 64, and the trainer's
+soft-LTS loss on the PAV kernel).  Phases, each printing its own lines;
+any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit.
 2. build    build ``src/repro_torch/kernels/csrc/*.cu`` with nvcc, one
@@ -35,10 +38,13 @@ lines; any failure raises and the script exits non-zero:
             close phase 4.  Hold ``soft_topk_gates`` bit for bit (at
             (4096, 64) and (8, 64), k = 6, on random logits, ties and
             constant rows, at E = 100, at k = 0, 1 and E, and at eps = 0.3,
-            not a power of two, and 1e-2) and ``flash_attention`` (the
-            prefill shape, a GQA shape and a ragged S, by the kernel's
-            error model ``compare_with_plain``) against their plain
-            versions on the card.
+            not a power of two, and 1e-2) and ``flash_attention`` at both
+            built widths (``ATTN_CHECK_SHAPES``: (D, Dv) = (192, 128) at
+            the deepseek prefill shape, GQA and a ragged S; (64, 64) at the
+            llama prefill shape (G 4), tinyllama's G 8 and a ragged S at
+            both; each also non-causal; by the kernel's error model
+            ``compare_with_plain``) against their plain versions on the
+            card; a width not built, (80, 80), raises with no launch.
 4. main     fwd+bwd of soft_rank / soft_sort (l2, kl) and
             soft_spearman_loss at (128, 1000) and (128, 10000) (eps 0.1),
             and soft_trimmed_token_loss on 2**20 token losses (trim 0.1,
@@ -75,6 +81,18 @@ lines; any failure raises and the script exits non-zero:
             it got in every layer of that prefill (the gates bit for bit);
             a second prefill on the plain versions counts the routing
             decisions that differ.
+   serve llama3.2-1b (after phase 5's times, the deepseek server's
+            model freed): the same server, seed, prompts and generation at
+            full width and depth (16 layers, 1,235,814,400 bf16 parameters
+            with the tied table).  Each prefill launches flash_attention
+            once a layer (16); no gate and no PAV kernel runs (decode
+            attention is plain ops, as in the reference).  Logits are
+            finite; the kernel is held against its plain version on every
+            layer's captured inputs; a plain-path prefill gives the logit
+            difference and the first token's agreement; the weights' bytes,
+            the init's peak and the serving peak apart.  Then the kernel,
+            plain and SDPA times at the prefill shape, prefill ms, decode
+            tok/s and the profiled prefill and decode step.
 5. times    CUDA-event medians per kernel (on the main path's solver
             inputs and on random rows), plain version, operator fwd and
             fwd+bwd, and torch.sort at the same shape as a yardstick; the
@@ -90,24 +108,31 @@ lines; any failure raises and the script exits non-zero:
             projection's two Lemma 2 backwards, ``segscan`` and
             ``scatter``, at the train step's and the operators' shapes,
             against the built-in plan's cuda backward rule.
-6. train    the server's model freed, ``repro_torch.launch.train``'s
-            ``main`` on deepseek-v2-lite-16b at full width and 4 of 27
-            layers (the trainer's state at full depth, ~260 GB, needs
-            several cards): random bf16 weights from seed 0, 4 AdamW steps
-            of 8 x 2048 tokens with 10% corrupted targets, the config's
-            grad_accum 8 and remat "full", the soft-LTS token loss (trim
-            0.1).  Every step's launch counts equal the counts from the
-            code (``train_launches_per_step``); losses and grad norms are
-            finite; after step 1 every parameter leaf has a finite,
-            non-zero gradient.  On captured inputs at the training shape:
-            the attention kernel's forward and ``flash_attention_bwd``
-            (against the autograd of the plain version in f32) by their
-            error models; the router's ``soft_topk_mask`` fwd+bwd against
-            the ``scan`` backend on the card; one AdamW update of an expert
+6. train    the servers' models freed, ``repro_torch.launch.train``'s
+            ``main`` on each of ``TRAIN_RUNS``, one after the other:
+            deepseek-v2-lite-16b at full width and 4 of 27 layers (the
+            trainer's state at full depth, ~260 GB, needs several cards),
+            the config's grad_accum 8; llama3.2-1b at full width and depth
+            (16 layers, ~20 GB of state), the config's grad_accum 4.  Both:
+            random bf16 weights from seed 0, 4 AdamW steps of 8 x 2048
+            tokens with 10% corrupted targets, remat "full", the soft-LTS
+            token loss (trim 0.1).  Every step's launch counts equal the
+            counts from the code (``train_launches_per_step``, by layer
+            kind); losses and grad norms are finite; after step 1 every
+            parameter leaf has a finite, non-zero gradient.  On captured
+            inputs at the training shape: the attention kernel's forward
+            and ``flash_attention_bwd`` (against the autograd of the plain
+            version in f32) by their error models; deepseek's router
+            ``soft_topk_mask`` fwd+bwd against the ``scan`` backend on the
+            card (llama calls no router); one AdamW update of a weight
             leaf, card against CPU, within one f32 ulp.  Then the step ms,
-            tokens/s and peak memory, attention forward and backward
-            beside scaled_dot_product_attention's, and one profiled step.
-7. summary  one ``{"kernels": [...]}`` line, then the device line last.
+            tokens/s and peak memory, attention forward (and its plain
+            version) and backward beside scaled_dot_product_attention's,
+            one profiled step and the optimizer by square root.
+7. summary  one ``{"kernels": [...]}`` line (every kernel's launches by
+            path; flash_attention's times by width, the top-level ones the
+            MLA width's at the deepseek prefill, as before), then the
+            device line last.
 
 Inputs come from numpy with a fixed seed.  Imports nothing of JAX or of the
 JAX package.
@@ -821,6 +846,28 @@ def gates_inputs(rng, rows: int, e: int, kind: str) -> np.ndarray:
   return x
 
 
+# The attention kernel against its plain version in phase 3: (B, S, H,
+# Hkv, D, Dv, causal).  MLA's widths (192, 128) at the deepseek prefill
+# shape, GQA, a ragged S and non-causal; the dense width (64, 64) at the
+# llama prefill shape (G 4), tinyllama's kv heads (G 8), ragged S (333 is
+# a multiple of neither 32 nor 16 positions a block) at both G, and
+# non-causal.
+ATTN_CHECK_SHAPES = (
+    (SERVE_BATCH, SERVE_PROMPT, 16, 16, 192, 128, True),
+    (2, 512, 16, 4, 192, 128, True), (3, 333, 16, 16, 192, 128, True),
+    (2, 200, 16, 4, 192, 128, False),
+    (SERVE_BATCH, SERVE_PROMPT, 32, 8, 64, 64, True),
+    (2, 512, 32, 4, 64, 64, True), (3, 333, 32, 8, 64, 64, True),
+    (3, 333, 32, 4, 64, 64, True), (2, 200, 32, 8, 64, 64, False))
+
+
+def attn_key(v: torch.Tensor) -> str:
+  """The attention kernel's record name by width: MLA's keeps the plain
+  name, the dense width is "flash_attention 64x64"."""
+  return ("flash_attention" if v.shape[-1] == 128
+          else f"flash_attention {v.shape[-1]}x{v.shape[-1]}")
+
+
 def attn_close(out: torch.Tensor, q, k, v, causal: bool, fa) -> dict:
   """The kernel's output against the plain version in f32 on the same
   bf16 inputs, by its error model (``fa.compare_with_plain``): every
@@ -867,20 +914,31 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
     check(sums <= 1e-4, f"gates row sums off k by {sums:.3e}")
     say(f"kernels: soft_topk_gates ({rows}, {e}) k {k} eps {eps} {kind}: "
         f"{text}; row sums within {sums:.1e} of k")
-  for b, s, h, hkv, causal in ((SERVE_BATCH, SERVE_PROMPT, 16, 16, True),
-                               (2, 512, 16, 4, True), (3, 333, 16, 16, True),
-                               (2, 200, 16, 4, False)):
+  for b, s, h, hkv, d, dv, causal in ATTN_CHECK_SHAPES:
     gen = torch.Generator(device=dev).manual_seed(s)
-    q, k = (torch.randn((b, s, n, 192), generator=gen, device=dev,
+    q, k = (torch.randn((b, s, n, d), generator=gen, device=dev,
                         dtype=torch.bfloat16) for n in (h, hkv))
-    v = torch.randn((b, s, hkv, 128), generator=gen, device=dev,
+    v = torch.randn((b, s, hkv, dv), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     cmp = attn_close(fa.flash_attention(q, k, v, causal), q, k, v, causal,
                      fa)
-    max_err["flash_attention"] = max(max_err["flash_attention"],
-                                     cmp["max_abs_err"])
-    say(f"kernels: flash_attention q ({b}, {s}, {h}, 192) kv heads {hkv} "
-        f"causal {causal}: {attn_text(cmp, fa)}")
+    key = attn_key(v)
+    max_err[key] = max(max_err[key], cmp["max_abs_err"])
+    say(f"kernels: flash_attention q ({b}, {s}, {h}, {d}) v width {dv} kv "
+        f"heads {hkv} (G {h // hkv}) causal {causal}: {attn_text(cmp, fa)}")
+  # A width that is not built raises before any launch: no plain fallback.
+  x = torch.zeros((1, 8, 4, 80), dtype=torch.bfloat16, device=dev)
+  before = fa.LAUNCHES["flash_attention"]
+  try:
+    fa.flash_attention(x, x, x)
+  except ValueError as err:
+    refused = str(err)
+  else:
+    refused = None
+  check(refused is not None and fa.LAUNCHES["flash_attention"] == before,
+        "flash_attention at (D, Dv) = (80, 80) did not raise")
+  say(f"kernels: flash_attention at (D, Dv) = (80, 80) on the card raises "
+      f"ValueError with no launch: {refused}")
 
 
 def pav_scan_checks(rng, dev, pav, pav_scan, theta_np, tokens_np, record,
@@ -1044,6 +1102,27 @@ def routed_experts(logits: torch.Tensor, gates: torch.Tensor,
   return torch.zeros_like(w, dtype=torch.bool).scatter_(-1, top, True)
 
 
+def captured_attn_checks(calls, fa) -> tuple[dict, float]:
+  """The attention kernel's output on each captured call (q, k, v, causal,
+  out) held against the plain version in f32 by its error model
+  (``attn_close``).  Returns the worst of each measure over the calls
+  (median |ref|: the smallest) and the largest |kernel - plain in bf16|,
+  the plain version run in the inputs' dtype (the reference's rounding;
+  no tolerance)."""
+  worst_bf16 = 0.0
+  worst = {"max_abs_err": 0.0, "tol_ratio": 0.0, "rel_frob": 0.0,
+           "median_ref": math.inf}
+  for q, kx, v, causal, out in calls:
+    cmp = attn_close(out, q, kx, v, causal, fa)
+    for key in ("max_abs_err", "tol_ratio", "rel_frob"):
+      worst[key] = max(worst[key], cmp[key])
+    worst["median_ref"] = min(worst["median_ref"], cmp["median_ref"])
+    plain16 = fa.flash_attention_plain(q, kx, v, causal=causal)
+    worst_bf16 = max(worst_bf16, float((out.float() - plain16.float())
+                                       .abs().max()))
+  return worst, worst_bf16
+
+
 def serve_path(dev, serve, ops, st, fa):
   """The serving path once with every counter from 0, then its checks.
 
@@ -1104,18 +1183,7 @@ def serve_path(dev, serve, ops, st, fa):
           f"{int((out != plain).sum())} elements")
     worst["soft_topk_gates"] = max(worst["soft_topk_gates"],
                                    close(out, plain))
-  worst_bf16 = 0.0
-  worst_attn = {"max_abs_err": 0.0, "tol_ratio": 0.0, "rel_frob": 0.0,
-                "median_ref": math.inf}
-  for q, kx, v, causal, out in rec.attn:
-    cmp = attn_close(out, q, kx, v, causal, fa)
-    for key in ("max_abs_err", "tol_ratio", "rel_frob"):
-      worst_attn[key] = max(worst_attn[key], cmp[key])
-    worst_attn["median_ref"] = min(worst_attn["median_ref"],
-                                   cmp["median_ref"])
-    plain16 = fa.flash_attention_plain(q, kx, v, causal=causal)
-    worst_bf16 = max(worst_bf16, float((out.float() - plain16.float())
-                                       .abs().max()))
+  worst_attn, worst_bf16 = captured_attn_checks(rec.attn, fa)
   worst["flash_attention"] = worst_attn["max_abs_err"]
   say(f"serve: on the captured inputs of all {n_layers} layers: "
       f"soft_topk_gates max |kernel - plain| {worst['soft_topk_gates']:.3e}"
@@ -1264,9 +1332,93 @@ def share(bound_ms: float, ms: float | None) -> str:
   return "not measured" if ms is None else f"{bound_ms / ms:.1%}"
 
 
+def attn_times(q, kx, v, causal: bool, fa, name_limit) -> tuple[dict, str]:
+  """The attention kernel at one shape: CUDA-event median and profiler
+  device time, the plain version, scaled_dot_product_attention (GQA
+  through ``enable_gqa``) as the library yardstick, and the bound."""
+  ms = median_ms(lambda: fa.flash_attention(q, kx, v, causal), 20)
+  dev_ms = kernel_device_ms(lambda: fa.flash_attention(q, kx, v, causal),
+                            "flash_kernel")
+  plain_ms = median_ms(lambda: fa.flash_attention_plain(q, kx, v,
+                                                        causal=causal), 5)
+  qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, v))
+  gqa = q.shape[2] != kx.shape[2]
+
+  def sdpa():
+    torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+
+  lib_ms = median_ms(sdpa, 20)
+  lib_dev_ms = kernel_device_ms(sdpa, "")   # every kernel of the call
+  bound_ms, bound_by = attn_bound(q, kx, v, causal)
+  row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": lib_ms, "shape": list(q.shape),
+         "width": [q.shape[-1], v.shape[-1]], "device_ms": dev_ms}
+  line = (f"times: flash_attention q {tuple(q.shape)} k {tuple(kx.shape)} v "
+          f"{tuple(v.shape)} causal: kernel {ms:.4f} ms (device "
+          f"{ms_text(dev_ms)} a launch, profiler), plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms (device {ms_text(lib_dev_ms)}, profiler), "
+          f"bound {bound_ms:.5f} ms ({bound_by}); the "
+          f"bound is {share(bound_ms, ms)} of the kernel's time "
+          f"({share(bound_ms, dev_ms)} of its device time) and "
+          f"{share(bound_ms, lib_ms)} of SDPA's "
+          f"({share(bound_ms, lib_dev_ms)} of its device time) "
+          f"[{name_limit}]")
+  return row, line
+
+
+def generate_times(res, serve, name_limit) -> list[str]:
+  """The server's prefill ms and decode rate over 3 more runs (each
+  checked to give the first run's tokens), and one profiled prefill and
+  decode step."""
+  cfg, lines = res["cfg"], []
+  prefill, decode, same = [], [], 0
+  for _ in range(3):
+    again = serve.generate(cfg, res["model"], res["prompts"], SERVE_GEN)
+    same += int(torch.equal(again["tokens"], res["tokens"]))
+    prefill.append(again["prefill_s"] * 1e3)
+    decode.append((SERVE_GEN - 1) * SERVE_BATCH / again["decode_s"])
+  lines.append(f"times: serve {cfg.name}: {same} of 3 timed runs generated "
+               "the first run's tokens")
+  from repro_torch.launch import steps
+
+  prompts, model = res["prompts"], res["model"]
+  s = prompts.shape[1]
+  state = {}
+
+  def prefill_once():
+    with torch.inference_mode():
+      state["logits"], state["caches"] = steps.make_prefill_step(
+          cfg, s + 2)(model, {"tokens": prompts})
+
+  def decode_once():
+    with torch.inference_mode():
+      steps.make_decode_step(cfg)(model, state["caches"],
+                                  serve.greedy(state["logits"]), s)
+
+  for name, fn in (("prefill", prefill_once), ("decode step", decode_once)):
+    wall, busy, top, _ = profile(fn)
+    kernels = "; ".join(f"{key[:60]} {ms:.2f}" for key, ms, _ in top[:5])
+    busy_text = ("not measured (no profiler session recorded device time)"
+                 if busy is None else
+                 f"{busy:.2f} ms ({100 * (1 - busy / wall):.0f}% idle)")
+    lines.append(f"times: profile of one {cfg.name} {name}: wall "
+                 f"{wall:.2f} ms, device busy {busy_text}; most device time "
+                 f"(ms): {kernels} [{name_limit}]")
+  lines.append(f"times: serve {cfg.name} prefill {SERVE_BATCH}x{SERVE_PROMPT}"
+               f" {statistics.median(prefill):.2f} ms (runs "
+               f"{', '.join(f'{t:.2f}' for t in prefill)}), decode "
+               f"{statistics.median(decode):.1f} tok/s at batch {SERVE_BATCH}"
+               f" (runs {', '.join(f'{t:.1f}' for t in decode)}) "
+               f"[{name_limit}]")
+  return lines
+
+
 def serve_times(res, rec, serve, st, fa, name_limit):
-  """Phase 5, serving: kernel, plain and library times at the path's own
-  shapes, and the server's prefill ms and decode rate on a second run."""
+  """Phase 5, serving deepseek: kernel, plain and library times at the
+  path's own shapes, and the server's prefill ms and decode rate on more
+  runs."""
   rows = {}
   lines = []
   cfg = res["cfg"]
@@ -1291,90 +1443,157 @@ def serve_times(res, rec, serve, st, fa, name_limit):
                  f"{plain_ms:.3f} ms, bound {bound_ms:.3e} ms ({bound_by}) "
                  f"[{name_limit}]")
   q, kx, v, causal, _ = rec.attn[0]
-  ms = median_ms(lambda: fa.flash_attention(q, kx, v, causal), 20)
-  dev_ms = kernel_device_ms(lambda: fa.flash_attention(q, kx, v, causal),
-                            "flash_kernel")
-  plain_ms = median_ms(lambda: fa.flash_attention_plain(q, kx, v,
-                                                        causal=causal), 5)
-  qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, v))
-
-  def sdpa():
-    torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=causal)
-
-  lib_ms = median_ms(sdpa, 20)
-  lib_dev_ms = kernel_device_ms(sdpa, "")   # every kernel of the call
-  bound_ms, bound_by = attn_bound(q, kx, v, causal)
-  rows["flash_attention"] = {"ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by,
-                             "library_ms": lib_ms, "shape": list(q.shape)}
-  lines.append(f"times: flash_attention q {tuple(q.shape)} v "
-               f"{tuple(v.shape)} causal: kernel {ms:.4f} ms (device "
-               f"{ms_text(dev_ms)} a launch, profiler), plain "
-               f"{plain_ms:.4f} ms, scaled_dot_product_attention "
-               f"{lib_ms:.4f} ms (device {ms_text(lib_dev_ms)}, profiler), "
-               f"bound {bound_ms:.5f} ms ({bound_by}); the "
-               f"bound is {share(bound_ms, ms)} of the kernel's time "
-               f"({share(bound_ms, dev_ms)} of its device time) and "
-               f"{share(bound_ms, lib_ms)} of SDPA's "
-               f"({share(bound_ms, lib_dev_ms)} of its device time) "
-               f"[{name_limit}]")
-  prefill, decode, same = [], [], 0
-  for _ in range(3):
-    again = serve.generate(cfg, res["model"], res["prompts"], SERVE_GEN)
-    same += int(torch.equal(again["tokens"], res["tokens"]))
-    prefill.append(again["prefill_s"] * 1e3)
-    decode.append((SERVE_GEN - 1) * SERVE_BATCH / again["decode_s"])
-  lines.append(f"times: serve: {same} of 3 timed runs generated the first "
-               "run's tokens")
-  from repro_torch.launch import steps
-
-  prompts, model = res["prompts"], res["model"]
-  s = prompts.shape[1]
-  state = {}
-
-  def prefill_once():
-    with torch.inference_mode():
-      state["logits"], state["caches"] = steps.make_prefill_step(
-          cfg, s + 2)(model, {"tokens": prompts})
-
-  def decode_once():
-    with torch.inference_mode():
-      steps.make_decode_step(cfg)(model, state["caches"],
-                                  serve.greedy(state["logits"]), s)
-
-  for name, fn in (("prefill", prefill_once), ("decode step", decode_once)):
-    wall, busy, top, _ = profile(fn)
-    kernels = "; ".join(f"{key[:60]} {ms:.2f}" for key, ms, _ in top[:5])
-    busy_text = ("not measured (no profiler session recorded device time)"
-                 if busy is None else
-                 f"{busy:.2f} ms ({100 * (1 - busy / wall):.0f}% idle)")
-    lines.append(f"times: profile of one serve {name}: wall {wall:.2f} ms, "
-                 f"device busy {busy_text}; most device time (ms): "
-                 f"{kernels} [{name_limit}]")
-  lines.append(f"times: serve {ARCH} prefill {SERVE_BATCH}x{SERVE_PROMPT} "
-               f"{statistics.median(prefill):.2f} ms (runs "
-               f"{', '.join(f'{t:.2f}' for t in prefill)}), decode "
-               f"{statistics.median(decode):.1f} tok/s at batch {SERVE_BATCH}"
-               f" (runs {', '.join(f'{t:.1f}' for t in decode)}) "
-               f"[{name_limit}]")
+  rows["flash_attention"], line = attn_times(q, kx, v, causal, fa,
+                                             name_limit)
+  lines.append(line)
+  lines += generate_times(res, serve, name_limit)
   return rows, lines
 
 
 # ---------------------------------------------------------------------------
-# The training path (deepseek-v2-lite-16b at full width, 4 of 27 layers).
+# The dense serving path (llama3.2-1b at full width and depth).
 # ---------------------------------------------------------------------------
 
-# Depth 4 of 27: the trainer keeps about 16 bytes a parameter (bf16
-# weights and gradients, f32 AdamW moments, f32 gradient accumulators),
-# about 260 GB at the full depth's 16.21e9 parameters and 44 GB at 4
-# layers (2.76e9).  Width, grad_accum 8 and remat "full" are the config's.
+DENSE_ARCH = "llama3.2-1b"
+# (layers, d_model, heads, kv heads, head width, tied): full width, depth.
+DENSE_SHAPE = (16, 2048, 32, 8, 64, True)
+# Counted from the config: 16 layers of 60,821,504 (attention 10,485,760,
+# SwiGLU 50,331,648, two norm scales), the tied table 128256 x 2048 once,
+# the final norm.
+DENSE_PARAMS = 1_235_814_400
+
+
+def dense_serve_path(dev, serve, ops, st, fa):
+  """llama3.2-1b's serving path once with every counter from 0, then its
+  checks: launches (flash_attention once a layer a prefill, nothing else:
+  decode attention is plain ops, as in the reference), parameters, finite
+  logits, the kernel on every layer's captured inputs, and the same
+  prefill on the plain versions.  Returns (serve result, launches,
+  recorder, the kernel's worst error on the captured inputs)."""
+  args = serve.parser().parse_args(
+      ["--arch", DENSE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+       str(SERVE_PROMPT), "--gen", str(SERVE_GEN)])
+  from repro_torch.configs.base import get_config
+  from repro_torch.models import transformer as T
+
+  held = torch.cuda.memory_allocated(dev)
+  torch.cuda.reset_peak_memory_stats(dev)
+  t0 = time.perf_counter()
+  model = T.init_params(get_config(DENSE_ARCH), args.seed, dev)
+  torch.cuda.synchronize()
+  init_peak = torch.cuda.max_memory_allocated(dev)
+  weights = torch.cuda.memory_allocated(dev) - held
+  torch.cuda.reset_peak_memory_stats(dev)
+  say(f"serve: {DENSE_ARCH} initialised on the card in "
+      f"{time.perf_counter() - t0:.1f} s: {weights / 2**30:.3f} GiB of "
+      f"weights, peak {init_peak / 2**30:.3f} GiB while building them")
+
+  ops.reset_all_launches()
+  with Recorder(st, fa) as rec:
+    res = serve.run_lm(args, model=model)
+  torch.cuda.synchronize()
+  launches = ops.all_launches()
+  cfg = res["cfg"]
+  n_layers = cfg.num_layers
+  check((n_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+         cfg.head_dim, cfg.tie_embeddings) == DENSE_SHAPE,
+        f"{DENSE_ARCH} config {cfg}")
+  want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
+          "flash_attention": n_layers}
+  check(launches == want and len(rec.attn) == n_layers and not rec.gates,
+        f"{DENSE_ARCH} serve launches {launches}, counted from the code "
+        f"{want}")
+  say(f"serve: {DENSE_ARCH} launches {launches} for 1 prefill and "
+      f"{SERVE_GEN - 1} decode steps of {n_layers} layers (counted from the"
+      f" code: flash_attention once a layer a prefill, nothing else)")
+  params = T.count_params(res["model"])
+  check(params == DENSE_PARAMS, f"{params} parameters, not {DENSE_PARAMS}")
+  check(not hasattr(res["model"], "lm_head"), "a tied model has an lm_head")
+  for name in ("prefill_logits", "logits"):
+    logits = res[name]
+    check(tuple(logits.shape) == (SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{name}: not finite")
+  q, kx, v, _, _ = rec.attn[0]
+  check(tuple(q.shape) == (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads,
+                           cfg.head_dim)
+        and tuple(kx.shape) == tuple(v.shape)
+        == (SERVE_BATCH, SERVE_PROMPT, cfg.num_kv_heads, cfg.head_dim),
+        f"captured attention shapes {q.shape}, {kx.shape}, {v.shape}")
+  res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+  captured = sum(t.numel() * t.element_size()
+                 for call in rec.attn for t in (call[0], call[1], call[2],
+                                                call[4]))
+  say(f"serve: {DENSE_ARCH} {params:,} parameters (the tied table once); "
+      f"logits finite; peak memory while serving {res['peak_gib']:.3f} "
+      f"GiB, of which {held / 2**30:.3f} GiB were held before the model was "
+      f"built and {captured / 2**30:.3f} GiB are the recorder's captured "
+      "attention inputs and outputs")
+
+  worst_attn, worst_bf16 = captured_attn_checks(rec.attn, fa)
+  worst = {"flash_attention 64x64": worst_attn["max_abs_err"]}
+  say(f"serve: {DENSE_ARCH} flash_attention on the captured inputs of all "
+      f"{n_layers} layers, worst layer by each measure (median |ref|: the "
+      f"smallest layer's), {attn_text(worst_attn, fa)}; max |kernel - plain"
+      f" in bf16| {worst_bf16:.3e} (the reference's rounding, no "
+      "tolerance)")
+
+  with Recorder(st, fa, plain=True) as plain_rec:
+    plain_res = serve.generate(cfg, model, res["prompts"], 1)
+  check(len(plain_rec.attn) == n_layers,
+        "the plain prefill did not pass every layer")
+  dl = (res["prefill_logits"] - plain_res["prefill_logits"]).abs().max()
+  agree = int((res["tokens"][:, 0] == plain_res["tokens"][:, 0]).sum())
+  say(f"serve: {DENSE_ARCH} kernel-path vs plain-path prefill: last-position"
+      f" logits differ by at most {float(dl):.3e} (max |logit| "
+      f"{float(plain_res['prefill_logits'].abs().max()):.3e}); first greedy "
+      f"token agrees in {agree} of {SERVE_BATCH} rows")
+  return res, launches, rec, worst
+
+
+def dense_serve_times(res, rec, serve, fa, name_limit):
+  """The dense serving path's times: the attention kernel at the prefill
+  shape, then the server's."""
+  q, kx, v, causal, _ = rec.attn[0]
+  row, line = attn_times(q, kx, v, causal, fa, name_limit)
+  return row, [line] + generate_times(res, serve, name_limit)
+
+
+# ---------------------------------------------------------------------------
+# The training paths: deepseek-v2-lite-16b at full width, 4 of 27 layers,
+# and llama3.2-1b at full width and depth.
+# ---------------------------------------------------------------------------
+
+# Depth 4 of 27 for deepseek: the trainer keeps about 16 bytes a parameter
+# (bf16 weights and gradients, f32 AdamW moments, f32 gradient
+# accumulators), about 260 GB at the full depth's 16.21e9 parameters and
+# 44 GB at 4 layers (2.76e9).  Width, grad_accum 8 and remat "full" are the
+# config's.  llama3.2-1b runs whole: 1.236e9 parameters, about 20 GB of
+# state, the config's grad_accum 4 (microbatches of 2 x 2048) and remat
+# "full".
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 4
-TRAIN_ARGS = ["--arch", ARCH, "--set", f"num_layers={TRAIN_LAYERS}",
-              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-              "--trim-frac", "0.1", "--corrupt", "0.1",
-              "--steps", str(TRAIN_STEPS)]
+TRAIN_COMMON = ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--trim-frac", "0.1", "--corrupt", "0.1",
+                "--steps", str(TRAIN_STEPS)]
 EXPERT_LEAF = "layers.0.params.ffn.we_in"     # (64, 2048, 1408) bf16
+# What each train run is: its command line, the config it must give
+# (layers, d_model, grad_accum, remat, dtype), the leaf whose AdamW update
+# is checked card against CPU, the attention shapes one microbatch gives
+# the kernel (q, v), and its depth as printed.
+TRAIN_RUNS = {
+    ARCH: {
+        "args": ["--arch", ARCH, "--set", f"num_layers={TRAIN_LAYERS}",
+                 *TRAIN_COMMON],
+        "config": (TRAIN_LAYERS, 2048, 8, "full", "bfloat16"),
+        "leaf": EXPERT_LEAF,
+        "attn": ((1, TRAIN_SEQ, 16, 192), (1, TRAIN_SEQ, 16, 128)),
+        "depth": f"{TRAIN_LAYERS} of 27 layers"},
+    DENSE_ARCH: {
+        "args": ["--arch", DENSE_ARCH, *TRAIN_COMMON],
+        "config": (16, 2048, 4, "full", "bfloat16"),
+        "leaf": "layers.0.params.ffn.w_in",      # (2048, 8192) bf16
+        "attn": ((2, TRAIN_SEQ, 32, 64), (2, TRAIN_SEQ, 8, 64)),
+        "depth": "all 16 layers"},
+}
 TRAIN_RANGES = ("repro_forward_train", "repro_soft_lts_loss",
                 "repro_optimizer_update")
 # Kernel kinds of a train step's profile, by substrings of their names
@@ -1394,18 +1613,22 @@ KERNEL_GROUPS = {
 
 
 def train_launches_per_step(cfg) -> dict[str, int]:
-  """Kernel launches of one train step, counted from the code: each of
-  the ``grad_accum`` microbatches runs every layer's forward twice (remat
-  "full": once, and again in backward), each pass launching attention
-  once and ``pav_l2`` once (the router's ``soft_topk_mask`` over the
-  microbatch's tokens, one row each, fewer than 65535); the soft-LTS loss
-  sorts each microbatch's tokens in one more ``pav_l2`` launch.  The
-  fused gates and ``pav_kl`` do not run under autograd."""
-  passes = cfg.grad_accum * cfg.num_layers * (2 if cfg.remat == "full"
-                                              else 1)
+  """Kernel launches of one train step, counted from the code, by layer
+  kind: each of the ``grad_accum`` microbatches runs every layer's
+  forward twice (remat "full": once, and again in backward), each pass
+  launching attention once a layer, and, in an MoE layer with the soft
+  top-k router (``mla_moe`` here), ``pav_l2`` once (``soft_topk_mask``
+  over the microbatch's tokens, one row each, fewer than 65535); a dense
+  layer launches no PAV kernel.  The soft-LTS loss sorts each
+  microbatch's tokens as one row in one more ``pav_l2`` launch.  The fused
+  gates and ``pav_kl`` do not run under autograd."""
+  passes = cfg.grad_accum * (2 if cfg.remat == "full" else 1)
+  kinds = cfg.layer_kinds()
+  routed = (sum(kind == "mla_moe" for kind in kinds)
+            if cfg.router == "soft_topk" else 0)
   trim = cfg.grad_accum if cfg.loss_trim_fraction > 0 else 0
-  return {"pav_l2": passes + trim, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": passes}
+  return {"pav_l2": passes * routed + trim, "pav_kl": 0,
+          "soft_topk_gates": 0, "flash_attention": passes * len(kinds)}
 
 
 class TrainRecorder:
@@ -1413,13 +1636,14 @@ class TrainRecorder:
   their modules, and calls through to each: ``steps.loss_from_batch`` (every
   microbatch's loss), ``adamw.update`` (the first step's gradients, finite
   and non-zero on every leaf or not; the launch counts at each step's end;
-  each step's metrics; the last step's inputs and result on
-  ``EXPERT_LEAF``), the attention wrapper (the first call's q, k, v) and
-  the router's ``soft_topk_mask`` (the first call's logits)."""
+  each step's metrics; the last step's inputs and result on the leaf
+  ``leaf``), the attention wrapper (the first call's q, k, v) and the
+  router's ``soft_topk_mask`` (the first call's logits, if any)."""
 
-  def __init__(self, ops, steps, adamw, fa, moe):
+  def __init__(self, ops, steps, adamw, fa, moe, leaf: str):
     self.ops, self.steps, self.adamw, self.fa, self.moe = (
         ops, steps, adamw, fa, moe)
+    self.leaf_name = leaf
     self.losses: list[float] = []
     self.grad_faults: list[str] | None = None
     self.n_leaves = 0
@@ -1445,15 +1669,16 @@ class TrainRecorder:
         self.grad_faults = [
             n for n, g in grads.items()
             if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
-      leaf = {"p": params[EXPERT_LEAF].detach().clone(),
-              "g": grads[EXPERT_LEAF].clone(),
-              "m": state["m"][EXPERT_LEAF].clone(),
-              "v": state["v"][EXPERT_LEAF].clone(),
+      name = self.leaf_name
+      leaf = {"p": params[name].detach().clone(),
+              "g": grads[name].clone(),
+              "m": state["m"][name].clone(),
+              "v": state["v"][name].clone(),
               "step": int(state["step"]) + 1, "lr_scale": lr_scale,
-              "decay": True if decay is None else decay[EXPERT_LEAF],
-              "cfg": cfg}
+              "decay": True if decay is None else decay[name],
+              "cfg": cfg, "name": name}
       out = update(cfg, grads, state, params, lr_scale, decay)
-      leaf["after"] = params[EXPERT_LEAF].detach().clone()
+      leaf["after"] = params[name].detach().clone()
       leaf["clip_scale"] = out[2]["clip_scale"]
       self.leaf = leaf
       self.step_metrics.append({k: float(v) for k, v in out[2].items()})
@@ -1481,24 +1706,24 @@ class TrainRecorder:
      self.moe.soft_topk_mask) = self._orig
 
 
-def train_path(dev, fa):
-  """The train phase's run: ``launch/train.py``'s ``main`` with every
-  counter from 0, then its checks.  Returns (main's result, recorder,
-  launches)."""
+def train_path(dev, fa, arch: str):
+  """A train phase's run (``TRAIN_RUNS[arch]``): ``launch/train.py``'s
+  ``main`` with every counter from 0, then its checks.  Returns (main's
+  result, recorder, launches)."""
   from repro_torch.kernels import ops
   from repro_torch.launch import steps, train
   from repro_torch.models import moe
   from repro_torch.optim import adamw
 
+  run = TRAIN_RUNS[arch]
   ops.reset_all_launches()
-  with TrainRecorder(ops, steps, adamw, fa, moe) as rec:
-    res = train.main(TRAIN_ARGS)
+  with TrainRecorder(ops, steps, adamw, fa, moe, run["leaf"]) as rec:
+    res = train.main(run["args"])
   torch.cuda.synchronize()
   launches = ops.all_launches()
   cfg, state = res["cfg"], res["state"]
   check((cfg.num_layers, cfg.d_model, cfg.grad_accum, cfg.remat,
-         cfg.dtype) == (TRAIN_LAYERS, 2048, 8, "full", "bfloat16"),
-        f"train config {cfg}")
+         cfg.dtype) == run["config"], f"train config {cfg}")
   check(state.step == TRAIN_STEPS == len(rec.step_launches),
         f"{state.step} steps taken, {len(rec.step_launches)} updates")
   per_step = train_launches_per_step(cfg)
@@ -1510,10 +1735,10 @@ def train_path(dev, fa):
     prev = counts
   check(launches == {k: TRAIN_STEPS * n for k, n in per_step.items()},
         f"train launches {launches}")
-  say(f"train: launches {launches} in {TRAIN_STEPS} steps, {per_step} a "
-      f"step as counted from the code ({cfg.grad_accum} microbatches x "
-      f"{cfg.num_layers} layers x 2 passes under remat, + "
-      f"{cfg.grad_accum} soft-LTS sorts)")
+  say(f"train: {arch} launches {launches} in {TRAIN_STEPS} steps, "
+      f"{per_step} a step as counted from the code ({cfg.grad_accum} "
+      f"microbatches x {cfg.num_layers} {'/'.join(sorted(set(cfg.layer_kinds())))}"
+      f" layers x 2 passes under remat, + {cfg.grad_accum} soft-LTS sorts)")
   res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
   n_micro = TRAIN_STEPS * cfg.grad_accum
   check(len(rec.losses) == n_micro
@@ -1527,7 +1752,7 @@ def train_path(dev, fa):
         f"first step's gradients: {rec.n_leaves} leaves of {n_params}, "
         f"zero or not finite: {rec.grad_faults}")
   accum = cfg.grad_accum
-  say("train: step losses " + ", ".join(
+  say(f"train: {arch} step losses " + ", ".join(
       f"{statistics.fmean(rec.losses[i * accum:(i + 1) * accum]):.4f}"
       for i in range(TRAIN_STEPS)) + "; grad norms " + ", ".join(
       f"{m['grad_norm']:.3f}" for m in rec.step_metrics) + " (all finite);"
@@ -1537,7 +1762,7 @@ def train_path(dev, fa):
 
 
 def adamw_card_vs_cpu(rec, dev) -> str:
-  """The last step's AdamW update of ``EXPERT_LEAF`` computed again by
+  """The last step's AdamW update of the recorded leaf computed again by
   ``adamw.update_leaf`` on the card, with the step's scalars (clip scale,
   lr, bias corrections) as ``adamw.update`` computed them there (equal,
   after the cast, to what the trainer wrote), and on the CPU from the same
@@ -1575,7 +1800,7 @@ def adamw_card_vs_cpu(rec, dev) -> str:
   # and of the CPU on the same v / bc2.
   vhat = ((leaf["v"] * cfg.b2) / scalars[3]).contiguous()
   f32_sqrt = int((torch.sqrt(vhat).cpu() != torch.sqrt(vhat.cpu())).sum())
-  return (f"AdamW step {leaf['step']} of {EXPERT_LEAF} "
+  return (f"AdamW step {leaf['step']} of {leaf['name']} "
           f"{tuple(leaf['p'].shape)}, card vs CPU before the cast: "
           + "; ".join(parts) + " (limit 1 f32 ulp); an f32 torch.sqrt of "
           f"the leaf's b2 * v / bc2 differs between card and CPU in "
@@ -1583,23 +1808,25 @@ def adamw_card_vs_cpu(rec, dev) -> str:
           "; update_leaf takes it in f64)")
 
 
-def train_checks(rec, fa, dev) -> tuple[list[str], dict]:
-  """Each piece of the train path on its captured inputs: the attention
+def train_checks(rec, cfg, fa, dev, arch: str) -> tuple[list[str], dict]:
+  """Each piece of a train path on its captured inputs: the attention
   forward kernel and ``flash_attention_bwd`` by their error models, the
   router's ``soft_topk_mask`` fwd+bwd against the ``scan`` backend on the
-  card, one AdamW update card against CPU.  Returns the lines and the
-  tensors the times reuse."""
+  card (a config with ``mla_moe`` layers and the soft top-k router must
+  have called it, any other none), one AdamW update card against CPU.
+  Returns the lines and the tensors the times reuse."""
   import repro_torch as rt
 
   q, k, v, causal = rec.attn
-  check(tuple(q.shape) == (1, TRAIN_SEQ, 16, 192)
-        and tuple(v.shape) == (1, TRAIN_SEQ, 16, 128),
+  q_shape, v_shape = TRAIN_RUNS[arch]["attn"]
+  check(tuple(q.shape) == q_shape and tuple(v.shape) == v_shape,
         f"captured attention shapes {q.shape}, {v.shape}")
   with torch.no_grad():
     out = fa.flash_attention(q, k, v, causal)
   fwd = attn_close(out, q, k, v, causal, fa)
-  lines = [f"train: flash_attention forward on the captured layer inputs q "
-           f"{tuple(q.shape)} v {tuple(v.shape)}: {attn_text(fwd, fa)}"]
+  lines = [f"train: {arch} flash_attention forward on the captured layer "
+           f"inputs q {tuple(q.shape)} k {tuple(k.shape)} v "
+           f"{tuple(v.shape)}: {attn_text(fwd, fa)}"]
   gen = torch.Generator(device=dev).manual_seed(SEED)
   do = torch.randn(out.shape, generator=gen, device=dev,
                    dtype=torch.bfloat16)
@@ -1613,6 +1840,14 @@ def train_checks(rec, fa, dev) -> tuple[list[str], dict]:
           f"flash_attention_bwd {name}: {text}")
     lines.append(f"train: flash_attention_bwd {name}: {text}")
 
+  routed = "mla_moe" in cfg.layer_kinds() and cfg.router == "soft_topk"
+  check(routed == (rec.logits is not None),
+        f"{arch}: router {cfg.router} on layers {set(cfg.layer_kinds())}, "
+        f"but {'no' if rec.logits is None else 'a'} router call recorded")
+  if not routed:
+    lines.append(f"train: {arch} called no router (dense layers)")
+    lines.append("train: " + adamw_card_vs_cpu(rec, dev))
+    return lines, {"qkv": (q, k, v), "out": out, "do": do}
   logits, kk, args, kwargs = rec.logits
   x = logits.reshape(-1, logits.shape[-1])
   cot = torch.randn(x.shape, generator=gen, device=dev)
@@ -1658,12 +1893,12 @@ def sliced_sqrt_rn(x, sqrt_rn, n: int) -> torch.Tensor:
   return out
 
 
-def optimizer_times(trainer, state, name_limit) -> str:
+def optimizer_times(trainer, state, name_limit, leaf: str) -> str:
   """``adamw.update`` over the trainer's whole state with random bf16
   gradients (CUDA-event medians), with each square root in turn:
   ``sqrt_rn`` (the trainer's), PyTorch's f32 ``torch.sqrt`` (not correctly
   rounded on the card) and the f64 round trip in three passes, then
-  ``sqrt_rn`` again; and each square root alone on ``EXPERT_LEAF``, also
+  ``sqrt_rn`` again; and each square root alone on the leaf ``leaf``, also
   ``sqrt_rn`` in slices."""
   from repro_torch.models import transformer as T
   from repro_torch.optim import adamw
@@ -1690,7 +1925,7 @@ def optimizer_times(trainer, state, name_limit) -> str:
   finally:
     adamw.sqrt_rn = roots["sqrt_rn"]
   del grads
-  x = adam["v"][EXPERT_LEAF].float().abs()
+  x = adam["v"][leaf].float().abs()
   alone = ", ".join(f"{name} {median_ms(lambda: fn(x), 10):.3f}"
                     for name, fn in roots.items())
   n = sum(p.numel() for p in params.values())
@@ -1698,28 +1933,32 @@ def optimizer_times(trainer, state, name_limit) -> str:
   return (f"times: adamw.update of all {len(params)} leaves ({n:,} "
           f"parameters, {dtype} gradients) by square root, in this order "
           f"(ms):"
-          f" {'; '.join(runs)}; the square root alone on {EXPERT_LEAF} "
+          f" {'; '.join(runs)}; the square root alone on {leaf} "
           f"{tuple(x.shape)} f32 (ms): {alone} [{name_limit}]")
 
 
-def train_times(res, rec, captured, fa, name_limit) -> list[str]:
+def train_times(res, rec, captured, fa, name_limit,
+                arch: str) -> tuple[list[str], dict]:
   """Step ms (median of 3 steps after the recorded run), tokens/s, peak
-  memory; the attention forward and backward at the training shape beside
-  SDPA's; one more step under the profiler; the optimizer by square
-  root."""
+  memory; the attention forward (with its plain version) and backward at
+  the training shape beside SDPA's; one more step under the profiler; the
+  optimizer by square root.  Returns the lines and the attention kernel's
+  row at the training shape."""
   lines = []
   trainer, state = res["trainer"], res["state"]
   dev = trainer.device
+  cfg = res["cfg"]
   recorded = trainer.step_times
-  rec.leaf = {}     # the recorder's copies of the expert leaf (2.6 GB)
+  rec.leaf = {}     # the recorder's copies of the checked leaf
   torch.cuda.reset_peak_memory_stats(dev)
   times = timed_steps(trainer, state, 3)
   peak = torch.cuda.max_memory_allocated(dev) / 2**30
   med = statistics.median(times) * 1e3
   tokens = TRAIN_BATCH * TRAIN_SEQ
   lines.append(
-      f"times: train {ARCH} {TRAIN_LAYERS} of 27 layers, batch "
-      f"{TRAIN_BATCH} x {TRAIN_SEQ}, grad_accum 8, remat full: step "
+      f"times: train {arch} {TRAIN_RUNS[arch]['depth']}, batch "
+      f"{TRAIN_BATCH} x {TRAIN_SEQ}, grad_accum {cfg.grad_accum}, remat "
+      f"{cfg.remat}: step "
       f"{med:.1f} ms (median of 3 steps after the recorded run, no "
       f"recorder: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
       f"{tokens / med * 1e3:.0f} tokens/s; the recorded run's steps 1-"
@@ -1734,29 +1973,39 @@ def train_times(res, rec, captured, fa, name_limit) -> list[str]:
   fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v, True), 20)
   fwd_dev = kernel_device_ms(lambda: fa.flash_attention(q, k, v, True),
                              "flash_kernel")
+  plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
   bwd = lambda: fa.flash_attention_bwd(q, k, v, out, do, True)  # noqa: E731
   bwd_ms = median_ms(bwd, 10)
   bwd_dev = kernel_device_ms(bwd, "", calls=5)
   qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                 for t in (q, k, v))
   dot = do.transpose(1, 2)
-  sdpa = torch.nn.functional.scaled_dot_product_attention
+  gqa = q.shape[2] != k.shape[2]
+
+  def sdpa(*xs):
+    return torch.nn.functional.scaled_dot_product_attention(
+        *xs, is_causal=True, enable_gqa=gqa)
 
   def sdpa_fwd():
     with torch.no_grad():
-      sdpa(qt, kt, vt, is_causal=True)
+      sdpa(qt, kt, vt)
 
   def sdpa_fwd_bwd():
-    torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot)
+    torch.autograd.grad(sdpa(qt, kt, vt), (qt, kt, vt), dot)
 
   lib_fwd = median_ms(sdpa_fwd, 20)
   lib_fb = median_ms(sdpa_fwd_bwd, 10)
   lib_fb_dev = kernel_device_ms(sdpa_fwd_bwd, "", calls=5)
   bound_ms, bound_by = attn_bound(q, k, v, True)
+  row = {"ms": fwd_ms, "device_ms": fwd_dev, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_fwd,
+         "shape": list(q.shape), "width": [q.shape[-1], v.shape[-1]],
+         "bwd_ms": bwd_ms, "library_fwd_bwd_ms": lib_fb}
   lines.append(
-      f"times: train attention q {tuple(q.shape)} v {tuple(v.shape)} "
-      f"causal: kernel forward {fwd_ms:.4f} ms (device {ms_text(fwd_dev)}, "
-      f"profiler), bound {bound_ms:.5f} ms ({bound_by}); "
+      f"times: train {arch} attention q {tuple(q.shape)} k "
+      f"{tuple(k.shape)} v {tuple(v.shape)} causal: kernel forward "
+      f"{fwd_ms:.4f} ms (device {ms_text(fwd_dev)}, profiler), plain "
+      f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
       f"flash_attention_bwd {bwd_ms:.3f} ms (device {ms_text(bwd_dev)}, "
       f"all its kernels); scaled_dot_product_attention forward "
       f"{lib_fwd:.4f} ms, forward + backward {lib_fb:.4f} ms (device "
@@ -1781,12 +2030,74 @@ def train_times(res, rec, captured, fa, name_limit) -> list[str]:
   span_text = "; ".join(f"{name} host {cpu:.1f} ms, device span "
                         f"{dev_ms:.1f} ms" for name, (cpu, dev_ms) in
                         spans.items())
-  lines.append(f"times: profile of one train step: wall {wall:.1f} ms, "
-               f"device busy {busy_text}; ranges (summed over the "
+  lines.append(f"times: profile of one {arch} train step: wall {wall:.1f} "
+               f"ms, device busy {busy_text}; ranges (summed over the "
                f"microbatches): {span_text}; most device time (ms): "
                f"{kernels} [{name_limit}]")
-  lines.append(optimizer_times(trainer, state, name_limit))
-  return lines
+  lines.append(optimizer_times(trainer, state, name_limit,
+                               TRAIN_RUNS[arch]["leaf"]))
+  return lines, row
+
+
+def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
+                    serve_rows, dense_row, train_launches, train_rows,
+                    engine_runs, engine_rows) -> list[dict]:
+  """The ``{"kernels": [...]}`` line's entries: every kernel with the
+  contract's keys and its launches by path (``serve_launches`` and
+  ``train_launches`` by model).  ``launches`` is each kernel's main path:
+  the operators' for the PAV kernels, the deepseek server's for the gates
+  and attention.  Attention's top-level numbers stay those of the MLA
+  width at the deepseek prefill, as in earlier lines; ``widths`` gives
+  each built width's row (MLA, then the dense width at the llama prefill)
+  with its own launches, error and training shape's times."""
+
+  def by_arch(counts: dict, kname: str) -> dict[str, int]:
+    return {arch: c[kname] for arch, c in counts.items()}
+
+  def paths(kname: str) -> dict:
+    return {"serve_launches": by_arch(serve_counts, kname),
+            "train_launches": by_arch(train_launches, kname),
+            "engine_launches": engine_runs["default"]["launches"][kname],
+            "engine_all_ops_launches":
+                engine_runs["all ops"]["launches"][kname]}
+
+  kernels = []
+  for kname in ("pav_l2", "pav_kl"):
+    row = kernel_rows[(kname, HEADLINE)]
+    kernels.append({
+        "name": kname, "route": "cuda", "source": SOURCES[kname],
+        "replaces": REPLACES[kname], "launches": launches[kname],
+        "max_abs_err": max_err[kname], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "shape": list(HEADLINE), **paths(kname),
+        "engine_shape": list(ENGINE_KERNEL_SHAPE), **engine_rows[kname]})
+  kernels.append({
+      "name": "soft_topk_gates", "route": "cuda",
+      "source": SOURCES["soft_topk_gates"],
+      "replaces": REPLACES["soft_topk_gates"],
+      "launches": serve_counts[ARCH]["soft_topk_gates"],
+      "max_abs_err": max_err["soft_topk_gates"],
+      **serve_rows["soft_topk_gates"], **paths("soft_topk_gates")})
+  widths = [
+      {**serve_rows["flash_attention"], "arch": ARCH,
+       "launches": serve_counts[ARCH]["flash_attention"],
+       "train_launches": train_launches[ARCH]["flash_attention"],
+       "max_abs_err": max_err["flash_attention"],
+       "train_shape": train_rows[ARCH]},
+      {**dense_row, "arch": DENSE_ARCH,
+       "launches": serve_counts[DENSE_ARCH]["flash_attention"],
+       "train_launches": train_launches[DENSE_ARCH]["flash_attention"],
+       "max_abs_err": max_err["flash_attention 64x64"],
+       "train_shape": train_rows[DENSE_ARCH]}]
+  kernels.append({
+      "name": "flash_attention", "route": "cuda",
+      "source": SOURCES["flash_attention"],
+      "replaces": REPLACES["flash_attention"],
+      **{k: v for k, v in widths[0].items()
+         if k not in ("arch", "train_shape", "train_launches")},
+      **paths("flash_attention"), "widths": widths})
+  return kernels
 
 
 def main() -> int:
@@ -1838,7 +2149,7 @@ def main() -> int:
   # apart.
   max_err = {"pav_l2": 0.0, "pav_l2 vs stack": 0.0, "pav_kl": 0.0,
              "pav_kl vs stack": 0.0, "soft_topk_gates": 0.0,
-             "flash_attention": 0.0}
+             "flash_attention": 0.0, "flash_attention 64x64": 0.0}
 
   def record(kname, out, ref):
     err = close(out, ref)
@@ -2033,41 +2344,50 @@ def main() -> int:
   for line in lines + serve_lines + engine_lines + backward_lines:
     say(line)
 
-  # 6. train ------------------------------------------------------------------
-  # The server's 27-layer model (30.2 GiB) goes before the trainer's state.
+  # serve, dense ------------------------------------------------------------
+  # The deepseek server's 27-layer model (30.2 GiB) goes first, so that the
+  # dense server's peak memory is its own.
   del serve_res, serve_rec
   gc.collect()
   torch.cuda.empty_cache()
-  say(f"train: the server's model freed; "
+  say(f"serve: the {ARCH} server's model freed; "
       f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still allocated")
-  train_res, train_rec, train_launches = train_path(dev, fa)
-  train_lines, captured = train_checks(train_rec, fa, dev)
-  for line in train_lines + train_times(train_res, train_rec, captured, fa,
-                                        name_limit):
+  dense_res, dense_launches, dense_rec, dense_err = dense_serve_path(
+      dev, serve, kops, st, fa)
+  for kname, err in dense_err.items():
+    max_err[kname] = max(max_err[kname], err)
+  dense_row, dense_lines = dense_serve_times(dense_res, dense_rec, serve, fa,
+                                             name_limit)
+  for line in dense_lines:
     say(line)
+  del dense_res, dense_rec
+
+  # 6. train ------------------------------------------------------------------
+  # Each trainer's model and state go before the next one's.
+  train_launches, train_rows = {}, {}
+  for arch in TRAIN_RUNS:
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"train: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"allocated before {arch}'s trainer")
+    train_res, train_rec, train_launches[arch] = train_path(dev, fa, arch)
+    train_lines, captured = train_checks(train_rec, train_res["cfg"], fa, dev,
+                                         arch)
+    for line in train_lines:
+      say(line)
+    time_lines, train_rows[arch] = train_times(
+        train_res, train_rec, captured, fa, name_limit, arch)
+    for line in time_lines:
+      say(line)
+    del train_res, train_rec, captured
 
   # 7. summary -------------------------------------------------------------
-  kernels = []
-  for kname in ("pav_l2", "pav_kl"):
-    row = kernel_rows[(kname, HEADLINE)]
-    kernels.append({
-        "name": kname, "route": "cuda", "source": SOURCES[kname],
-        "replaces": REPLACES[kname], "launches": launches[kname],
-        "max_abs_err": max_err[kname], "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
-        "shape": list(HEADLINE), "train_launches": train_launches[kname],
-        "engine_launches": engine_runs["default"]["launches"][kname],
-        "engine_all_ops_launches": engine_runs["all ops"]["launches"][kname],
-        "engine_shape": list(ENGINE_KERNEL_SHAPE), **engine_rows[kname]})
-  for kname, row in serve_rows.items():
-    kernels.append({
-        "name": kname, "route": "cuda", "source": SOURCES[kname],
-        "replaces": REPLACES[kname], "launches": serve_launches[kname],
-        "max_abs_err": max_err[kname], **row,
-        "train_launches": train_launches[kname],
-        "engine_launches": engine_runs["default"]["launches"][kname],
-        "engine_all_ops_launches": engine_runs["all ops"]["launches"][kname]})
+  kernels = kernels_summary(
+      launches=launches, max_err=max_err, kernel_rows=kernel_rows,
+      serve_counts={ARCH: serve_launches, DENSE_ARCH: dense_launches},
+      serve_rows=serve_rows, dense_row=dense_row,
+      train_launches=train_launches, train_rows=train_rows,
+      engine_runs=engine_runs, engine_rows=engine_rows)
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

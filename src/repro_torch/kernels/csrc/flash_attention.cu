@@ -11,10 +11,16 @@
 // 1 / sqrt(D) (the q/k width, not Dv); causal masking is top-left aligned
 // (key position <= query position), as in the reference with q_offset 0.
 //
-// What bounds it on this card: at the serving prefill shape (8 x 512
+// Two widths are built: (D, Dv) = (192, 128), MLA's (deepseek-v2-lite),
+// and (64, 64), the GQA head width of llama3.2-1b and tinyllama-1.1b.
+//
+// What bounds it on this card: at the MLA serving prefill shape (8 x 512
 // tokens, 16 heads, D 192, Dv 128) the causal work is about 10.7 GFLOP
 // (11 us at 989 TFLOP/s) and the bytes that must move about 84 MB (25 us
-// at 3.35 TB/s), so the bound is bytes.  What held the first (mma.sync)
+// at 3.35 TB/s), so the bound is bytes; at llama's (8 x 512, 32 heads over
+// 8 kv heads, D = Dv = 64) 8.6 GFLOP (8.7 us) against 41.9 MB (12.5 us),
+// bytes again; at llama's training shape (2 x 2048) 34 GFLOP (35 us)
+// against the same 41.9 MB, operations.  What held the first (mma.sync)
 // version at 7.6x that bound, and what this design does about each:
 //   * synchronous K/V loads between two barriers, nothing in flight during
 //     the products -> a producer warpgroup streams K and V tiles with TMA
@@ -24,7 +30,7 @@
 //     TMA wrote it and is read by the tensor cores as a transposed
 //     (MN-major) wgmma operand;
 //   * mma.sync m16n8k16 -> wgmma, asynchronous, from swizzled shared memory
-//     (S = Q K^T, m64n64k16) and from registers (O += P V, m64n128k16);
+//     (S = Q K^T, m64n64k16) and from registers (O += P V, m64nDVk16);
 //   * 64 query rows a block -> 128 rows, two consumer warpgroups of 64.
 // What still holds it back (chip_smoke.py times it; PERF.md): each
 // warpgroup alternates between its products and its softmax (exp2 and
@@ -39,14 +45,15 @@
 // an order that puts the last (longest, under the causal mask) query tiles
 // first.  Warpgroups 0 and 1 (setmaxnreg 232) each own 64 rows of an item;
 // warpgroup 2 (setmaxnreg 40) is the producer, of which one thread issues
-// every copy.  For each item the producer loads the Q tile (three
-// 64-column boxes, 48 KB) into one of two Q buffers, and for each kv tile
-// of kKv = 64 keys K (24 KB) and V (16 KB) into the next stage of a
-// kStages = 3 ring (216 KB of shared memory in all), all 128-byte
+// every copy.  For each item the producer loads the Q tile (D / 64
+// 64-column boxes: 48 KB at D 192, 16 KB at D 64) into one of two Q
+// buffers, and for each kv tile of kKv = 64 keys K (24 or 8 KB) and V (16
+// or 8 KB) into the next stage of a kStages = 3 ring (216 KB of shared
+// memory in all at (192, 128), 81 KB at (64, 64)), all 128-byte
 // swizzled, through 4-D tensor maps over (width, head, position, batch) so
 // that rows past Sq or Skv are zero-filled.  Ring and Q buffers run on
 // across items, so the next item's loads overlap the current one.  A
-// consumer warpgroup computes S = Q K^T (12 wgmma k-steps) and runs the
+// consumer warpgroup computes S = Q K^T (D / 16 wgmma k-steps) and runs the
 // online softmax on S in f32 registers (running max m and sum l in the
 // log2 domain: one FFMA and one ex2 a score), which leaves P rounded to
 // bf16 in registers: the S accumulator's fragment of each 16 keys is
@@ -75,7 +82,7 @@ namespace {
 
 constexpr int kRows = 128;           // query rows per CTA
 constexpr int kKv = 64;              // keys per kv tile
-constexpr int kStages = 3;
+constexpr int kStages = 3;            // depth of the K/V ring
 constexpr int kConsumerThreads = 256;
 constexpr int kThreads = kConsumerThreads + 128;
 constexpr int kBox = 64;             // bf16 columns per 128-byte swizzle box
@@ -185,6 +192,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
 }
 
 
+// D (64 x 64, f32) += A B: A (64 x 16, bf16) in registers, B (16 x 64,
+// bf16) in shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D (64 x 128, f32) += A B: A (64 x 16, bf16) in registers, B (16 x 128,
 // bf16) in shared memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
@@ -292,7 +323,7 @@ __device__ __forceinline__ void softmax_tile(
 
 template <int D, int DV>
 struct Smem {
-  static constexpr int kQBytes = kRows * D * 2;          // 3 boxes at D 192
+  static constexpr int kQBytes = kRows * D * 2;          // D / 64 boxes
   static constexpr int kKBytes = kKv * D * 2;
   static constexpr int kVBytes = kKv * DV * 2;
   static constexpr int kStageBytes = kKBytes + kVBytes;
@@ -311,8 +342,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              __nv_bfloat16* __restrict__ out, int batch, int sq, int skv,
              int h, int hkv, int causal, float scale_log2) {
   static_assert(D % kBox == 0 && DV % kBox == 0, "whole swizzle boxes");
-  static_assert(kKv == 64 && DV == 128,
-                "the wgmma wrappers are n64 (scores) and n128 (output)");
+  static_assert(kKv == 64 && (DV == 64 || DV == 128),
+                "the wgmma wrappers are n64 (scores) and n64 or n128 "
+                "(output)");
   using S = Smem<D, DV>;
   constexpr int kBoxBytes = kBox * 2;                    // 128-byte rows
   extern __shared__ unsigned char smem_raw[];
@@ -460,9 +492,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {kNeg, kNeg};
     float l[2] = {0.f, 0.f};
     float alpha[2];
-    float o[64];
+    float o[DV / 2];   // the m64nDV accumulator: DV / 2 f32 a thread
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float sc[kKv / 2];
     uint32_t pa[kKv / 16][4];
 
@@ -493,7 +525,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
         wait_tile(j + 1);
         issue_scores(sc, j + 1);
       }
-      // O += P V, V transposed from shared memory.
+      // O += P V, V transposed from shared memory (at DV 64 one swizzle
+      // box, so the leading byte offset to the next box is not read).
       const uint32_t v_base = k_addr(j) + S::kKBytes;
       wgmma_fence();
 #pragma unroll
@@ -624,8 +657,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // Plain C entry point, loaded with ctypes.  q (b, sq, h, d), k (b, skv, hkv,
 // d), v (b, skv, hkv, dv), out (b, sq, h, dv): bf16, C-contiguous, 16-byte
 // aligned, on the current device; h / hkv divides 128.  (d, dv) is
-// (192, 128), the MLA widths of the serving path; other widths are one
-// more instantiation of the template.  Returns the launch's cudaError_t.
+// (192, 128), the MLA widths, or (64, 64), the dense GQA width; another
+// width is one more instantiation of the template (whole 64-column boxes,
+// and a wgmma wrapper of n = dv), and until then returns
+// cudaErrorInvalidValue.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int sq,
                                       int skv, int h, int hkv, int d, int dv,
@@ -638,5 +673,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (d == 192 && dv == 128)
     return launch<192, 128>(q, k, v, out, b, sq, skv, h, hkv, causal, scale,
                             stream);
+  if (d == 64 && dv == 64)
+    return launch<64, 64>(q, k, v, out, b, sq, skv, h, hkv, causal, scale,
+                          stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

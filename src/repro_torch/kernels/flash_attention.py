@@ -8,7 +8,8 @@ output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
 * ``flash_attention``: the one entry point the models call.  On a CUDA
   tensor, a ``torch.autograd.Function`` whose forward is the hand-written
   kernel in ``csrc/flash_attention.cu`` (bf16, f32 softmax state, tensor
-  cores; see the note there) and whose backward is ``flash_attention_bwd``;
+  cores, built for the widths in ``KERNEL_WIDTHS``; see the note there) and
+  whose backward is ``flash_attention_bwd``;
   on a CPU tensor, the plain version with every option, differentiated by
   autograd.  Each kernel launch adds one to ``LAUNCHES["flash_attention"]``.
 * ``flash_attention_bwd``: the gradients of q, k and v, as
@@ -37,7 +38,9 @@ from repro_torch.kernels import _build
 
 # Launch count of the kernel; only the wrapper below increments it.
 LAUNCHES = {"flash_attention": 0}
-KERNEL_WIDTHS = ((192, 128),)   # (D, Dv) built: the MLA widths
+# (D, Dv) built: the MLA widths (deepseek) and the dense GQA head width
+# (llama3.2-1b, tinyllama-1.1b).  Any other width raises on the card.
+KERNEL_WIDTHS = ((192, 128), (64, 64))
 ROWS_PER_BLOCK = 128   # query rows of one block: G must divide it
 
 _NEG_INF = -1e30

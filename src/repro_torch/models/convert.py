@@ -9,7 +9,10 @@ into one module per layer, in the order the scan runs them
 (``split_layers``; ``port_tree`` maps any pytree of that layout, such as
 the reference's gradients, onto the port's leaves the same way).  Every
 leaf keeps its JAX layout (``wq`` (d, h, nd+rd), ``w_uk`` (r, h, nd),
-``router`` (d, E) f32, ...).
+``router`` (d, E) f32, ...).  With tied embeddings the reference has no
+``lm_head`` and neither has the port; the reference's gradient of
+``embed/table`` already sums the gather's and the head's contributions,
+so it maps onto the port's one table as it is.
 """
 
 from __future__ import annotations
@@ -49,11 +52,13 @@ def split_layers(cfg, params_np: dict) -> list[dict]:
 
 def port_tree(cfg, params_np: dict, device="cpu") -> dict:
   """A pytree in the reference's layout (parameters, or gradients of
-  them) as the port's tree of tensors: ``embed``, ``lm_head``,
-  ``final_norm`` and ``layers`` (``split_layers``)."""
+  them) as the port's tree of tensors: ``embed``, ``lm_head`` (untied
+  only), ``final_norm`` and ``layers`` (``split_layers``)."""
   check_supported(cfg)
+  names = ("embed", "final_norm") if cfg.tie_embeddings else (
+      "embed", "lm_head", "final_norm")
   tree = {name: _map(params_np[name], lambda a: _tensor(a, device))
-          for name in ("embed", "lm_head", "final_norm")}
+          for name in names}
   tree["layers"] = [_map(layer, lambda a: _tensor(a, device))
                     for layer in split_layers(cfg, params_np)]
   return tree

@@ -1,12 +1,16 @@
-"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embedding, LM head, loss.
+"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, GQA attention,
+embedding, LM head, loss.
 
-Counterpart of ``repro.models.layers``, for the layers the MLA + MoE
-serving and training paths run; attention is
+Counterpart of ``repro.models.layers``, for the layers the port's two
+layer kinds run: the ``mla_moe`` kind (deepseek-v2-lite) uses the norm,
+RoPE, the shared experts' MLP and the head; the ``dense`` kind (llama3.2-1b,
+tinyllama-1.1b) adds GQA attention (``attn_*``, ``decode_attention``) and
+the SwiGLU MLP.  Sequence attention is
 ``repro_torch.kernels.flash_attention``, which dispatches by device itself.
 Parameters are plain dicts of tensors in the JAX layouts (``w_in`` (d, f),
-``table`` (V, d), ...), so the same pytree maps one to one.  The
-reference's ``shard_activation`` calls are dropped: the port runs on one
-card, and without sharding rules that call is the identity in the
+``wq`` (d, h, dh), ``table`` (V, d), ...), so the same pytree maps one to
+one.  The reference's ``shard_activation`` calls are dropped: the port runs
+on one card, and without sharding rules that call is the identity in the
 reference too (``repro.sharding.specs.shard_activation``).
 """
 
@@ -18,12 +22,23 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import flash_attention as _fa
+
 Params = dict[str, torch.Tensor]
+
+_NEG_INF = -1e30
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
   return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue "
                              f"1: {item})")
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype,
+           device) -> torch.Tensor:
+  """N(0, 1) * scale, drawn in ``dtype`` on ``device`` (no f32 copy)."""
+  return torch.randn(shape, generator=gen, dtype=dtype,
+                     device=device).mul_(scale)
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +87,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor | int,
 # ---------------------------------------------------------------------------
 
 
+def mlp_init(gen: torch.Generator, d: int, f: int, variant: str, dtype,
+             device) -> Params:
+  """SwiGLU weights with the reference's scales: 1/sqrt(d) in, 1/sqrt(f)
+  out."""
+  if variant != "swiglu":
+    raise not_ported(f"MLP variant {variant!r}", "other layer kinds")
+  si, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+  return {"w_in": normal(gen, (d, f), si, dtype, device),
+          "w_out": normal(gen, (f, d), so, dtype, device),
+          "w_gate": normal(gen, (d, f), si, dtype, device)}
+
+
 def mlp_apply(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
   """SwiGLU MLP: (silu(x w_gate) * x w_in) w_out."""
   if variant != "swiglu":
@@ -79,6 +106,87 @@ def mlp_apply(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
   h = torch.einsum("...d,df->...f", x, p["w_in"])
   g = torch.einsum("...d,df->...f", x, p["w_gate"])
   return torch.einsum("...f,fd->...d", F.silu(g) * h, p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer (params + train/prefill/decode)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
+  """Single-token attention. q: (B,H,D); caches: (B,S,Hkv,D) -> (B,H,D).
+
+  A masked softmax over the full-length cache (positions below
+  ``cache_len``), the G = H / Hkv query heads of a kv head together; scores
+  in f32, the weights cast to the values' dtype, as in the reference (plain
+  ops there too: no kernel).
+  """
+  b, h, d = q.shape
+  s, hkv = k_cache.shape[1:3]
+  g = h // hkv
+  qg = q.reshape(b, hkv, g, d)
+  scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).to(torch.float32)
+  scores = scores * (1.0 / math.sqrt(d))
+  valid = torch.arange(s, device=q.device) < cache_len
+  scores = torch.where(valid, scores,
+                       torch.full((), _NEG_INF, device=q.device))
+  p = torch.softmax(scores, dim=-1)
+  o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+  return o.reshape(b, h, v_cache.shape[-1])
+
+
+def attn_init(cfg, gen: torch.Generator, dtype, device) -> Params:
+  """wq (d, h, dh), wk / wv (d, hkv, dh), wo (h, dh, d), with the
+  reference's scales."""
+  d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+  si, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * dh)
+  return {"wq": normal(gen, (d, h, dh), si, dtype, device),
+          "wk": normal(gen, (d, hkv, dh), si, dtype, device),
+          "wv": normal(gen, (d, hkv, dh), si, dtype, device),
+          "wo": normal(gen, (h, dh, d), so, dtype, device)}
+
+
+def attn_apply_seq(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
+                   *, return_kv: bool = False):
+  """Full-sequence causal GQA attention (train / prefill). x: (B,S,d) ->
+  (B,S,d) [, (k, v) of (B,S,Hkv,dh), k after RoPE: the cache]."""
+  q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+  k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+  v = torch.einsum("bsd,dhk->bshk", x, p["wv"]).contiguous()
+  q = rope(q, positions, cfg.rope_theta)
+  k = rope(k, positions, cfg.rope_theta)
+  o = _fa.flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+  out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+  if return_kv:
+    return out, (k, v)
+  return out
+
+
+def attn_apply_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
+                      cfg):
+  """One-token step. x: (B,d); cache {k, v}: (B,S,Hkv,dh).
+
+  Writes the token's k and v into ``cache`` at ``pos`` in place (the
+  reference returns updated copies) and returns (out (B,d), cache).
+  """
+  q = torch.einsum("bd,dhk->bhk", x, p["wq"])
+  k = torch.einsum("bd,dhk->bhk", x, p["wk"])
+  v = torch.einsum("bd,dhk->bhk", x, p["wv"])
+  q = rope(q, pos, cfg.rope_theta)
+  k = rope(k, pos, cfg.rope_theta)
+  cache["k"][:, pos] = k.to(cache["k"].dtype)
+  cache["v"][:, pos] = v.to(cache["v"].dtype)
+  o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+  return torch.einsum("bhk,hkd->bd", o, p["wo"]), cache
+
+
+def attn_init_cache(cfg, batch: int, max_len: int, dtype,
+                    device=None) -> Params:
+  shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+  return {"k": torch.zeros(shape, dtype=dtype, device=device),
+          "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,25 @@
-"""Model assembly: the ``mla_moe`` layer stack, training pass, prefill, decode.
+"""Model assembly: the layer stack by kind, training pass, prefill, decode.
 
-Counterpart of ``repro.models.transformer`` for the ``mla_moe`` kind
-(deepseek-v2-lite: MLA attention + MoE FFN with the soft top-k router).
+Counterpart of ``repro.models.transformer`` for two layer kinds:
+``mla_moe`` (deepseek-v2-lite: MLA attention + MoE FFN with the soft top-k
+router) and ``dense`` (llama3.2-1b, tinyllama-1.1b: GQA attention + SwiGLU
+MLP), with tied embeddings (the head is the embedding table transposed,
+and the embedded tokens are scaled by sqrt(d_model), as in the reference).
 Where the reference stacks a segment's layers under ``lax.scan``, the
 port keeps an ``nn.ModuleList`` of one module per layer, in the order the
 scan visits them.  ``forward_train`` gives the per-token loss and the aux
-loss, with the reference's remat: ``"full"`` recomputes each layer in
-backward (``torch.utils.checkpoint``, non-reentrant, the counterpart of
-``jax.checkpoint(nothing_saveable)`` around each scan step), ``"none"``
-keeps its activations.  Other layer kinds, frontends and remat
-``"dots"`` raise ``NotImplementedError``.
+loss (0 without MoE layers), with the reference's remat: ``"full"``
+recomputes each layer in backward (``torch.utils.checkpoint``,
+non-reentrant, the counterpart of ``jax.checkpoint(nothing_saveable)``
+around each scan step), ``"none"`` keeps its activations.  Other layer
+kinds, frontends and remat ``"dots"`` raise ``NotImplementedError``.
 
 ``init_params`` builds random weights with the reference's distributions
-and scales (``mla_init``, ``moe_init``, ``embed_init``, the LM head)
-directly on the target device and in the config's dtype, from a seeded
-``torch.Generator``; ``repro_torch.models.convert.from_jax_params`` builds
-the same modules from the reference's parameters instead.
+and scales (``mla_init``, ``moe_init``, ``attn_init``, ``mlp_init``,
+``embed_init``, the LM head) directly on the target device and in the
+config's dtype, from a seeded ``torch.Generator``;
+``repro_torch.models.convert.from_jax_params`` builds the same modules from
+the reference's parameters instead.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
-KINDS = ("mla_moe",)
+KINDS = ("mla_moe", "dense")
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -45,8 +49,6 @@ def check_supported(cfg) -> None:
   if cfg.frontend != "none" or cfg.num_codebooks:
     raise L.not_ported(f"the {cfg.frontend!r} frontend",
                         "other layer kinds")
-  if cfg.tie_embeddings:
-    raise L.not_ported("tied embeddings", "other layer kinds")
 
 
 class ParamTree(nn.Module):
@@ -70,26 +72,42 @@ class ParamTree(nn.Module):
 
 
 class Layer(nn.Module):
-  """One ``mla_moe`` block: pre-norm MLA, then pre-norm MoE FFN."""
+  """One block of kind ``kind``: pre-norm attention (MLA for ``mla_moe``,
+  GQA for ``dense``), then the pre-norm FFN (MoE for ``mla_moe``, SwiGLU
+  for ``dense``)."""
 
-  def __init__(self, cfg, params: dict):
+  def __init__(self, cfg, params: dict, kind: str):
     super().__init__()
-    self.cfg = cfg
+    self.cfg, self.kind = cfg, kind
     self.params = ParamTree(params)
 
+  def _mix_seq(self, p, h, positions, collect_cache: bool):
+    """(mixed, cache or None) of the attention over the whole sequence."""
+    if self.kind == "dense":
+      if not collect_cache:
+        return L.attn_apply_seq(p["attn"], h, positions, self.cfg), None
+      mixed, (k, v) = L.attn_apply_seq(p["attn"], h, positions, self.cfg,
+                                       return_kv=True)
+      return mixed, {"k": k, "v": v}
+    if not collect_cache:
+      return MLA.mla_apply_seq(p["mla"], h, positions, self.cfg), None
+    return MLA.mla_apply_seq(p["mla"], h, positions, self.cfg,
+                             return_kv=True)
+
+  def _ffn(self, p, h):
+    """(out, aux): the MoE FFN's aux loss, or 0 for the dense MLP."""
+    if self.kind == "mla_moe":
+      return MOE.moe_apply(p["ffn"], h, self.cfg)
+    return (L.mlp_apply(p["ffn"], h, self.cfg.mlp_variant),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
   def apply_seq(self, x, positions, *, collect_cache: bool = False):
-    """Returns (x, aux, cache latents or None)."""
+    """Returns (x, aux, cache or None)."""
     cfg, p = self.cfg, self.params.tree()
     h = L.norm_apply(p["norm1"], x, cfg.norm)
-    cache = None
-    if collect_cache:
-      mixed, cache = MLA.mla_apply_seq(p["mla"], h, positions, cfg,
-                                       return_kv=True)
-    else:
-      mixed = MLA.mla_apply_seq(p["mla"], h, positions, cfg)
+    mixed, cache = self._mix_seq(p, h, positions, collect_cache)
     x = x + mixed.to(x.dtype)
-    h2 = L.norm_apply(p["norm2"], x, cfg.norm)
-    ff, aux = MOE.moe_apply(p["ffn"], h2, cfg)
+    ff, aux = self._ffn(p, L.norm_apply(p["norm2"], x, cfg.norm))
     return x + ff.to(x.dtype), aux, cache
 
   def apply_train(self, x, positions):
@@ -101,29 +119,47 @@ class Layer(nn.Module):
     """x: (B, d).  Returns (x, cache), the cache updated in place."""
     cfg, p = self.cfg, self.params.tree()
     h = L.norm_apply(p["norm1"], x, cfg.norm)
-    mixed, cache = MLA.mla_apply_decode(p["mla"], h, cache, pos, cfg)
+    if self.kind == "dense":
+      mixed, cache = L.attn_apply_decode(p["attn"], h, cache, pos, cfg)
+    else:
+      mixed, cache = MLA.mla_apply_decode(p["mla"], h, cache, pos, cfg)
     x = x + mixed.to(x.dtype)
-    h2 = L.norm_apply(p["norm2"], x, cfg.norm)
-    ff, _ = MOE.moe_apply(p["ffn"], h2, cfg)
+    ff, _ = self._ffn(p, L.norm_apply(p["norm2"], x, cfg.norm))
     return x + ff.to(x.dtype), cache
 
 
 class Transformer(nn.Module):
-  """Embedding, the layer stack, final norm and LM head."""
+  """Embedding, the layer stack, final norm and LM head (none when the
+  embeddings are tied: ``head_weight``)."""
 
   def __init__(self, cfg, params: dict):
-    """``params``: {"embed": {"table"}, "lm_head": {"w"}, "final_norm":
-    {"scale"}, "layers": [one dict per layer]}, in the JAX layouts."""
+    """``params``: {"embed": {"table"}, "lm_head": {"w"} (untied only),
+    "final_norm": {"scale"}, "layers": [one dict per layer]}, in the JAX
+    layouts."""
     super().__init__()
     check_supported(cfg)
     if len(params["layers"]) != cfg.num_layers:
       raise ValueError(f"{len(params['layers'])} layers given for "
                        f"{cfg.num_layers}")
+    if ("lm_head" in params) == cfg.tie_embeddings:
+      raise ValueError(f"tie_embeddings is {cfg.tie_embeddings} but the "
+                       f"parameters {'have' if 'lm_head' in params else 'lack'}"
+                       " an lm_head")
     self.cfg = cfg
     self.embed = ParamTree(params["embed"])
-    self.lm_head = ParamTree(params["lm_head"])
+    if not cfg.tie_embeddings:
+      self.lm_head = ParamTree(params["lm_head"])
     self.final_norm = ParamTree(params["final_norm"])
-    self.layers = nn.ModuleList(Layer(cfg, lp) for lp in params["layers"])
+    self.layers = nn.ModuleList(
+        Layer(cfg, lp, kind)
+        for lp, kind in zip(params["layers"], cfg.layer_kinds()))
+
+  def head_weight(self) -> torch.Tensor:
+    """The LM head (d, V): the embedding table transposed when tied (the
+    reference's ``_head_weight``), so its gradient sums both uses."""
+    if self.cfg.tie_embeddings:
+      return self.embed.table.T
+    return self.lm_head.w
 
 
 # ---------------------------------------------------------------------------
@@ -131,25 +167,25 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen, shape, scale, dtype, device) -> torch.Tensor:
-  """N(0, 1) * scale, drawn in ``dtype`` on ``device`` (no f32 copy)."""
-  return torch.randn(shape, generator=gen, dtype=dtype,
-                     device=device).mul_(scale)
-
-
-def _layer_init(cfg, gen, dtype, device) -> dict:
-  d, h = cfg.d_model, cfg.num_heads
-  r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                   cfg.v_head_dim)
-  f, e = cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
-  si, sr, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(r), 1.0 / math.sqrt(f)
+def _layer_init(cfg, kind, gen, dtype, device) -> dict:
+  d = cfg.d_model
 
   def normal(shape, scale, dt=dtype):
-    return _normal(gen, shape, scale, dt, device)
+    return L.normal(gen, shape, scale, dt, device)
 
   def ones():
     return torch.ones((d,), dtype=torch.float32, device=device)
 
+  if kind == "dense":
+    return {"norm1": {"scale": ones()}, "norm2": {"scale": ones()},
+            "attn": L.attn_init(cfg, gen, dtype, device),
+            "ffn": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_variant, dtype,
+                              device)}
+  h = cfg.num_heads
+  r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                   cfg.v_head_dim)
+  f, e = cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+  si, sr, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(r), 1.0 / math.sqrt(f)
   ffn = {
       "router": normal((d, e), si, torch.float32),
       "we_in": normal((e, d, f), si),
@@ -177,22 +213,22 @@ def _layer_init(cfg, gen, dtype, device) -> dict:
 
 def init_params(cfg, seed: int = 0, device="cpu") -> Transformer:
   """Random weights from ``seed``, built on ``device`` in the config's
-  dtype (the router and norm scales in f32, as in the reference)."""
+  dtype (the router and norm scales in f32, as in the reference); no LM
+  head when the embeddings are tied."""
   check_supported(cfg)
   device = torch.device(device)
   dtype = dtype_of(cfg)
   gen = torch.Generator(device=device)
   gen.manual_seed(seed)
   d, v = cfg.d_model, cfg.vocab_size
-  params = {
-      "embed": {"table": _normal(gen, (v, d), 0.02, dtype, device)},
-      "lm_head": {"w": _normal(gen, (d, v), 1.0 / math.sqrt(d), dtype,
-                               device)},
-      "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
-                                         device=device)},
-      "layers": [_layer_init(cfg, gen, dtype, device)
-                 for _ in range(cfg.num_layers)],
-  }
+  params = {"embed": {"table": L.normal(gen, (v, d), 0.02, dtype, device)}}
+  if not cfg.tie_embeddings:
+    params["lm_head"] = {"w": L.normal(gen, (d, v), 1.0 / math.sqrt(d),
+                                       dtype, device)}
+  params["final_norm"] = {"scale": torch.ones((d,), dtype=torch.float32,
+                                              device=device)}
+  params["layers"] = [_layer_init(cfg, kind, gen, dtype, device)
+                      for kind in cfg.layer_kinds()]
   return Transformer(cfg, params)
 
 
@@ -204,7 +240,8 @@ def decay_mask(model: Transformer) -> dict[str, bool]:
   """Which parameters AdamW decays, by name.  The reference decays the
   leaves of ndim >= 2 in its own layouts, where every layer's leaves carry
   their segment's stacking axis: so every layer leaf (norm scales too),
-  and of the others the embedding and the LM head, not the final norm."""
+  and of the others the embedding and the LM head where there is one (the
+  tied table is one leaf, decayed once), not the final norm."""
   return {name: name.startswith("layers.") or p.dim() >= 2
           for name, p in model.named_parameters()}
 
@@ -229,7 +266,7 @@ def forward_train(cfg, model: Transformer, batch: dict):
       x, a = layer.apply_train(x, positions)
     aux = aux + a
   x = L.norm_apply(model.final_norm.tree(), x, cfg.norm)
-  loss = L.lm_loss_chunked(model.lm_head.w, x, batch["targets"],
+  loss = L.lm_loss_chunked(model.head_weight(), x, batch["targets"],
                            chunk=cfg.xent_chunk, softcap=cfg.logit_softcap)
   return loss, aux
 
@@ -240,22 +277,26 @@ def forward_train(cfg, model: Transformer, batch: dict):
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cpu") -> list[dict]:
-  """One zeroed latent cache per layer: c_kv (B, max_len, r) and k_rope
-  (B, max_len, rd)."""
-  return [MLA.mla_init_cache(cfg, batch, max_len, dtype_of(cfg), device)
-          for _ in range(cfg.num_layers)]
+  """One zeroed cache per layer, full length: for ``dense`` k and v
+  (B, max_len, Hkv, dh), for ``mla_moe`` the latents c_kv (B, max_len, r)
+  and k_rope (B, max_len, rd)."""
+  dtype = dtype_of(cfg)
+  return [L.attn_init_cache(cfg, batch, max_len, dtype, device)
+          if kind == "dense" else
+          MLA.mla_init_cache(cfg, batch, max_len, dtype, device)
+          for kind in cfg.layer_kinds()]
 
 
 def _head(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
   x = L.norm_apply(model.final_norm.tree(), x, cfg.norm)
-  return L.lm_head_logits(model.lm_head.w, x, cfg.logit_softcap)
+  return L.lm_head_logits(model.head_weight(), x, cfg.logit_softcap)
 
 
 def forward_prefill(cfg, model: Transformer, batch: dict, max_len: int):
   """Prefill: returns (last-position logits (B, V) f32, caches).
 
-  The caches hold the latents of positions [0, S), padded with zeros to
-  ``max_len`` so decode continues in place.
+  The caches hold the k / v (or latents) of positions [0, S), padded with
+  zeros to ``max_len`` so decode continues in place.
   """
   tokens = batch["tokens"]
   x = L.embed_apply(model.embed.tree(), tokens, scale=cfg.tie_embeddings)

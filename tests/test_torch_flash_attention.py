@@ -4,9 +4,12 @@
 CPU route of the wrapper ``flash_attention``, which the models call) against
 the reference's chunked attention ``repro.models.layers.flash_attention``
 on the same numpy inputs, in f32: causal and not, GQA, the MLA smoke
-widths (D = 24, Dv = 16), chunks that do not divide S, and the sliding
-window, soft-cap and query offset the reference also has.  Tolerance
-1e-5 * (1 + max|input|) (``test_torch_common``).  The backward
+widths (D = 24, Dv = 16), the kernel's dense width D = Dv = 64 at G = 4
+(llama3.2-1b) and G = 8 (tinyllama-1.1b) with a ragged S, chunks that do
+not divide S, and the sliding window, soft-cap and query offset the
+reference also has.  Tolerance 1e-5 * (1 + max|input|)
+(``test_torch_common``).  A width the kernel is not built for raises in
+``_check``, before any launch.  The backward
 ``flash_attention_bwd`` against ``jax.vjp`` of the same reference and
 against the plain version's autograd.  The kernel itself runs only on
 the card (``requires_cuda``).
@@ -47,6 +50,10 @@ CASES = {
                                            kv_chunk=4)),
     "softcap_offset": (2, 6, 18, 4, 2, 8, 4, dict(softcap=5.0,
                                                   q_offset=12)),
+    "causal_dense_width_g4": (2, 40, 40, 8, 2, 64, 64, dict(q_chunk=16,
+                                                           kv_chunk=16)),
+    "causal_dense_width_g8_ragged": (1, 37, 37, 16, 2, 64, 64,
+                                     dict(q_chunk=16, kv_chunk=16)),
 }
 
 
@@ -107,11 +114,30 @@ def test_scale_uses_the_qk_width():
   np.testing.assert_allclose(got.numpy().ravel(), [w / (1 + w)], rtol=1e-6)
 
 
+@pytest.mark.parametrize("g", [4, 8])
+def test_check_takes_the_dense_width(g):
+  """``_check`` on bf16 tensors accepts D = Dv = 64 at G = 4 and 8."""
+  q = torch.zeros((1, 5, 8 * g, 64), dtype=torch.bfloat16)
+  kv = torch.zeros((1, 5, 8, 64), dtype=torch.bfloat16)
+  fa._check(q, kv, kv)
+
+
+def test_check_refuses_an_unbuilt_width():
+  """D = Dv = 80 (stablelm-3b's) is not built: ``_check`` raises before
+  any launch, so the card never falls back to the plain version."""
+  x = torch.zeros((1, 5, 4, 80), dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="not built"):
+    fa._check(x, x, x)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape", [(2, 512, 512, 16, 16, 192, 128, True),
                                    (2, 300, 300, 16, 4, 192, 128, True),
                                    (1, 77, 130, 8, 8, 192, 128, False),
-                                   (1, 100, 100, 4, 1, 192, 128, True)])
+                                   (1, 100, 100, 4, 1, 192, 128, True),
+                                   (2, 512, 512, 32, 8, 64, 64, True),
+                                   (2, 333, 333, 32, 4, 64, 64, True),
+                                   (1, 77, 130, 16, 2, 64, 64, False)])
 def test_cuda_kernel_matches_plain_version(shape, cuda_device):
   """On the card: the kernel (bf16 in and out, f32 softmax state) against
   the plain version in f32 on the same bf16 inputs, by the kernel's error
@@ -138,6 +164,15 @@ def test_wrapper_on_cpu_takes_every_option():
       fa.flash_attention_plain(q, k, v, **opts).numpy())
   with pytest.raises(ValueError, match="CPU or CUDA"):
     fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_wrapper_refuses_an_unbuilt_width(cuda_device):
+  x = torch.zeros((1, 8, 4, 80), dtype=torch.bfloat16, device=cuda_device)
+  before = fa.LAUNCHES["flash_attention"]
+  with pytest.raises(ValueError, match="not built"):
+    fa.flash_attention(x, x, x)
+  assert fa.LAUNCHES["flash_attention"] == before
 
 
 @pytest.mark.requires_cuda
@@ -298,7 +333,8 @@ def test_autograd_function_saves_and_differentiates(monkeypatch):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape", [(1, 256, 256, 16, 16, 192, 128, True),
                                    (2, 100, 100, 8, 2, 192, 128, True),
-                                   (1, 77, 130, 4, 4, 192, 128, False)])
+                                   (1, 77, 130, 4, 4, 192, 128, False),
+                                   (2, 200, 200, 32, 8, 64, 64, True)])
 def test_cuda_gradients_reach_q_k_and_v(shape, cuda_device):
   """On the card the kernel's output carries a grad_fn: q, k and v each
   get a finite, non-zero gradient, within the backward's error model of

@@ -7,7 +7,7 @@ jitted step functions and the port's ``serve.generate``.  Logits agree
 within 1e-5 * (1 + max|logits|) at every step and the greedy tokens are
 identical.  Also the command line: ``--smoke --device cpu`` runs, the
 default device raises where there is no card, and what is not ported
-raises.
+(stablelm-3b's config) raises.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("argv, exc", [
     (["--arch", ARCH, "--device", "cpu"], ValueError),   # full size on CPU
-    (["--arch", "llama3.2-1b", "--smoke", "--device", "cpu"],
+    (["--arch", "stablelm-3b", "--smoke", "--device", "cpu"],
      NotImplementedError),
 ])
 def test_what_is_not_served_raises(argv, exc):
