@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Run from a checkout on a machine with an NVIDIA H100 (sm_90a) and the CUDA
-toolkit.  Six paths run on the card: the operator chain (soft rank /
+toolkit.  Seven paths run on the card: the operator chain (soft rank /
 sort and the losses, on the PAV kernels), the soft-op serving engine
 (``launch/serve.py --engine``, on the PAV kernels), the LM server of
 deepseek-v2-lite-16b at full width and depth (on the soft top-k router and
 the flash-attention kernel at MLA's widths) and its trainer at full width
-(on the PAV kernel and flash attention under autograd), and the LM server
+(on the PAV kernel and flash attention under autograd), the LM server
 and trainer of llama3.2-1b, the dense GQA family, at full width and depth
 (on the flash-attention kernel at head width 64, and the trainer's
-soft-LTS loss on the PAV kernel).  Phases, each printing its own lines;
+soft-LTS loss on the PAV kernel), and the LM server of grok-1-314b, the
+``moe`` kind, at full width and 6 of 64 layers (on the flash-attention
+kernel at head width 128 with G = 6, and the soft top-k router over 8
+experts).  Phases, each printing its own lines;
 any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit.
@@ -38,13 +41,17 @@ any failure raises and the script exits non-zero:
             close phase 4.  Hold ``soft_topk_gates`` bit for bit (at
             (4096, 64) and (8, 64), k = 6, on random logits, ties and
             constant rows, at E = 100, at k = 0, 1 and E, and at eps = 0.3,
-            not a power of two, and 1e-2) and ``flash_attention`` at both
-            built widths (``ATTN_CHECK_SHAPES``: (D, Dv) = (192, 128) at
-            the deepseek prefill shape, GQA and a ragged S; (64, 64) at the
-            llama prefill shape (G 4), tinyllama's G 8 and a ragged S at
-            both; each also non-causal; by the kernel's error model
-            ``compare_with_plain``) against their plain versions on the
-            card; a width not built, (80, 80), raises with no launch.
+            not a power of two, and 1e-2; and at grok's router, (4096, 8)
+            and (8, 8), k = 2, eps 1, on random logits, ties and constant
+            rows) and ``flash_attention`` at the three built widths
+            (``ATTN_CHECK_SHAPES``: (D, Dv) = (192, 128) at the deepseek
+            prefill shape, GQA and a ragged S; (64, 64) at the llama
+            prefill shape (G 4), tinyllama's G 8 and a ragged S at both and
+            at G 3, which does not divide the 128-row tile; (128, 128) at
+            the grok prefill shape (G 6) and a ragged S; each width also
+            non-causal; by the kernel's error model ``compare_with_plain``)
+            against their plain versions on the card; a width not built,
+            (80, 80), raises with no launch.
 4. main     fwd+bwd of soft_rank / soft_sort (l2, kl) and
             soft_spearman_loss at (128, 1000) and (128, 10000) (eps 0.1),
             and soft_trimmed_token_loss on 2**20 token losses (trim 0.1,
@@ -93,6 +100,26 @@ any failure raises and the script exits non-zero:
             the init's peak and the serving peak apart.  Then the kernel,
             plain and SDPA times at the prefill shape, prefill ms, decode
             tok/s and the profiled prefill and decode step.
+   serve grok-1-314b (after the llama server's model is freed, before
+            the trainers, with under 1 GiB allocated):
+            ``serve.main(["--arch", "grok-1-314b", "--set",
+            "num_layers=6", ...])``, the command a user runs, at full
+            width (d_model 6144, 48 heads over 8 kv heads of 128, 8 experts
+            of 32768, top-2, vocabulary 131072, untied head, soft-cap 30),
+            6 of 64 layers (31,130,499,072 bf16 parameters, 58 GiB), seed
+            0, the same prompts and generation.  Each prefill launches
+            flash_attention and soft_topk_gates once a layer (6 each), each
+            decode step soft_topk_gates 6 times and flash_attention none;
+            no PAV kernel runs.  Logits are finite and within the soft-cap;
+            gate rows sum to k = 2; the attention kernel is held to its
+            error model on every layer's captured prefill inputs and the
+            gates bit for bit on every captured call; a plain-path prefill
+            gives the routing decisions that differ, the logit difference
+            and the first token's agreement; the weights' bytes, the init's
+            peak and the serving peak.  Then the kernel, plain and SDPA
+            (``enable_gqa``) times at the prefill shape, the gates' at
+            (4096, 8) and (8, 8), prefill ms, decode tok/s and the profiled
+            prefill and decode step.
 5. times    CUDA-event medians per kernel (on the main path's solver
             inputs and on random rows), plain version, operator fwd and
             fwd+bwd, and torch.sort at the same shape as a yardstick; the
@@ -131,8 +158,8 @@ any failure raises and the script exits non-zero:
             one profiled step and the optimizer by square root.
 7. summary  one ``{"kernels": [...]}`` line (every kernel's launches by
             path; flash_attention's times by width, the top-level ones the
-            MLA width's at the deepseek prefill, as before), then the
-            device line last.
+            MLA width's at the deepseek prefill, as before; the gates'
+            grok shapes under ``shapes``), then the device line last.
 
 Inputs come from numpy with a fixed seed.  Imports nothing of JAX or of the
 JAX package.
@@ -850,21 +877,26 @@ def gates_inputs(rng, rows: int, e: int, kind: str) -> np.ndarray:
 # Hkv, D, Dv, causal).  MLA's widths (192, 128) at the deepseek prefill
 # shape, GQA, a ragged S and non-causal; the dense width (64, 64) at the
 # llama prefill shape (G 4), tinyllama's kv heads (G 8), ragged S (333 is
-# a multiple of neither 32 nor 16 positions a block) at both G, and
-# non-causal.
+# a multiple of neither 32 nor 16 positions a block) at both G, G 3 (a G
+# that does not divide the 128-row tile: 42 positions, 126 rows) and
+# non-causal; grok-1's width (128, 128) at its prefill shape (G 6: 21
+# positions, 126 rows), a ragged S and non-causal.
 ATTN_CHECK_SHAPES = (
     (SERVE_BATCH, SERVE_PROMPT, 16, 16, 192, 128, True),
     (2, 512, 16, 4, 192, 128, True), (3, 333, 16, 16, 192, 128, True),
     (2, 200, 16, 4, 192, 128, False),
     (SERVE_BATCH, SERVE_PROMPT, 32, 8, 64, 64, True),
     (2, 512, 32, 4, 64, 64, True), (3, 333, 32, 8, 64, 64, True),
-    (3, 333, 32, 4, 64, 64, True), (2, 200, 32, 8, 64, 64, False))
+    (3, 333, 32, 4, 64, 64, True), (3, 333, 24, 8, 64, 64, True),
+    (2, 200, 32, 8, 64, 64, False),
+    (SERVE_BATCH, SERVE_PROMPT, 48, 8, 128, 128, True),
+    (3, 333, 48, 8, 128, 128, True), (2, 200, 48, 8, 128, 128, False))
 
 
-def attn_key(v: torch.Tensor) -> str:
+def attn_key(q: torch.Tensor, v: torch.Tensor) -> str:
   """The attention kernel's record name by width: MLA's keeps the plain
-  name, the dense width is "flash_attention 64x64"."""
-  return ("flash_attention" if v.shape[-1] == 128
+  name, a dense width is "flash_attention 64x64" or "... 128x128"."""
+  return ("flash_attention" if q.shape[-1] != v.shape[-1]
           else f"flash_attention {v.shape[-1]}x{v.shape[-1]}")
 
 
@@ -904,7 +936,13 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
                                 (333, 100, "ties", 1, 1.0),
                                 (333, 100, "random", 100, 1.0),
                                 (333, 128, "ties", 6, 1.0),
-                                (333, 20, "ties", 6, 1.0)):
+                                (333, 20, "ties", 6, 1.0),
+                                (4096, 8, "random", 2, 1.0),
+                                (4096, 8, "ties", 2, 1.0),
+                                (4096, 8, "constant", 2, 1.0),
+                                (8, 8, "random", 2, 1.0),
+                                (8, 8, "ties", 2, 1.0),
+                                (8, 8, "constant", 2, 1.0)):
     x = to_dev(gates_inputs(rng, rows, e, kind), dev)
     out = st.soft_topk_gates(x, k, eps)
     plain = st.soft_topk_gates_plain(x, k, eps)
@@ -922,7 +960,7 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
                     dtype=torch.bfloat16)
     cmp = attn_close(fa.flash_attention(q, k, v, causal), q, k, v, causal,
                      fa)
-    key = attn_key(v)
+    key = attn_key(q, v)
     max_err[key] = max(max_err[key], cmp["max_abs_err"])
     say(f"kernels: flash_attention q ({b}, {s}, {h}, {d}) v width {dv} kv "
         f"heads {hkv} (G {h // hkv}) causal {causal}: {attn_text(cmp, fa)}")
@@ -1069,6 +1107,7 @@ class Recorder:
     self.st, self.fa, self.plain = st, fa, plain
     self.gates: list[tuple] = []    # (logits, k, eps, gates)
     self.attn: list[tuple] = []     # (q, k, v, causal, out)
+    self.order: list[str] = []      # "gates" or "attn", call by call
 
   def __enter__(self):
     self._orig = (self.st.soft_topk_gates, self.fa.flash_attention)
@@ -1078,12 +1117,14 @@ class Recorder:
     def gates(logits, k, eps=1.0):
       out = gates_fn(logits, k, eps)
       self.gates.append((logits, k, eps, out))
+      self.order.append("gates")
       return out
 
     def attn(q, k, v, causal=True, **opts):
       out = (plain_fa(q, k, v, causal=causal, **opts) if self.plain
              else self._orig[1](q, k, v, causal, **opts))
       self.attn.append((q, k, v, causal, out))
+      self.order.append("attn")
       return out
 
     self.st.soft_topk_gates, self.fa.flash_attention = gates, attn
@@ -1121,6 +1162,39 @@ def captured_attn_checks(calls, fa) -> tuple[dict, float]:
     worst_bf16 = max(worst_bf16, float((out.float() - plain16.float())
                                        .abs().max()))
   return worst, worst_bf16
+
+
+def plain_prefill_text(res, rec, serve, st, fa) -> str:
+  """The served prompts' prefill again on the plain versions (both kernels'
+  wrappers routed to them), against the kernel path's (``rec``: its first
+  ``num_layers`` gate calls are the prefill's): for a MoE model the routing
+  decisions that differ, layer by layer; the largest difference of the
+  last-position logits; the first greedy token's agreement."""
+  cfg = res["cfg"]
+  n_layers, b = cfg.num_layers, res["prompts"].shape[0]
+  with Recorder(st, fa, plain=True) as plain_rec:
+    plain_res = serve.generate(cfg, res["model"], res["prompts"], 1)
+  check(len(plain_rec.attn) == n_layers
+        and len(plain_rec.gates) == (n_layers if rec.gates else 0),
+        "the plain prefill did not pass every layer")
+  parts = []
+  if rec.gates:
+    k = cfg.experts_per_token
+    per_layer, tokens_differ = [], 0
+    for a, c in zip(rec.gates[:n_layers], plain_rec.gates):
+      ra, rc = routed_experts(a[0], a[3], k), routed_experts(c[0], c[3], k)
+      per_layer.append(int((ra & ~rc).sum()))
+      tokens_differ += int((ra != rc).any(-1).sum())
+    decisions = n_layers * res["prompts"].numel() * k
+    parts.append(f"{sum(per_layer)} of {decisions} routing decisions differ "
+                 f"({tokens_differ} token-layers); by layer {per_layer}")
+  dl = (res["prefill_logits"] - plain_res["prefill_logits"]).abs().max()
+  agree = int((res["tokens"][:, 0] == plain_res["tokens"][:, 0]).sum())
+  parts.append(f"last-position logits differ by at most {float(dl):.3e} (max"
+               f" |logit| {float(plain_res['prefill_logits'].abs().max()):.3e})")
+  parts.append(f"first greedy token agrees in {agree} of {b} rows")
+  return f"serve: {cfg.name} kernel-path vs plain-path prefill: " + "; ".join(
+      parts)
 
 
 def serve_path(dev, serve, ops, st, fa):
@@ -1192,25 +1266,7 @@ def serve_path(dev, serve, ops, st, fa):
       f"{attn_text(worst_attn, fa)}; max |kernel - plain in bf16| "
       f"{worst_bf16:.3e} (the reference's rounding, no tolerance)")
 
-  # The same prefill on the plain versions: routing decisions that differ.
-  with Recorder(st, fa, plain=True) as plain_rec:
-    plain_res = serve.generate(cfg, model, res["prompts"], 1)
-  check(len(plain_rec.gates) == len(plain_rec.attn) == n_layers,
-        "the plain prefill did not pass every layer")
-  per_layer, tokens_differ = [], 0
-  for a, b in zip(rec.gates[:n_layers], plain_rec.gates):
-    ra, rb = routed_experts(a[0], a[3], k), routed_experts(b[0], b[3], k)
-    per_layer.append(int((ra & ~rb).sum()))
-    tokens_differ += int((ra != rb).any(-1).sum())
-  differ = sum(per_layer)
-  decisions = n_layers * SERVE_BATCH * SERVE_PROMPT * k
-  dl = (res["prefill_logits"] - plain_res["prefill_logits"]).abs().max()
-  agree = int((res["tokens"][:, 0] == plain_res["tokens"][:, 0]).sum())
-  say(f"serve: kernel-path vs plain-path prefill: {differ} of {decisions} "
-      f"routing decisions differ ({tokens_differ} token-layers); by layer "
-      f"{per_layer}; last-position logits differ by at most "
-      f"{float(dl):.3e}; first greedy token agrees in {agree} of "
-      f"{SERVE_BATCH} rows")
+  say(plain_prefill_text(res, rec, serve, st, fa))
   return res, launches, rec, worst
 
 
@@ -1415,33 +1471,36 @@ def generate_times(res, serve, name_limit) -> list[str]:
   return lines
 
 
-def serve_times(res, rec, serve, st, fa, name_limit):
-  """Phase 5, serving deepseek: kernel, plain and library times at the
-  path's own shapes, and the server's prefill ms and decode rate on more
-  runs."""
-  rows = {}
-  lines = []
-  cfg = res["cfg"]
-  k = cfg.experts_per_token
-  prefill_logits = rec.gates[0][0]
-  decode_logits = rec.gates[-1][0]
-  for logits in (prefill_logits, decode_logits):
-    ms = median_ms(lambda: st.soft_topk_gates(logits, k, cfg.router_eps), 20)
-    dev_ms = kernel_device_ms(
-        lambda: st.soft_topk_gates(logits, k, cfg.router_eps),
-        "soft_topk_kernel")
-    plain_ms = median_ms(
-        lambda: st.soft_topk_gates_plain(logits, k, cfg.router_eps), 3)
-    bound_ms, bound_by = gates_bound(logits, k, cfg.router_eps, st)
+def gates_times(cfg, rec, st, name_limit) -> tuple[list[dict], list[str]]:
+  """The gate kernel on a prefill layer's and a decode step's captured
+  logits (the first and the last call): CUDA-event median and profiler
+  device time, the plain version, the bound.  Returns a row for each."""
+  rows, lines = [], []
+  k, eps = cfg.experts_per_token, cfg.router_eps
+  for logits in (rec.gates[0][0], rec.gates[-1][0]):
+    ms = median_ms(lambda: st.soft_topk_gates(logits, k, eps), 20)
+    dev_ms = kernel_device_ms(lambda: st.soft_topk_gates(logits, k, eps),
+                              "soft_topk_kernel")
+    plain_ms = median_ms(lambda: st.soft_topk_gates_plain(logits, k, eps), 3)
+    bound_ms, bound_by = gates_bound(logits, k, eps, st)
     shape = tuple(logits.shape)
-    if logits is prefill_logits:
-      rows["soft_topk_gates"] = {"ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound_ms, "bound_by": bound_by,
-                                 "library_ms": None, "shape": list(shape)}
+    rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None,
+                 "shape": list(shape), "device_ms": dev_ms})
     lines.append(f"times: soft_topk_gates {shape} k {k}: kernel {ms:.4f} ms"
                  f" (device {ms_text(dev_ms)} a launch, profiler), plain "
                  f"{plain_ms:.3f} ms, bound {bound_ms:.3e} ms ({bound_by}) "
                  f"[{name_limit}]")
+  return rows, lines
+
+
+def serve_times(res, rec, serve, st, fa, name_limit):
+  """Phase 5, serving deepseek: kernel, plain and library times at the
+  path's own shapes, and the server's prefill ms and decode rate on more
+  runs."""
+  cfg = res["cfg"]
+  gate_rows, lines = gates_times(cfg, rec, st, name_limit)
+  rows = {"soft_topk_gates": gate_rows[0]}
   q, kx, v, causal, _ = rec.attn[0]
   rows["flash_attention"], line = attn_times(q, kx, v, causal, fa,
                                              name_limit)
@@ -1537,16 +1596,7 @@ def dense_serve_path(dev, serve, ops, st, fa):
       f" in bf16| {worst_bf16:.3e} (the reference's rounding, no "
       "tolerance)")
 
-  with Recorder(st, fa, plain=True) as plain_rec:
-    plain_res = serve.generate(cfg, model, res["prompts"], 1)
-  check(len(plain_rec.attn) == n_layers,
-        "the plain prefill did not pass every layer")
-  dl = (res["prefill_logits"] - plain_res["prefill_logits"]).abs().max()
-  agree = int((res["tokens"][:, 0] == plain_res["tokens"][:, 0]).sum())
-  say(f"serve: {DENSE_ARCH} kernel-path vs plain-path prefill: last-position"
-      f" logits differ by at most {float(dl):.3e} (max |logit| "
-      f"{float(plain_res['prefill_logits'].abs().max()):.3e}); first greedy "
-      f"token agrees in {agree} of {SERVE_BATCH} rows")
+  say(plain_prefill_text(res, rec, serve, st, fa))
   return res, launches, rec, worst
 
 
@@ -1556,6 +1606,130 @@ def dense_serve_times(res, rec, serve, fa, name_limit):
   q, kx, v, causal, _ = rec.attn[0]
   row, line = attn_times(q, kx, v, causal, fa, name_limit)
   return row, [line] + generate_times(res, serve, name_limit)
+
+
+# ---------------------------------------------------------------------------
+# The MoE serving path (grok-1-314b at full width, 6 of 64 layers).
+# ---------------------------------------------------------------------------
+
+GROK_ARCH = "grok-1-314b"
+# Depth 6 of 64: a layer holds 4.92e9 parameters (9.84 GB in bf16, the 8
+# experts' 4.83e9 most of it), the embedding and the untied head 1.61e9
+# together; 6 layers come to 31,130,499,072 parameters, 57.99 GiB, and 7 to
+# 67.15 GiB, too close to the card's 80 GB with serving's own memory.
+GROK_LAYERS = 6
+GROK_PARAMS = 31_130_499_072
+GROK_ARGV = ["--arch", GROK_ARCH, "--set", f"num_layers={GROK_LAYERS}",
+             "--batch", str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
+             "--gen", str(SERVE_GEN)]
+# (layers, d_model, heads, kv heads, head width, experts, top-k, expert
+# width, vocabulary, soft-cap, tied): full width.
+GROK_SHAPE = (GROK_LAYERS, 6144, 48, 8, 128, 8, 2, 32768, 131072, 30.0,
+              False)
+
+
+def grok_serve_path(dev, serve, ops, st, fa):
+  """grok-1-314b's serving path once through ``serve.main`` (the command
+  a user runs: ``--set num_layers=6``, random weights from seed 0) with
+  every counter from 0, then its checks: the card nearly empty before the
+  weights are built; every prefill launches flash_attention and the gates
+  once a layer (in that order, layer by layer), every decode step the
+  gates once a layer and no attention kernel (decode attention is plain
+  ops, as in the reference), no PAV kernel; the parameter count; finite
+  logits within the soft-cap; gate rows summing to k; the attention kernel
+  on every layer's captured prefill inputs by its error model, the gates
+  bit for bit on every captured call; the same prefill on the plain
+  versions.  Returns (serve result, launches, recorder, the kernels' worst
+  errors on the captured inputs)."""
+  held = torch.cuda.memory_allocated(dev)
+  check(held < 2**30, f"{held / 2**30:.2f} GiB allocated before {GROK_ARCH}"
+        "'s weights are built (at most 1 GiB)")
+  ops.reset_all_launches()
+  t0 = time.perf_counter()
+  with Recorder(st, fa) as rec:
+    res = serve.main(GROK_ARGV)
+  torch.cuda.synchronize()
+  launches = ops.all_launches()
+  cfg = res["cfg"]
+  n_layers, k, steps = cfg.num_layers, cfg.experts_per_token, SERVE_GEN - 1
+  check((n_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+         cfg.head_dim, cfg.num_experts, k, cfg.moe_d_ff, cfg.vocab_size,
+         cfg.logit_softcap, cfg.tie_embeddings) == GROK_SHAPE
+        and cfg.router == "soft_topk" and cfg.router_eps == 1.0,
+        f"{GROK_ARCH} config {cfg}")
+  want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": n_layers * SERVE_GEN,
+          "flash_attention": n_layers}
+  order = ["attn", "gates"] * n_layers + ["gates"] * (n_layers * steps)
+  check(launches == want and rec.order == order,
+        f"{GROK_ARCH} serve launches {launches}, counted from the code {want}"
+        "; calls by kind in order: flash_attention then the gates in each "
+        "layer of the prefill, the gates alone in each layer of a decode step")
+  check(all(g[0].shape == (SERVE_BATCH * SERVE_PROMPT, cfg.num_experts)
+            for g in rec.gates[:n_layers])
+        and all(g[0].shape == (SERVE_BATCH, cfg.num_experts)
+                for g in rec.gates[n_layers:]),
+        "gate calls at other shapes than (4096, 8) a prefill layer and "
+        "(8, 8) a decode layer")
+  say(f"serve: {GROK_ARCH} launches {launches} for 1 prefill and {steps} "
+      f"decode steps of {n_layers} layers in {time.perf_counter() - t0:.1f} "
+      "s with the init (counted from the code: a prefill flash_attention "
+      f"and soft_topk_gates once a layer, {n_layers} each; a decode step "
+      f"soft_topk_gates {n_layers} times, flash_attention 0 times)")
+  from repro_torch.models import transformer as T
+
+  params = T.count_params(res["model"])
+  check(params == GROK_PARAMS, f"{params} parameters, not {GROK_PARAMS}")
+  for name in ("prefill_logits", "logits"):
+    logits = res[name]
+    check(tuple(logits.shape) == (SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and float(logits.abs().max()) <= cfg.logit_softcap,
+          f"{name}: not finite, or past the soft-cap {cfg.logit_softcap}")
+  sums = max(float((g[3].sum(-1) - k).abs().max()) for g in rec.gates)
+  check(sums <= 1e-4, f"gate row sums off k by {sums:.3e}")
+  q, kx, v, _, _ = rec.attn[0]
+  check(tuple(q.shape) == (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads,
+                           cfg.head_dim)
+        and tuple(kx.shape) == tuple(v.shape)
+        == (SERVE_BATCH, SERVE_PROMPT, cfg.num_kv_heads, cfg.head_dim),
+        f"captured attention shapes {q.shape}, {kx.shape}, {v.shape}")
+  gib = 2**30
+  say(f"serve: {GROK_ARCH} {params:,} parameters at full width, "
+      f"{n_layers} of 64 layers; weights {res['weights_bytes'] / gib:.3f} GiB"
+      f"; peak {res['init_peak_bytes'] / gib:.3f} GiB while building them, "
+      f"{res['serve_peak_bytes'] / gib:.3f} GiB while serving ({held / gib:.3f}"
+      f" GiB held before); logits finite and within +-{cfg.logit_softcap}; "
+      f"every gate row sums to k = {k} within {sums:.1e}")
+
+  for logits, kk, eps, out in rec.gates:
+    plain = st.soft_topk_gates_plain(logits, kk, eps)
+    check(torch.equal(out, plain), "soft_topk_gates: a captured call's "
+          f"gates differ from the plain version in "
+          f"{int((out != plain).sum())} elements")
+  worst_attn, worst_bf16 = captured_attn_checks(rec.attn, fa)
+  worst = {"flash_attention 128x128": worst_attn["max_abs_err"],
+           "soft_topk_gates": 0.0}
+  say(f"serve: {GROK_ARCH} soft_topk_gates equal their plain version bit for"
+      f" bit on all {len(rec.gates)} captured calls ({n_layers} prefill "
+      f"layers at {tuple(rec.gates[0][0].shape)}, {n_layers * steps} decode"
+      f" layers at {tuple(rec.gates[-1][0].shape)}); "
+      f"flash_attention at (128, 128), G 6, on the captured inputs of all "
+      f"{n_layers} layers, worst layer by each measure (median |ref|: the "
+      f"smallest layer's), {attn_text(worst_attn, fa)}; max |kernel - plain"
+      f" in bf16| {worst_bf16:.3e} (the reference's rounding, no tolerance)")
+  say(plain_prefill_text(res, rec, serve, st, fa))
+  return res, launches, rec, worst
+
+
+def grok_serve_times(res, rec, serve, st, fa, name_limit):
+  """grok-1-314b's times: the attention kernel at the prefill shape (and
+  SDPA with ``enable_gqa``), the gates at (4096, 8) and (8, 8), then the
+  server's prefill ms, decode rate and profiled steps."""
+  gate_rows, lines = gates_times(res["cfg"], rec, st, name_limit)
+  q, kx, v, causal, _ = rec.attn[0]
+  row, line = attn_times(q, kx, v, causal, fa, name_limit)
+  return row, gate_rows, lines + [line] + generate_times(res, serve,
+                                                         name_limit)
 
 
 # ---------------------------------------------------------------------------
@@ -2040,16 +2214,19 @@ def train_times(res, rec, captured, fa, name_limit,
 
 
 def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
-                    serve_rows, dense_row, train_launches, train_rows,
-                    engine_runs, engine_rows) -> list[dict]:
+                    serve_rows, dense_row, grok_row, grok_gate_rows,
+                    train_launches, train_rows, engine_runs,
+                    engine_rows) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
   ``train_launches`` by model).  ``launches`` is each kernel's main path:
   the operators' for the PAV kernels, the deepseek server's for the gates
   and attention.  Attention's top-level numbers stay those of the MLA
   width at the deepseek prefill, as in earlier lines; ``widths`` gives
-  each built width's row (MLA, then the dense width at the llama prefill)
-  with its own launches, error and training shape's times."""
+  each built width's row (MLA, the dense width at the llama prefill, grok's
+  at its prefill) with its own launches, error and training shape's times
+  (none for grok, which is not trained).  The gates' top-level numbers stay
+  deepseek's (4096, 64); ``shapes`` adds grok's (4096, 8) and (8, 8)."""
 
   def by_arch(counts: dict, kname: str) -> dict[str, int]:
     return {arch: c[kname] for arch, c in counts.items()}
@@ -2078,7 +2255,9 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
       "replaces": REPLACES["soft_topk_gates"],
       "launches": serve_counts[ARCH]["soft_topk_gates"],
       "max_abs_err": max_err["soft_topk_gates"],
-      **serve_rows["soft_topk_gates"], **paths("soft_topk_gates")})
+      **serve_rows["soft_topk_gates"], **paths("soft_topk_gates"),
+      "shapes": [{**row, "arch": GROK_ARCH, "k": 2} for row in
+                 grok_gate_rows]})
   widths = [
       {**serve_rows["flash_attention"], "arch": ARCH,
        "launches": serve_counts[ARCH]["flash_attention"],
@@ -2089,7 +2268,12 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
        "launches": serve_counts[DENSE_ARCH]["flash_attention"],
        "train_launches": train_launches[DENSE_ARCH]["flash_attention"],
        "max_abs_err": max_err["flash_attention 64x64"],
-       "train_shape": train_rows[DENSE_ARCH]}]
+       "train_shape": train_rows[DENSE_ARCH]},
+      {**grok_row, "arch": GROK_ARCH,
+       "launches": serve_counts[GROK_ARCH]["flash_attention"],
+       "train_launches": None,
+       "max_abs_err": max_err["flash_attention 128x128"],
+       "train_shape": None}]
   kernels.append({
       "name": "flash_attention", "route": "cuda",
       "source": SOURCES["flash_attention"],
@@ -2149,7 +2333,8 @@ def main() -> int:
   # apart.
   max_err = {"pav_l2": 0.0, "pav_l2 vs stack": 0.0, "pav_kl": 0.0,
              "pav_kl vs stack": 0.0, "soft_topk_gates": 0.0,
-             "flash_attention": 0.0, "flash_attention 64x64": 0.0}
+             "flash_attention": 0.0, "flash_attention 64x64": 0.0,
+             "flash_attention 128x128": 0.0}
 
   def record(kname, out, ref):
     err = close(out, ref)
@@ -2362,6 +2547,20 @@ def main() -> int:
     say(line)
   del dense_res, dense_rec
 
+  # serve, grok ---------------------------------------------------------------
+  # Full width, 6 of 64 layers (58 GiB of weights): the card must be empty.
+  gc.collect()
+  torch.cuda.empty_cache()
+  grok_res, grok_launches, grok_rec, grok_err = grok_serve_path(
+      dev, serve, kops, st, fa)
+  for kname, err in grok_err.items():
+    max_err[kname] = max(max_err[kname], err)
+  grok_row, grok_gate_rows, grok_lines = grok_serve_times(
+      grok_res, grok_rec, serve, st, fa, name_limit)
+  for line in grok_lines:
+    say(line)
+  del grok_res, grok_rec
+
   # 6. train ------------------------------------------------------------------
   # Each trainer's model and state go before the next one's.
   train_launches, train_rows = {}, {}
@@ -2384,8 +2583,10 @@ def main() -> int:
   # 7. summary -------------------------------------------------------------
   kernels = kernels_summary(
       launches=launches, max_err=max_err, kernel_rows=kernel_rows,
-      serve_counts={ARCH: serve_launches, DENSE_ARCH: dense_launches},
-      serve_rows=serve_rows, dense_row=dense_row,
+      serve_counts={ARCH: serve_launches, DENSE_ARCH: dense_launches,
+                    GROK_ARCH: grok_launches},
+      serve_rows=serve_rows, dense_row=dense_row, grok_row=grok_row,
+      grok_gate_rows=grok_gate_rows,
       train_launches=train_launches, train_rows=train_rows,
       engine_runs=engine_runs, engine_rows=engine_rows)
   say(json.dumps({"kernels": kernels}))

@@ -11,8 +11,9 @@
 // 1 / sqrt(D) (the q/k width, not Dv); causal masking is top-left aligned
 // (key position <= query position), as in the reference with q_offset 0.
 //
-// Two widths are built: (D, Dv) = (192, 128), MLA's (deepseek-v2-lite),
-// and (64, 64), the GQA head width of llama3.2-1b and tinyllama-1.1b.
+// Three widths are built: (D, Dv) = (192, 128), MLA's (deepseek-v2-lite),
+// (64, 64), the GQA head width of llama3.2-1b and tinyllama-1.1b, and
+// (128, 128), grok-1's (48 query heads over 8 kv heads, G = 6).
 //
 // What bounds it on this card: at the MLA serving prefill shape (8 x 512
 // tokens, 16 heads, D 192, Dv 128) the causal work is about 10.7 GFLOP
@@ -20,7 +21,9 @@
 // at 3.35 TB/s), so the bound is bytes; at llama's (8 x 512, 32 heads over
 // 8 kv heads, D = Dv = 64) 8.6 GFLOP (8.7 us) against 41.9 MB (12.5 us),
 // bytes again; at llama's training shape (2 x 2048) 34 GFLOP (35 us)
-// against the same 41.9 MB, operations.  What held the first (mma.sync)
+// against the same 41.9 MB, operations; at grok-1's prefill (8 x 512, 48
+// heads over 8 kv heads, D = Dv = 128) 25.8 GFLOP (26 us) against 117 MB
+// (35 us), bytes.  What held the first (mma.sync)
 // version at 7.6x that bound, and what this design does about each:
 //   * synchronous K/V loads between two barriers, nothing in flight during
 //     the products -> a producer warpgroup streams K and V tiles with TMA
@@ -38,18 +41,24 @@
 // scheduled against each other, so the tensor cores idle while both run
 // softmax; the products' own issue also stalls.
 //
-// Design.  A work item is (batch, kv head, 128 query rows).  A row is a
-// (query position, group) pair, row = position * G + g, so all G query
-// heads of a kv head share each K/V tile.  The kernel is persistent: one
+// Design.  A work item is (batch, kv head, bq = 128 / G query positions,
+// rounded down), bq * G query rows.  A row is a (query position, group)
+// pair, row = position * G + g, so all G query heads of a kv head share
+// each K/V tile.  Where G does not divide 128 (G = 6: bq = 21, 126 rows)
+// rows bq * G .. 127 of the tile are not loaded: they hold whatever the Q
+// buffer held before.  They are computed like the others (each row's
+// scores, softmax and output are its own, so nothing of theirs reaches a
+// loaded row) and never written.  The kernel is persistent: one
 // CTA of 3 warpgroups per SM walks items blockIdx.x, + gridDim.x, ..., in
 // an order that puts the last (longest, under the causal mask) query tiles
 // first.  Warpgroups 0 and 1 (setmaxnreg 232) each own 64 rows of an item;
 // warpgroup 2 (setmaxnreg 40) is the producer, of which one thread issues
 // every copy.  For each item the producer loads the Q tile (D / 64
-// 64-column boxes: 48 KB at D 192, 16 KB at D 64) into one of two Q
-// buffers, and for each kv tile of kKv = 64 keys K (24 or 8 KB) and V (16
-// or 8 KB) into the next stage of a kStages = 3 ring (216 KB of shared
-// memory in all at (192, 128), 81 KB at (64, 64)), all 128-byte
+// 64-column boxes of (64, G, bq): 48 KB at D 192, 32 KB at D 128, 16 KB at
+// D 64) into one of two Q buffers, and for each kv tile of kKv = 64 keys K
+// (24, 16 or 8 KB) and V (16, 16 or 8 KB) into the next stage of a
+// kStages = 3 ring (216 KB of shared memory in all at (192, 128), 160 KB at
+// (128, 128), 81 KB at (64, 64)), all 128-byte
 // swizzled, through 4-D tensor maps over (width, head, position, batch) so
 // that rows past Sq or Skv are zero-filled.  Ring and Q buffers run on
 // across items, so the next item's loads overlap the current one.  A
@@ -363,6 +372,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   // items blockIdx.x, blockIdx.x + gridDim.x, ...
   const int g_count = h / hkv;
   const int bq = kRows / g_count;               // query positions per item
+  const int q_rows = bq * g_count;              // rows loaded: 128 - 128 % G
   const int n_bh = batch * hkv;
   const int n_q = (sq + bq - 1) / bq;
   const int n_items = n_bh * n_q;
@@ -404,7 +414,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
         const Item it = item(i);
         const int qb = ic & 1;
         if (ic >= 2) mbar_wait(&q_empty[qb], ((ic >> 1) - 1) & 1);
-        mbar_expect_tx(&q_full[qb], S::kQBytes);
+        // The boxes' bytes, which are the buffer's only where G divides 128.
+        mbar_expect_tx(&q_full[qb], q_rows * D * 2);
         for (int c = 0; c < D / kBox; ++c)
           tma_load_4d(q_s + qb * S::kQBytes + c * kRows * kBoxBytes, &tm_q,
                       &q_full[qb], c * kBox, it.kvh * g_count, it.q0, it.b);
@@ -446,7 +457,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     int qpos[2];
     for (int i = 0; i < 2; ++i) qpos[i] = it.q0 + row[i] / g_count;
     const int wg_first = it.q0 + (wg * 64) / g_count;
-    const int wg_last = min(it.q0 + (wg * 64 + 63) / g_count, sq - 1);
+    const int wg_last =
+        min(it.q0 + min(wg * 64 + 63, q_rows - 1) / g_count, sq - 1);
     // This warpgroup's tiles: under the causal mask, up to its last row;
     // the item's later tiles it only waits for and releases.
     const int nw = wg_first >= sq ? 0
@@ -554,7 +566,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      if (qpos[i] >= sq) continue;
+      if (row[i] >= q_rows || qpos[i] >= sq) continue;
       const int head = it.kvh * g_count + row[i] % g_count;
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
       __nv_bfloat16* op =
@@ -619,7 +631,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, int h, int hkv, int causal, float scale,
            cudaStream_t stream) {
   const int g_count = h / hkv;
-  const int bq = kRows / g_count;
+  const int bq = kRows / g_count;   // the Q box: (64, G, bq), bq * G <= 128
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(&tm_q, q, b, sq, h, D, g_count, bq) ||
       !make_map(&tm_k, k, b, skv, hkv, D, 1, kKv) ||
@@ -656,18 +668,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 
 // Plain C entry point, loaded with ctypes.  q (b, sq, h, d), k (b, skv, hkv,
 // d), v (b, skv, hkv, dv), out (b, sq, h, dv): bf16, C-contiguous, 16-byte
-// aligned, on the current device; h / hkv divides 128.  (d, dv) is
-// (192, 128), the MLA widths, or (64, 64), the dense GQA width; another
-// width is one more instantiation of the template (whole 64-column boxes,
-// and a wgmma wrapper of n = dv), and until then returns
-// cudaErrorInvalidValue.  Returns the launch's cudaError_t.
+// aligned, on the current device; hkv divides h and h / hkv <= 128.
+// (d, dv) is (192, 128), the MLA widths, (64, 64) or (128, 128), the dense
+// GQA widths; another width is one more instantiation of the template
+// (whole 64-column boxes, and a wgmma wrapper of n = dv), and until then
+// returns cudaErrorInvalidValue.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int sq,
                                       int skv, int h, int hkv, int d, int dv,
                                       int causal, float scale,
                                       cudaStream_t stream) {
   if (b == 0 || sq == 0) return 0;
-  if (hkv < 1 || h % hkv || kRows % (h / hkv) || skv < 1) {
+  if (hkv < 1 || h % hkv || h / hkv > kRows || skv < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (d == 192 && dv == 128)
@@ -676,5 +688,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (d == 64 && dv == 64)
     return launch<64, 64>(q, k, v, out, b, sq, skv, h, hkv, causal, scale,
                           stream);
+  if (d == 128 && dv == 128)
+    return launch<128, 128>(q, k, v, out, b, sq, skv, h, hkv, causal, scale,
+                            stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

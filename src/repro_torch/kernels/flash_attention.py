@@ -38,10 +38,13 @@ from repro_torch.kernels import _build
 
 # Launch count of the kernel; only the wrapper below increments it.
 LAUNCHES = {"flash_attention": 0}
-# (D, Dv) built: the MLA widths (deepseek) and the dense GQA head width
-# (llama3.2-1b, tinyllama-1.1b).  Any other width raises on the card.
-KERNEL_WIDTHS = ((192, 128), (64, 64))
-ROWS_PER_BLOCK = 128   # query rows of one block: G must divide it
+# (D, Dv) built: the MLA widths (deepseek), the dense GQA head widths of
+# llama3.2-1b and tinyllama-1.1b (64) and of grok-1 (128).  Any other width
+# raises on the card.
+KERNEL_WIDTHS = ((192, 128), (64, 64), (128, 128))
+# Query rows of one block's tile: a work item takes 128 // G query positions
+# of G heads each (at G = 6, 21 positions, 126 rows), so G is at most 128.
+ROWS_PER_BLOCK = 128
 
 _NEG_INF = -1e30
 
@@ -163,9 +166,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                      f"{tuple(k.shape)}, v {tuple(v.shape)} do not match "
                      "(B,Sq,H,D), (B,Skv,Hkv,D), (B,Skv,Hkv,Dv)")
-  if h % hkv or ROWS_PER_BLOCK % (h // hkv):
+  if h % hkv or h // hkv > ROWS_PER_BLOCK:
     raise ValueError(f"flash_attention: H = {h} must be a multiple G of "
-                     f"Hkv = {hkv}, with G dividing {ROWS_PER_BLOCK}")
+                     f"Hkv = {hkv}, with G at most {ROWS_PER_BLOCK}")
   if (d, dv) not in KERNEL_WIDTHS:
     raise ValueError(f"flash_attention: (D, Dv) = {(d, dv)} is not built; "
                      f"the kernel has {KERNEL_WIDTHS}")

@@ -17,12 +17,15 @@ Counterpart of ``repro.launch.serve``.  Two modes share this entry point:
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
         --batch 8 --prompt-len 512 --gen 32
 
-  builds the model with random weights from ``--seed`` directly on the card
-in the config's dtype, takes the prompts from the port's ``TokenPipeline``
-(the tokens the JAX server gets), prefills them once and decodes
-``--gen - 1`` more tokens greedily with one position counter for the
-batch.  It prints the prefill time, the decode rate, the parameter count
-  and the peak device memory.
+  builds the model with random weights from ``--seed`` directly on the
+  card in the config's dtype (``--set key=value``, repeatable, overrides a
+  config field first: ``--set num_layers=6`` serves grok-1-314b cut to 6
+  of its 64 layers on one card), takes the prompts from the port's
+  ``TokenPipeline`` (the tokens the JAX server gets), prefills them once
+  and decodes ``--gen - 1`` more tokens greedily with one position counter
+  for the batch.  It prints the layer and parameter counts, the prefill
+  time, the decode rate, the weights' bytes and the peak device memory
+  (while building the weights, and while serving).
 
 Both modes run on the card (``--device cuda``, the default, which raises
 where there is none).  ``--device cpu`` runs the kernels' plain versions:
@@ -35,6 +38,7 @@ run (``python -m repro_torch.obs FILE`` validates it).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -58,6 +62,25 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
 def _sync(device: torch.device) -> None:
   if device.type == "cuda":
     torch.cuda.synchronize(device)
+
+
+def parse_overrides(pairs) -> dict:
+  """``key=value`` strings as config overrides: int, float, bool or str."""
+  out = {}
+  for pair in pairs or []:
+    k, v = pair.split("=", 1)
+    for cast in (int, float):
+      try:
+        out[k] = cast(v)
+        break
+      except ValueError:
+        continue
+    else:
+      if v in ("True", "False"):
+        out[k] = v == "True"
+      else:
+        out[k] = v
+  return out
 
 
 def resolve_device(name: str, smoke: bool,
@@ -197,25 +220,38 @@ def run_lm(args, model=None) -> dict:
   prompts added.
   """
   cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+  over = parse_overrides(args.overrides)
+  if over:
+    cfg = dataclasses.replace(cfg, **over)
   device = resolve_device(args.device, args.smoke)
+  init_peak = None
   if model is None:
     if device.type == "cuda":
       torch.cuda.reset_peak_memory_stats(device)
     model = T.init_params(cfg, args.seed, device)
+    if device.type == "cuda":
+      # The serving peak below is then the weights plus what serving adds.
+      init_peak = torch.cuda.max_memory_allocated(device)
+      torch.cuda.reset_peak_memory_stats(device)
+  weights = sum(p.numel() * p.element_size() for p in model.parameters())
   pipe = pipeline_for_arch(cfg, args.batch, args.prompt_len, seed=args.seed)
   tokens = torch.from_numpy(pipe.batch_at(0)["tokens"]).to(
       device=device, dtype=torch.int64)
   res = generate(cfg, model, tokens, args.gen)
   steps = args.gen - 1
   rate = steps * args.batch / max(res["decode_s"], 1e-9)
-  print(f"[serve] {cfg.name} on {device}: {T.count_params(model):,} "
-        f"parameters in {cfg.dtype}")
+  print(f"[serve] {cfg.name} on {device}: {cfg.num_layers} layers, "
+        f"{T.count_params(model):,} parameters in {cfg.dtype}")
   print(f"[serve] prefill {args.batch}x{args.prompt_len} in "
         f"{res['prefill_s'] * 1e3:.1f} ms; {steps} decode steps in "
         f"{res['decode_s'] * 1e3:.1f} ms ({rate:.1f} tok/s)")
+  print(f"[serve] weights {weights / 2**30:.2f} GiB" + (
+      "" if init_peak is None else
+      f"; peak {init_peak / 2**30:.2f} GiB while building them"))
+  serve_peak = None
   if device.type == "cuda":
-    print(f"[serve] max memory allocated "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    serve_peak = torch.cuda.max_memory_allocated(device)
+    print(f"[serve] max memory allocated {serve_peak / 2**30:.2f} GiB")
   print("[serve] sample generations (first 2 rows):")
   for row in res["tokens"][:2].tolist():
     print("  ", row)
@@ -234,7 +270,8 @@ def run_lm(args, model=None) -> dict:
             smoke=bool(args.smoke), batch=args.batch,
             prompt_len=args.prompt_len, gen=args.gen,
             **repro_plan.plan_provenance()))
-  res.update(cfg=cfg, model=model, prompts=tokens)
+  res.update(cfg=cfg, model=model, prompts=tokens, weights_bytes=weights,
+             init_peak_bytes=init_peak, serve_peak_bytes=serve_peak)
   return res
 
 
@@ -250,6 +287,10 @@ def parser() -> argparse.ArgumentParser:
   ap.add_argument("--seed", type=int, default=0,
                   help="seed of the random weights and the prompts")
   ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+  ap.add_argument("--set", action="append", dest="overrides",
+                  metavar="KEY=VALUE",
+                  help="override a config field in LM mode (repeatable), "
+                       "e.g. --set num_layers=6")
   ap.add_argument("--bench-json", default=None, metavar="PATH",
                   help="write a schema-v1 BENCH artifact of the run")
   ap.add_argument("--plan", default=None, metavar="PLAN_JSON",

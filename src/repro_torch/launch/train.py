@@ -42,7 +42,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.data.pipeline import pipeline_for_arch
 from repro_torch.launch import steps as ST
-from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.serve import parse_overrides, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.obs import artifacts as obs_artifacts
 from repro_torch.obs import metrics as obs_metrics
@@ -194,25 +194,6 @@ class Trainer:
         "straggler_events": self.straggler_events,
         "final_loss": float(final_metrics.get("loss", float("nan"))),
     }]
-
-
-def parse_overrides(pairs) -> dict:
-  """``key=value`` strings as config overrides: int, float, bool or str."""
-  out = {}
-  for pair in pairs or []:
-    k, v = pair.split("=", 1)
-    for cast in (int, float):
-      try:
-        out[k] = cast(v)
-        break
-      except ValueError:
-        continue
-    else:
-      if v in ("True", "False"):
-        out[k] = v == "True"
-      else:
-        out[k] = v
-  return out
 
 
 def parser() -> argparse.ArgumentParser:

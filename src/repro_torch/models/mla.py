@@ -6,7 +6,7 @@ into the query, so attention runs directly against the cached latent c_kv
 (rank r) and the shared RoPE key, in plain einsums (the reference has no
 kernel there either).  Parameters keep the JAX layouts: ``wq`` (d, h,
 nd+rd), ``w_dkv`` (d, r+rd), ``w_uk`` / ``w_uv`` (r, h, nd|vd), ``wo``
-(h, vd, d).
+(h, vd, d).  ``mla_init`` draws them with the reference's scales.
 """
 
 from __future__ import annotations
@@ -16,9 +16,24 @@ import math
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.models.layers import Params, rope
+from repro_torch.models.layers import Params, normal, rope
 
 _NEG_INF = -1e30
+
+
+def mla_init(cfg, gen: torch.Generator, dtype, device) -> Params:
+  """wq, w_dkv, w_uk, w_uv, wo, drawn in that order with the reference's
+  scales (1/sqrt(d) in, 1/sqrt(r) up, 1/sqrt(h vd) out)."""
+  d, h = cfg.d_model, cfg.num_heads
+  r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                   cfg.v_head_dim)
+  si, sr = 1.0 / math.sqrt(d), 1.0 / math.sqrt(r)
+  return {"wq": normal(gen, (d, h, nd + rd), si, dtype, device),
+          "w_dkv": normal(gen, (d, r + rd), si, dtype, device),
+          "w_uk": normal(gen, (r, h, nd), sr, dtype, device),
+          "w_uv": normal(gen, (r, h, vd), sr, dtype, device),
+          "wo": normal(gen, (h, vd, d), 1.0 / math.sqrt(h * vd), dtype,
+                       device)}
 
 
 def mla_apply_seq(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,

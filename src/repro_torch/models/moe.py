@@ -29,7 +29,8 @@ the group size with zero rows, which are routed and take capacity as in
 the reference.  The router runs in f32; dispatch and combine are cast to
 the activation dtype.  Parameters keep the JAX layouts: ``router`` (d, E)
 f32, ``we_in`` / ``we_gate`` (E, d, f), ``we_out`` (E, f, d), ``shared``
-(a SwiGLU MLP of width f * num_shared_experts).
+(a SwiGLU MLP of width f * num_shared_experts, only where the config has
+shared experts); ``moe_init`` draws them with the reference's scales.
 """
 
 from __future__ import annotations
@@ -41,9 +42,27 @@ import torch.nn.functional as F
 
 from repro_torch.core.operators import soft_topk_mask
 from repro_torch.kernels import soft_topk as _st
-from repro_torch.models.layers import Params, mlp_apply
+from repro_torch.models.layers import Params, mlp_apply, normal
 
 ROUTERS = ("softmax_topk", "soft_topk")
+
+
+def moe_init(cfg, gen: torch.Generator, dtype, device) -> Params:
+  """router (f32), we_in, we_gate, we_out, then the shared experts'
+  w_in, w_gate, w_out where ``num_shared_experts``, drawn in that order:
+  1/sqrt(d) in, 1/sqrt(f) out, as the reference's ``moe_init``."""
+  d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+  si, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+  p = {"router": normal(gen, (d, e), si, torch.float32, device),
+       "we_in": normal(gen, (e, d, f), si, dtype, device),
+       "we_gate": normal(gen, (e, d, f), si, dtype, device),
+       "we_out": normal(gen, (e, f, d), so, dtype, device)}
+  if cfg.num_shared_experts:
+    fs = f * cfg.num_shared_experts
+    p["shared"] = {"w_in": normal(gen, (d, fs), si, dtype, device),
+                   "w_gate": normal(gen, (d, fs), si, dtype, device),
+                   "w_out": normal(gen, (fs, d), so, dtype, device)}
+  return p
 
 
 def _router_weights(cfg, logits: torch.Tensor):

@@ -1,22 +1,28 @@
 """Model assembly: the layer stack by kind, training pass, prefill, decode.
 
-Counterpart of ``repro.models.transformer`` for two layer kinds:
-``mla_moe`` (deepseek-v2-lite: MLA attention + MoE FFN with the soft top-k
-router) and ``dense`` (llama3.2-1b, tinyllama-1.1b: GQA attention + SwiGLU
-MLP), with tied embeddings (the head is the embedding table transposed,
-and the embedded tokens are scaled by sqrt(d_model), as in the reference).
-Where the reference stacks a segment's layers under ``lax.scan``, the
-port keeps an ``nn.ModuleList`` of one module per layer, in the order the
-scan visits them.  ``forward_train`` gives the per-token loss and the aux
-loss (0 without MoE layers), with the reference's remat: ``"full"``
-recomputes each layer in backward (``torch.utils.checkpoint``,
-non-reentrant, the counterpart of ``jax.checkpoint(nothing_saveable)``
-around each scan step), ``"none"`` keeps its activations.  Other layer
-kinds, frontends and remat ``"dots"`` raise ``NotImplementedError``.
+Counterpart of ``repro.models.transformer`` for three layer kinds, each a
+mixer and an FFN (``MIXERS``, ``MOE_KINDS``):
+
+  dense     GQA attention + SwiGLU MLP (llama3.2-1b, tinyllama-1.1b)
+  moe       GQA attention + MoE FFN with the soft top-k router (grok-1)
+  mla_moe   MLA attention + MoE FFN with shared experts (deepseek-v2-lite)
+
+Embeddings are tied or not, as the config says (tied: the head is the
+embedding table transposed, and the embedded tokens are scaled by
+sqrt(d_model), as in the reference); the head's logits are soft-capped
+where the config has ``logit_softcap``.  Where the reference stacks a
+segment's layers under ``lax.scan``, the port keeps an ``nn.ModuleList``
+of one module per layer, in the order the scan visits them.
+``forward_train`` gives the per-token loss and the aux loss (0 without MoE
+layers), with the reference's remat: ``"full"`` recomputes each layer in
+backward (``torch.utils.checkpoint``, non-reentrant, the counterpart of
+``jax.checkpoint(nothing_saveable)`` around each scan step), ``"none"``
+keeps its activations.  Other layer kinds, frontends and remat ``"dots"``
+raise ``NotImplementedError``.
 
 ``init_params`` builds random weights with the reference's distributions
-and scales (``mla_init``, ``moe_init``, ``attn_init``, ``mlp_init``,
-``embed_init``, the LM head) directly on the target device and in the
+and scales (``attn_init`` or ``mla_init``, ``mlp_init`` or ``moe_init``,
+the embedding, the LM head) directly on the target device and in the
 config's dtype, from a seeded ``torch.Generator``;
 ``repro_torch.models.convert.from_jax_params`` builds the same modules from
 the reference's parameters instead.
@@ -34,7 +40,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
-KINDS = ("mla_moe", "dense")
+# Each layer kind's mixer, by its parameter group: GQA attention or MLA.
+MIXERS = {"dense": "attn", "moe": "attn", "mla_moe": "mla"}
+# The kinds whose FFN is the MoE FFN; the others' is the SwiGLU MLP.
+MOE_KINDS = ("moe", "mla_moe")
+KINDS = tuple(MIXERS)
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -72,18 +82,19 @@ class ParamTree(nn.Module):
 
 
 class Layer(nn.Module):
-  """One block of kind ``kind``: pre-norm attention (MLA for ``mla_moe``,
-  GQA for ``dense``), then the pre-norm FFN (MoE for ``mla_moe``, SwiGLU
-  for ``dense``)."""
+  """One block of kind ``kind``: the pre-norm mixer (GQA attention or MLA,
+  ``MIXERS``), then the pre-norm FFN (the MoE FFN for ``MOE_KINDS``, else
+  the SwiGLU MLP)."""
 
   def __init__(self, cfg, params: dict, kind: str):
     super().__init__()
     self.cfg, self.kind = cfg, kind
+    self.mixer = MIXERS[kind]
     self.params = ParamTree(params)
 
   def _mix_seq(self, p, h, positions, collect_cache: bool):
     """(mixed, cache or None) of the attention over the whole sequence."""
-    if self.kind == "dense":
+    if self.mixer == "attn":
       if not collect_cache:
         return L.attn_apply_seq(p["attn"], h, positions, self.cfg), None
       mixed, (k, v) = L.attn_apply_seq(p["attn"], h, positions, self.cfg,
@@ -94,9 +105,15 @@ class Layer(nn.Module):
     return MLA.mla_apply_seq(p["mla"], h, positions, self.cfg,
                              return_kv=True)
 
+  def _mix_decode(self, p, h, cache, pos: int):
+    """(mixed, cache) of one token, the cache updated in place."""
+    if self.mixer == "attn":
+      return L.attn_apply_decode(p["attn"], h, cache, pos, self.cfg)
+    return MLA.mla_apply_decode(p["mla"], h, cache, pos, self.cfg)
+
   def _ffn(self, p, h):
     """(out, aux): the MoE FFN's aux loss, or 0 for the dense MLP."""
-    if self.kind == "mla_moe":
+    if self.kind in MOE_KINDS:
       return MOE.moe_apply(p["ffn"], h, self.cfg)
     return (L.mlp_apply(p["ffn"], h, self.cfg.mlp_variant),
             torch.zeros((), dtype=torch.float32, device=h.device))
@@ -119,10 +136,7 @@ class Layer(nn.Module):
     """x: (B, d).  Returns (x, cache), the cache updated in place."""
     cfg, p = self.cfg, self.params.tree()
     h = L.norm_apply(p["norm1"], x, cfg.norm)
-    if self.kind == "dense":
-      mixed, cache = L.attn_apply_decode(p["attn"], h, cache, pos, cfg)
-    else:
-      mixed, cache = MLA.mla_apply_decode(p["mla"], h, cache, pos, cfg)
+    mixed, cache = self._mix_decode(p, h, cache, pos)
     x = x + mixed.to(x.dtype)
     ff, _ = self._ffn(p, L.norm_apply(p["norm2"], x, cfg.norm))
     return x + ff.to(x.dtype), cache
@@ -168,57 +182,43 @@ class Transformer(nn.Module):
 
 
 def _layer_init(cfg, kind, gen, dtype, device) -> dict:
-  d = cfg.d_model
+  """One layer's parameters.  A MoE layer draws its FFN before its mixer,
+  a dense layer its mixer first: the order the port's seeded weights have
+  always had."""
+  mixer = MIXERS[kind]
 
-  def normal(shape, scale, dt=dtype):
-    return L.normal(gen, shape, scale, dt, device)
+  def init_mixer():
+    if mixer == "attn":
+      return L.attn_init(cfg, gen, dtype, device)
+    return MLA.mla_init(cfg, gen, dtype, device)
 
-  def ones():
-    return torch.ones((d,), dtype=torch.float32, device=device)
+  def init_ffn():
+    if kind in MOE_KINDS:
+      return MOE.moe_init(cfg, gen, dtype, device)
+    return L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant, dtype,
+                      device)
 
-  if kind == "dense":
-    return {"norm1": {"scale": ones()}, "norm2": {"scale": ones()},
-            "attn": L.attn_init(cfg, gen, dtype, device),
-            "ffn": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_variant, dtype,
-                              device)}
-  h = cfg.num_heads
-  r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                   cfg.v_head_dim)
-  f, e = cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
-  si, sr, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(r), 1.0 / math.sqrt(f)
-  ffn = {
-      "router": normal((d, e), si, torch.float32),
-      "we_in": normal((e, d, f), si),
-      "we_gate": normal((e, d, f), si),
-      "we_out": normal((e, f, d), so),
-  }
-  if cfg.num_shared_experts:
-    fs = f * cfg.num_shared_experts
-    ffn["shared"] = {"w_in": normal((d, fs), si),
-                     "w_gate": normal((d, fs), si),
-                     "w_out": normal((fs, d), 1.0 / math.sqrt(f))}
-  return {
-      "norm1": {"scale": ones()},
-      "norm2": {"scale": ones()},
-      "mla": {
-          "wq": normal((d, h, nd + rd), si),
-          "w_dkv": normal((d, r + rd), si),
-          "w_uk": normal((r, h, nd), sr),
-          "w_uv": normal((r, h, vd), sr),
-          "wo": normal((h, vd, d), 1.0 / math.sqrt(h * vd)),
-      },
-      "ffn": ffn,
-  }
+  if kind in MOE_KINDS:
+    ffn = init_ffn()
+    mixed = init_mixer()
+  else:
+    mixed = init_mixer()
+    ffn = init_ffn()
+  norm = lambda: {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                      device=device)}
+  return {"norm1": norm(), "norm2": norm(), mixer: mixed, "ffn": ffn}
 
 
 def init_params(cfg, seed: int = 0, device="cpu") -> Transformer:
   """Random weights from ``seed``, built on ``device`` in the config's
   dtype (the router and norm scales in f32, as in the reference); no LM
-  head when the embeddings are tied."""
+  head when the embeddings are tied.  On the ``meta`` device it builds the
+  shapes alone, as the reference's ``jax.eval_shape`` of its init does (a
+  full-depth grok-1 has 590 GiB of weights)."""
   check_supported(cfg)
   device = torch.device(device)
   dtype = dtype_of(cfg)
-  gen = torch.Generator(device=device)
+  gen = torch.Generator(device="cpu" if device.type == "meta" else device)
   gen.manual_seed(seed)
   d, v = cfg.d_model, cfg.vocab_size
   params = {"embed": {"table": L.normal(gen, (v, d), 0.02, dtype, device)}}
@@ -277,12 +277,12 @@ def forward_train(cfg, model: Transformer, batch: dict):
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cpu") -> list[dict]:
-  """One zeroed cache per layer, full length: for ``dense`` k and v
-  (B, max_len, Hkv, dh), for ``mla_moe`` the latents c_kv (B, max_len, r)
-  and k_rope (B, max_len, rd)."""
+  """One zeroed cache per layer, full length: for a GQA layer (``dense``,
+  ``moe``) k and v (B, max_len, Hkv, dh), for ``mla_moe`` the latents c_kv
+  (B, max_len, r) and k_rope (B, max_len, rd)."""
   dtype = dtype_of(cfg)
   return [L.attn_init_cache(cfg, batch, max_len, dtype, device)
-          if kind == "dense" else
+          if MIXERS[kind] == "attn" else
           MLA.mla_init_cache(cfg, batch, max_len, dtype, device)
           for kind in cfg.layer_kinds()]
 

@@ -4,9 +4,10 @@
 CPU route of the wrapper ``flash_attention``, which the models call) against
 the reference's chunked attention ``repro.models.layers.flash_attention``
 on the same numpy inputs, in f32: causal and not, GQA, the MLA smoke
-widths (D = 24, Dv = 16), the kernel's dense width D = Dv = 64 at G = 4
-(llama3.2-1b) and G = 8 (tinyllama-1.1b) with a ragged S, chunks that do
-not divide S, and the sliding window, soft-cap and query offset the
+widths (D = 24, Dv = 16), the kernel's dense widths D = Dv = 64 at G = 4
+(llama3.2-1b) and G = 8 (tinyllama-1.1b) with a ragged S and D = Dv = 128
+at G = 6 (grok-1, a G that does not divide the kernel's 128-row tile),
+chunks that do not divide S, and the sliding window, soft-cap and query offset the
 reference also has.  Tolerance 1e-5 * (1 + max|input|)
 (``test_torch_common``).  A width the kernel is not built for raises in
 ``_check``, before any launch.  The backward
@@ -54,6 +55,8 @@ CASES = {
                                                            kv_chunk=16)),
     "causal_dense_width_g8_ragged": (1, 37, 37, 16, 2, 64, 64,
                                      dict(q_chunk=16, kv_chunk=16)),
+    "causal_grok_width_g6_ragged": (1, 23, 23, 12, 2, 128, 128,
+                                    dict(q_chunk=8, kv_chunk=8)),
 }
 
 
@@ -114,12 +117,23 @@ def test_scale_uses_the_qk_width():
   np.testing.assert_allclose(got.numpy().ravel(), [w / (1 + w)], rtol=1e-6)
 
 
-@pytest.mark.parametrize("g", [4, 8])
-def test_check_takes_the_dense_width(g):
-  """``_check`` on bf16 tensors accepts D = Dv = 64 at G = 4 and 8."""
-  q = torch.zeros((1, 5, 8 * g, 64), dtype=torch.bfloat16)
-  kv = torch.zeros((1, 5, 8, 64), dtype=torch.bfloat16)
+@pytest.mark.parametrize("d, g", [(64, 4), (64, 8), (64, 3), (128, 6),
+                                  (128, 3), (128, 128)])
+def test_check_takes_the_dense_width(d, g):
+  """``_check`` on bf16 tensors accepts D = Dv = 64 at G = 4 and 8 and
+  D = Dv = 128 at G = 6 (grok-1), and G = 3 and 128 too: every G up to the
+  128-row tile, whether it divides 128 or not."""
+  q = torch.zeros((1, 5, 8 * g, d), dtype=torch.bfloat16)
+  kv = torch.zeros((1, 5, 8, d), dtype=torch.bfloat16)
   fa._check(q, kv, kv)
+
+
+def test_check_refuses_more_query_heads_a_kv_head_than_rows():
+  """G = 129 puts more rows than the tile holds at one query position."""
+  q = torch.zeros((1, 5, 129, 128), dtype=torch.bfloat16)
+  kv = torch.zeros((1, 5, 1, 128), dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="at most 128"):
+    fa._check(q, kv, kv)
 
 
 def test_check_refuses_an_unbuilt_width():
@@ -137,13 +151,19 @@ def test_check_refuses_an_unbuilt_width():
                                    (1, 100, 100, 4, 1, 192, 128, True),
                                    (2, 512, 512, 32, 8, 64, 64, True),
                                    (2, 333, 333, 32, 4, 64, 64, True),
-                                   (1, 77, 130, 16, 2, 64, 64, False)])
+                                   (1, 77, 130, 16, 2, 64, 64, False),
+                                   (2, 333, 333, 24, 8, 64, 64, True),
+                                   (8, 512, 512, 48, 8, 128, 128, True),
+                                   (3, 333, 333, 48, 8, 128, 128, True),
+                                   (1, 77, 130, 48, 8, 128, 128, False),
+                                   (1, 200, 200, 96, 1, 128, 128, True)])
 def test_cuda_kernel_matches_plain_version(shape, cuda_device):
   """On the card: the kernel (bf16 in and out, f32 softmax state) against
   the plain version in f32 on the same bf16 inputs, by the kernel's error
   model (``compare_with_plain``): every element within 2 * 2**-8 * (|ref|
   + A), A the attention over |v|, and the relative Frobenius error within
-  ``REL_FROB_LIMIT`` (2**-7)."""
+  ``REL_FROB_LIMIT`` (2**-7).  G = 3, 6 and 96 do not divide the 128-row
+  tile: 2, 2 and 32 rows of each tile are never loaded nor written."""
   b, sq, skv, h, hkv, d, dv, causal = shape
   q, k, v = (as_torch(x, torch.bfloat16).to(cuda_device)
              for x in _inputs(b, sq, skv, h, hkv, d, dv))

@@ -222,6 +222,31 @@ def test_cuda_kernel_matches_plain_version(shape, eps, cuda_device):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "constant"])
+@pytest.mark.parametrize("rows", [4096, 8])
+def test_cuda_kernel_matches_plain_version_at_grok_router(rows, kind,
+                                                          cuda_device):
+  """On the card, bit for bit, at grok-1's router: E = 8 (the kernel's one
+  register a lane branch, E <= 32), k = 2, eps 1.0, at a prefill layer's
+  4096 tokens and a decode step's 8, on random logits, on ties (a grid of
+  0.5) and on constant rows."""
+  x = np.random.default_rng([29, rows]).normal(size=(rows, 8))
+  if kind == "ties":
+    x = np.round(x * 2) / 2
+  elif kind == "constant":
+    x[:] = 0.75
+  xd = as_torch(x).to(cuda_device)
+  before = soft_topk.LAUNCHES["soft_topk_gates"]
+  got = soft_topk.soft_topk_gates(xd, 2, 1.0)
+  torch.cuda.synchronize()
+  assert soft_topk.LAUNCHES["soft_topk_gates"] == before + 1
+  want = soft_topk.soft_topk_gates_plain(xd, 2, 1.0)
+  np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+  np.testing.assert_allclose(got.sum(-1).cpu().numpy(), 2.0, rtol=0,
+                             atol=1e-5)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("k,e", GATE_CASES)
 def test_cuda_kernel_matches_plain_version_at_every_k(k, e, cuda_device):
   """On the card, bit for bit, for every (k, E) of the CPU cases, at the
