@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from a checkout on a machine with an NVIDIA H100 (sm_90a) and the CUDA
-toolkit.  Seven paths run on the card: the operator chain (soft rank /
+toolkit.  Eight paths run on the card: the operator chain (soft rank /
 sort and the losses, on the PAV kernels), the soft-op serving engine
 (``launch/serve.py --engine``, on the PAV kernels), the LM server of
 deepseek-v2-lite-16b at full width and depth (on the soft top-k router and
@@ -15,7 +15,10 @@ and trainer of llama3.2-1b, the dense GQA family, at full width and depth
 soft-LTS loss on the PAV kernel), and the LM server of grok-1-314b, the
 ``moe`` kind, at full width and 6 of 64 layers (on the flash-attention
 kernel at head width 128 with G = 6, and the soft top-k router over 8
-experts).  Phases, each printing its own lines;
+experts), and the LM server of gemma3-12b, the ``local`` / ``global``
+kinds, at full width and depth (on the flash-attention kernel at head
+width 256 with G = 2, 40 of its 48 layers under the sliding window of
+1024).  Phases, each printing its own lines;
 any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit.
@@ -50,7 +53,11 @@ any failure raises and the script exits non-zero:
             at G 3, which does not divide the 128-row tile; (128, 128) at
             the grok prefill shape (G 6) and a ragged S; each width also
             non-causal; by the kernel's error model ``compare_with_plain``)
-            against their plain versions on the card; a width not built,
+            against their plain versions on the card, and (256, 256) at G 2
+            (``GEMMA_ATTN_CASES``: gemma's prefill shape causal and under
+            its window of 1024, a ragged S, windows of 100 and of one key,
+            a window past Skv (bit for bit the causal output), ragged Sq
+            and Skv under a window, and not causal); a width not built,
             (80, 80), raises with no launch.
 4. main     fwd+bwd of soft_rank / soft_sort (l2, kl) and
             soft_spearman_loss at (128, 1000) and (128, 10000) (eps 0.1),
@@ -120,6 +127,26 @@ any failure raises and the script exits non-zero:
             (``enable_gqa``) times at the prefill shape, the gates' at
             (4096, 8) and (8, 8), prefill ms, decode tok/s and the profiled
             prefill and decode step.
+   serve gemma3-12b (after the grok server's model is freed, with under
+            1 GiB allocated): ``serve.main(["--arch", "gemma3-12b", ...])``
+            as the reference configures it, nothing cut (48 layers in a 5:1
+            cycle of ``local`` (window 1024) and ``global``, d_model 3840,
+            16 heads over 8 kv heads of 256, GeGLU of 15360, vocabulary
+            262144, tied; 11,765,395,200 bf16 parameters, 21.9 GiB), seed
+            0, 8 prompts of 2048 tokens (at 512 the window never binds),
+            32 generated.  Each prefill launches flash_attention once a
+            layer (48: 40 with the window, 8 without, in the cycle's
+            order), a decode step none; no gate and no PAV kernel.  Logits
+            finite; every layer's cache full length (max_len 2080); the
+            kernel held to its error model on every layer's inputs as it
+            ran (kept are the first global and local layer's); a
+            plain-path prefill gives the logit difference and the first
+            token's agreement; the weights' bytes, the init's peak and the
+            serving peaks.  Then the kernel, plain and SDPA times at the
+            global layer's shape (``is_causal``, ``enable_gqa``) and at the
+            local layer's (SDPA with a boolean band mask, its backend
+            named), prefill ms, decode tok/s, the peak over the timed runs
+            and the profiled prefill and decode step.
 5. times    CUDA-event medians per kernel (on the main path's solver
             inputs and on random rows), plain version, operator fwd and
             fwd+bwd, and torch.sort at the same shape as a yardstick; the
@@ -140,7 +167,10 @@ any failure raises and the script exits non-zero:
             deepseek-v2-lite-16b at full width and 4 of 27 layers (the
             trainer's state at full depth, ~260 GB, needs several cards),
             the config's grad_accum 8; llama3.2-1b at full width and depth
-            (16 layers, ~20 GB of state), the config's grad_accum 4.  Both:
+            (16 layers, ~20 GB of state), the config's grad_accum 4;
+            gemma3-12b at full width and one block cycle of 6 of 48 layers
+            (~38 GB of state), the config's grad_accum 8, its first
+            attention call a local layer's under the window.  All three:
             random bf16 weights from seed 0, 4 AdamW steps of 8 x 2048
             tokens with 10% corrupted targets, remat "full", the soft-LTS
             token loss (trim 0.1).  Every step's launch counts equal the
@@ -151,15 +181,19 @@ any failure raises and the script exits non-zero:
             and ``flash_attention_bwd`` (against the autograd of the plain
             version in f32) by their error models; deepseek's router
             ``soft_topk_mask`` fwd+bwd against the ``scan`` backend on the
-            card (llama calls no router); one AdamW update of a weight
-            leaf, card against CPU, within one f32 ulp.  Then the step ms,
-            tokens/s and peak memory, attention forward (and its plain
-            version) and backward beside scaled_dot_product_attention's,
-            one profiled step and the optimizer by square root.
+            card (llama and gemma call no router); one AdamW update of a
+            weight leaf, card against CPU, within one f32 ulp.  Then the
+            step ms, tokens/s and peak memory, attention forward (and its
+            plain version) and backward, with the captured call's window,
+            beside scaled_dot_product_attention's (with a boolean band mask
+            under a window), one profiled step and the optimizer by square
+            root.
 7. summary  one ``{"kernels": [...]}`` line (every kernel's launches by
             path; flash_attention's times by width, the top-level ones the
-            MLA width's at the deepseek prefill, as before; the gates'
-            grok shapes under ``shapes``), then the device line last.
+            MLA width's at the deepseek prefill, as before, gemma's
+            (256, 256) at its global layers with the local layers' under
+            ``local``; the gates' grok shapes under ``shapes``), then the
+            device line last.
 
 Inputs come from numpy with a fixed seed.  Imports nothing of JAX or of the
 JAX package.
@@ -893,6 +927,18 @@ ATTN_CHECK_SHAPES = (
     (3, 333, 48, 8, 128, 128, True), (2, 200, 48, 8, 128, 128, False))
 
 
+# gemma3-12b's width (256, 256) at G 2 in phase 3: (B, Sq, Skv, H, Hkv,
+# causal, window).  The serving prefill's two shapes (8 x 2048, causal, and
+# the local layers' window 1024); ragged S; a window that is no multiple of
+# the 64-key tile (100); a window of one key; a window at least Skv, which
+# must give the causal output bit for bit; ragged Sq and Skv, not causal.
+GEMMA_ATTN_CASES = (
+    (8, 2048, 2048, 16, 8, True, 0), (8, 2048, 2048, 16, 8, True, 1024),
+    (3, 333, 333, 16, 8, True, 0), (2, 333, 333, 16, 8, True, 100),
+    (2, 333, 333, 16, 8, True, 1), (2, 333, 333, 16, 8, True, 4096),
+    (2, 300, 450, 16, 8, True, 100), (2, 77, 130, 16, 8, False, 0))
+
+
 def attn_key(q: torch.Tensor, v: torch.Tensor) -> str:
   """The attention kernel's record name by width: MLA's keeps the plain
   name, a dense width is "flash_attention 64x64" or "... 128x128"."""
@@ -900,12 +946,13 @@ def attn_key(q: torch.Tensor, v: torch.Tensor) -> str:
           else f"flash_attention {v.shape[-1]}x{v.shape[-1]}")
 
 
-def attn_close(out: torch.Tensor, q, k, v, causal: bool, fa) -> dict:
+def attn_close(out: torch.Tensor, q, k, v, causal: bool, fa,
+               window: int = 0) -> dict:
   """The kernel's output against the plain version in f32 on the same
-  bf16 inputs, by its error model (``fa.compare_with_plain``): every
-  element within 2 * 2**-8 * (|ref| + A), A the attention over |v|
+  bf16 inputs and window, by its error model (``fa.compare_with_plain``):
+  every element within 2 * 2**-8 * (|ref| + A), A the attention over |v|
   (tol_ratio <= 1), and ||out - ref||_F <= REL_FROB_LIMIT * ||ref||_F."""
-  cmp = fa.compare_with_plain(out, q, k, v, causal)
+  cmp = fa.compare_with_plain(out, q, k, v, causal, window)
   check(cmp["finite"], "attention: non-finite output")
   check(cmp["tol_ratio"] <= 1.0 and cmp["rel_frob"] <= fa.REL_FROB_LIMIT,
         f"attention: {attn_text(cmp, fa)}")
@@ -964,6 +1011,24 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
     max_err[key] = max(max_err[key], cmp["max_abs_err"])
     say(f"kernels: flash_attention q ({b}, {s}, {h}, {d}) v width {dv} kv "
         f"heads {hkv} (G {h // hkv}) causal {causal}: {attn_text(cmp, fa)}")
+  for b, sq, skv, h, hkv, causal, window in GEMMA_ATTN_CASES:
+    gen = torch.Generator(device=dev).manual_seed(sq + window)
+    q = torch.randn((b, sq, h, 256), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, skv, hkv, 256), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal, window=window)
+    cmp = attn_close(out, q, k, v, causal, fa, window)
+    max_err["flash_attention 256x256"] = max(
+        max_err["flash_attention 256x256"], cmp["max_abs_err"])
+    same = ""
+    if window >= skv:
+      check(torch.equal(out, fa.flash_attention(q, k, v, causal)),
+            f"window {window} >= Skv {skv} differs from the causal output")
+      same = "; bit for bit the causal output"
+    say(f"kernels: flash_attention q ({b}, {sq}, {h}, 256) kv ({skv}, {hkv})"
+        f" (G {h // hkv}) causal {causal} window {window}: "
+        f"{attn_text(cmp, fa)}{same}")
   # A width that is not built raises before any launch: no plain fallback.
   x = torch.zeros((1, 8, 4, 80), dtype=torch.bfloat16, device=dev)
   before = fa.LAUNCHES["flash_attention"]
@@ -1101,10 +1166,11 @@ def engine_kernel_checks(dev, pav, pav_scan, record, rng) -> None:
 class Recorder:
   """Wraps the kernel wrappers the models call (module attributes of
   ``soft_topk`` and ``flash_attention``) to keep each call's inputs and
-  output; ``plain=True`` routes the calls to the plain versions instead."""
+  output (of attention, only the window with ``tensors=False``);
+  ``plain=True`` routes the calls to the plain versions instead."""
 
-  def __init__(self, st, fa, plain: bool = False):
-    self.st, self.fa, self.plain = st, fa, plain
+  def __init__(self, st, fa, plain: bool = False, tensors: bool = True):
+    self.st, self.fa, self.plain, self.tensors = st, fa, plain, tensors
     self.gates: list[tuple] = []    # (logits, k, eps, gates)
     self.attn: list[tuple] = []     # (q, k, v, causal, out)
     self.order: list[str] = []      # "gates" or "attn", call by call
@@ -1123,7 +1189,7 @@ class Recorder:
     def attn(q, k, v, causal=True, **opts):
       out = (plain_fa(q, k, v, causal=causal, **opts) if self.plain
              else self._orig[1](q, k, v, causal, **opts))
-      self.attn.append((q, k, v, causal, out))
+      self.keep_attn(q, k, v, causal, out, opts.get("window", 0))
       self.order.append("attn")
       return out
 
@@ -1132,6 +1198,10 @@ class Recorder:
 
   def __exit__(self, *exc):
     self.st.soft_topk_gates, self.fa.flash_attention = self._orig
+
+  def keep_attn(self, q, k, v, causal, out, window) -> None:
+    """Keep the call (only its window, with ``tensors=False``)."""
+    self.attn.append((q, k, v, causal, out) if self.tensors else window)
 
 
 def routed_experts(logits: torch.Tensor, gates: torch.Tensor,
@@ -1143,25 +1213,35 @@ def routed_experts(logits: torch.Tensor, gates: torch.Tensor,
   return torch.zeros_like(w, dtype=torch.bool).scatter_(-1, top, True)
 
 
-def captured_attn_checks(calls, fa) -> tuple[dict, float]:
-  """The attention kernel's output on each captured call (q, k, v, causal,
-  out) held against the plain version in f32 by its error model
-  (``attn_close``).  Returns the worst of each measure over the calls
-  (median |ref|: the smallest) and the largest |kernel - plain in bf16|,
-  the plain version run in the inputs' dtype (the reference's rounding;
-  no tolerance)."""
-  worst_bf16 = 0.0
+def held_attn(q, kx, v, causal, out, fa,
+              window=0) -> tuple[int, dict, float]:
+  """One attention call (q, k, v, causal, window, the kernel's out) held
+  against the plain version in f32 by its error model (``attn_close``):
+  (window, the measures, |kernel - plain in bf16|, the plain version run in
+  the inputs' dtype: the reference's rounding, no tolerance)."""
+  cmp = attn_close(out, q, kx, v, causal, fa, window)
+  plain16 = fa.flash_attention_plain(q, kx, v, causal=causal, window=window)
+  return window, cmp, float((out.float() - plain16.float()).abs().max())
+
+
+def worst_of(held) -> tuple[dict, float]:
+  """The worst of each measure over held calls (``held_attn``; median
+  |ref|: the smallest), and the largest |kernel - plain in bf16|."""
   worst = {"max_abs_err": 0.0, "tol_ratio": 0.0, "rel_frob": 0.0,
            "median_ref": math.inf}
-  for q, kx, v, causal, out in calls:
-    cmp = attn_close(out, q, kx, v, causal, fa)
+  for _, cmp, _ in held:
     for key in ("max_abs_err", "tol_ratio", "rel_frob"):
       worst[key] = max(worst[key], cmp[key])
     worst["median_ref"] = min(worst["median_ref"], cmp["median_ref"])
-    plain16 = fa.flash_attention_plain(q, kx, v, causal=causal)
-    worst_bf16 = max(worst_bf16, float((out.float() - plain16.float())
-                                       .abs().max()))
-  return worst, worst_bf16
+  return worst, max(bf16 for _, _, bf16 in held)
+
+
+def captured_attn_checks(calls, fa) -> tuple[dict, float]:
+  """The attention kernel's output on each captured call (q, k, v, causal,
+  out) held against the plain version (``held_attn``); the worst of each
+  measure (``worst_of``)."""
+  return worst_of([held_attn(q, kx, v, causal, out, fa)
+                   for q, kx, v, causal, out in calls])
 
 
 def plain_prefill_text(res, rec, serve, st, fa) -> str:
@@ -1172,7 +1252,7 @@ def plain_prefill_text(res, rec, serve, st, fa) -> str:
   last-position logits; the first greedy token's agreement."""
   cfg = res["cfg"]
   n_layers, b = cfg.num_layers, res["prompts"].shape[0]
-  with Recorder(st, fa, plain=True) as plain_rec:
+  with Recorder(st, fa, plain=True, tensors=False) as plain_rec:
     plain_res = serve.generate(cfg, res["model"], res["prompts"], 1)
   check(len(plain_rec.attn) == n_layers
         and len(plain_rec.gates) == (n_layers if rec.gates else 0),
@@ -1293,13 +1373,15 @@ def gates_bound(logits: torch.Tensor, k: int, eps: float,
   return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def attn_bound(q, k, v, causal: bool) -> tuple[float, str]:
+def attn_bound(q, k, v, causal: bool, window: int = 0) -> tuple[float, str]:
   """Least time for attention: bytes (q, k, v read once, out written once)
-  against the tensor-core products (QK^T and PV over the unmasked pairs)
-  plus the softmax (5 f32 ops a score) at the f32 rate."""
+  against the tensor-core products (QK^T and PV over the unmasked pairs:
+  under a window, query i's min(i + 1, window) keys) plus the softmax (5
+  f32 ops a score) at the f32 rate."""
   b, sq, h, d = q.shape
   skv, dv = k.shape[1], v.shape[-1]
-  pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv)
+  pairs = (sum(min(i + 1, skv) - max(0, i + 1 - window if window else 0)
+               for i in range(sq)) if causal else sq * skv)
   n_bytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * 2
   flops = 2 * b * h * pairs * (d + dv)
   bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1388,33 +1470,85 @@ def share(bound_ms: float, ms: float | None) -> str:
   return "not measured" if ms is None else f"{bound_ms / ms:.1%}"
 
 
-def attn_times(q, kx, v, causal: bool, fa, name_limit) -> tuple[dict, str]:
+def sdpa_backend(fn) -> str:
+  """The backend that ran one call of scaled_dot_product_attention, from
+  the name of its longest kernel in torch.profiler: cudnn, flash,
+  efficient (memory-efficient, CUTLASS fmha), or math (plain products and
+  a softmax)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as torch_profile
+
+  fn()
+  for _ in range(PROFILER_TRIES):
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    if kernels:
+      name = kernels[0].key
+      low = name.lower()
+      kind = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
+              else "efficient" if "fmha" in low or "efficient" in low
+              else "math")
+      return f"{kind} (longest kernel {name[:60]})"
+  return "not measured"
+
+
+def band_mask(q, k, window: int) -> torch.Tensor | None:
+  """The sliding window as SDPA's boolean (Sq, Skv) mask (it has no window
+  of its own): query i sees keys i - window + 1 .. i; None for no window."""
+  if not window:
+    return None
+  i = torch.arange(q.shape[1], device=q.device)[:, None]
+  j = torch.arange(k.shape[1], device=q.device)[None]
+  return (j <= i) & (j > i - window)
+
+
+def attn_times(q, kx, v, causal: bool, fa, name_limit,
+               window: int = 0) -> tuple[dict, str]:
   """The attention kernel at one shape: CUDA-event median and profiler
   device time, the plain version, scaled_dot_product_attention (GQA
-  through ``enable_gqa``) as the library yardstick, and the bound."""
-  ms = median_ms(lambda: fa.flash_attention(q, kx, v, causal), 20)
-  dev_ms = kernel_device_ms(lambda: fa.flash_attention(q, kx, v, causal),
+  through ``enable_gqa``) as the library yardstick, and the bound.  Under
+  a window SDPA takes an explicit boolean (S, S) band mask, which none of
+  its fused causal paths takes: its backend is named, and its work is the
+  whole masked product, not the band's."""
+  ms = median_ms(lambda: fa.flash_attention(q, kx, v, causal,
+                                            window=window), 20)
+  dev_ms = kernel_device_ms(lambda: fa.flash_attention(q, kx, v, causal,
+                                                       window=window),
                             "flash_kernel")
-  plain_ms = median_ms(lambda: fa.flash_attention_plain(q, kx, v,
-                                                        causal=causal), 5)
+  plain_ms = median_ms(lambda: fa.flash_attention_plain(
+      q, kx, v, causal=causal, window=window), 5)
   qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, v))
   gqa = q.shape[2] != kx.shape[2]
+  mask = band_mask(q, kx, window)
 
   def sdpa():
     torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+        enable_gqa=gqa)
 
   lib_ms = median_ms(sdpa, 20)
   lib_dev_ms = kernel_device_ms(sdpa, "")   # every kernel of the call
-  bound_ms, bound_by = attn_bound(q, kx, v, causal)
+  backend = sdpa_backend(sdpa)
+  bound_ms, bound_by = attn_bound(q, kx, v, causal, window)
   row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": lib_ms, "shape": list(q.shape),
-         "width": [q.shape[-1], v.shape[-1]], "device_ms": dev_ms}
+         "width": [q.shape[-1], v.shape[-1]], "device_ms": dev_ms,
+         "window": window, "library_backend": backend}
+  mask_text = (f"window {window}" if window else
+               "causal" if causal else "not causal")
   line = (f"times: flash_attention q {tuple(q.shape)} k {tuple(kx.shape)} v "
-          f"{tuple(v.shape)} causal: kernel {ms:.4f} ms (device "
+          f"{tuple(v.shape)} {mask_text}: kernel {ms:.4f} ms (device "
           f"{ms_text(dev_ms)} a launch, profiler), plain "
           f"{plain_ms:.4f} ms, scaled_dot_product_attention "
-          f"{lib_ms:.4f} ms (device {ms_text(lib_dev_ms)}, profiler), "
+          f"{lib_ms:.4f} ms (device {ms_text(lib_dev_ms)}, profiler; "
+          f"{'a boolean band mask, ' if window else ''}backend {backend}), "
           f"bound {bound_ms:.5f} ms ({bound_by}); the "
           f"bound is {share(bound_ms, ms)} of the kernel's time "
           f"({share(bound_ms, dev_ms)} of its device time) and "
@@ -1462,7 +1596,7 @@ def generate_times(res, serve, name_limit) -> list[str]:
     lines.append(f"times: profile of one {cfg.name} {name}: wall "
                  f"{wall:.2f} ms, device busy {busy_text}; most device time "
                  f"(ms): {kernels} [{name_limit}]")
-  lines.append(f"times: serve {cfg.name} prefill {SERVE_BATCH}x{SERVE_PROMPT}"
+  lines.append(f"times: serve {cfg.name} prefill {SERVE_BATCH}x{s}"
                f" {statistics.median(prefill):.2f} ms (runs "
                f"{', '.join(f'{t:.2f}' for t in prefill)}), decode "
                f"{statistics.median(decode):.1f} tok/s at batch {SERVE_BATCH}"
@@ -1733,6 +1867,160 @@ def grok_serve_times(res, rec, serve, st, fa, name_limit):
 
 
 # ---------------------------------------------------------------------------
+# The local/global serving path (gemma3-12b at full width and depth).
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH = "gemma3-12b"
+# Prompts of 2048 tokens: at 512 no query is more than 1023 keys from the
+# first, and the window of 1024 would never bind.  max_len 2080.
+GEMMA_PROMPT = 2048
+GEMMA_ARGV = ["--arch", GEMMA_ARCH, "--batch", str(SERVE_BATCH),
+              "--prompt-len", str(GEMMA_PROMPT), "--gen", str(SERVE_GEN)]
+# (layers, d_model, heads, kv heads, head width, FFN width, vocabulary,
+# window, MLP, tied): the reference's config, nothing cut.
+GEMMA_SHAPE = (48, 3840, 16, 8, 256, 15360, 262144, 1024, "geglu", True)
+# Counted from the config: 48 layers of 219,454,720 (attention 62,914,560,
+# GeGLU 176,947,200, two norm scales), the tied table 262144 x 3840 once
+# (1,006,632,960), the final norm; the reference's eval_shape gives the same.
+GEMMA_PARAMS = 11_765_395_200
+
+
+class HeldRecorder(Recorder):
+  """A Recorder that holds each attention call to the plain version as it
+  is made (``held_attn``) and keeps the measures and the window, and the
+  tensors of the first call of each window only: 48 layers' q, k, v and
+  out at 8 x 2048 would hold 19 GB."""
+
+  def __init__(self, st, fa):
+    super().__init__(st, fa)
+    self.held: list[tuple[int, dict, float]] = []   # (window, cmp, bf16)
+    self.kept: dict[int, tuple] = {}                # window -> call
+
+  def keep_attn(self, q, k, v, causal, out, window) -> None:
+    self.held.append(held_attn(q, k, v, causal, out, self.fa, window))
+    self.kept.setdefault(window, (q, k, v, causal, out))
+
+
+def gemma_serve_path(dev, serve, ops, st, fa):
+  """gemma3-12b's serving path once through ``serve.main`` (the command a
+  user runs; random weights from seed 0, 8 prompts of 2048 tokens, 32
+  generated) with every counter from 0, then its checks: the config as the
+  reference has it; every prefill launches flash_attention once a layer
+  (48: 40 ``local`` layers with window 1024, 8 ``global`` with none, in the
+  cycle's order), a decode step none (decode attention is plain ops, as in
+  the reference), no gate and no PAV kernel; every layer's cache full
+  length; the parameter count; finite logits; the kernel held to its error
+  model on every layer's inputs as it ran; the same prefill on the plain
+  versions.  Returns (serve result, launches, recorder, the kernel's worst
+  error)."""
+  held = torch.cuda.memory_allocated(dev)
+  check(held < 2**30, f"{held / 2**30:.2f} GiB allocated before {GEMMA_ARCH}"
+        "'s weights are built (at most 1 GiB)")
+  ops.reset_all_launches()
+  t0 = time.perf_counter()
+  with HeldRecorder(st, fa) as rec:
+    res = serve.main(GEMMA_ARGV)
+  torch.cuda.synchronize()
+  launches = ops.all_launches()
+  cfg = res["cfg"]
+  n_layers = cfg.num_layers
+  check((n_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+         cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.window_size,
+         cfg.mlp_variant, cfg.tie_embeddings) == GEMMA_SHAPE,
+        f"{GEMMA_ARCH} config {cfg}")
+  windows = [cfg.window_size if kind == "local" else 0
+             for kind in cfg.layer_kinds()]
+  want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
+          "flash_attention": n_layers}
+  check(launches == want and [w for w, _, _ in rec.held] == windows
+        and not rec.gates,
+        f"{GEMMA_ARCH} serve launches {launches}, windows "
+        f"{[w for w, _, _ in rec.held]}; counted from the code {want}, "
+        f"windows {windows}")
+  n_local = sum(1 for w in windows if w)
+  say(f"serve: {GEMMA_ARCH} launches {launches} for 1 prefill and "
+      f"{SERVE_GEN - 1} decode steps of {n_layers} layers in "
+      f"{time.perf_counter() - t0:.1f} s with the init and the held checks "
+      f"(counted from the code: flash_attention once a layer a prefill, "
+      f"{n_local} with window {cfg.window_size} and {n_layers - n_local} "
+      "without; nothing else)")
+  from repro_torch.models import transformer as T
+
+  params = T.count_params(res["model"])
+  check(params == GEMMA_PARAMS, f"{params} parameters, not {GEMMA_PARAMS}")
+  check(not hasattr(res["model"], "lm_head"), "a tied model has an lm_head")
+  for name in ("prefill_logits", "logits"):
+    logits = res[name]
+    check(tuple(logits.shape) == (SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{name}: not finite")
+  for window, (q, kx, v, _, _) in rec.kept.items():
+    check(tuple(q.shape) == (SERVE_BATCH, GEMMA_PROMPT, cfg.num_heads,
+                             cfg.head_dim)
+          and tuple(kx.shape) == tuple(v.shape)
+          == (SERVE_BATCH, GEMMA_PROMPT, cfg.num_kv_heads, cfg.head_dim),
+          f"captured attention shapes {q.shape}, {kx.shape}, {v.shape}")
+  caches = T.init_cache(cfg, SERVE_BATCH, GEMMA_PROMPT + SERVE_GEN, "meta")
+  check(all(t.shape == (SERVE_BATCH, GEMMA_PROMPT + SERVE_GEN,
+                        cfg.num_kv_heads, cfg.head_dim)
+            for c in caches for t in c.values()),
+        "a layer's cache is not full length")
+  cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                    for t in c.values())
+  gib = 2**30
+  say(f"serve: {GEMMA_ARCH} {params:,} parameters (the tied table once), "
+      f"all {n_layers} layers at full width; weights "
+      f"{res['weights_bytes'] / gib:.3f} GiB; caches {len(caches)} layers "
+      f"x k and v of {tuple(caches[0]['k'].shape)}, every layer full "
+      f"length, {cache_bytes / gib:.3f} GiB; peak "
+      f"{res['init_peak_bytes'] / gib:.3f} GiB while building the weights, "
+      f"{res['serve_peak_bytes'] / gib:.3f} GiB while serving with the held "
+      f"checks ({held / gib:.3f} GiB held before); logits finite")
+  worst = {}
+  for name, calls in (("global", [c for c in rec.held if not c[0]]),
+                      (f"local (window {cfg.window_size})",
+                       [c for c in rec.held if c[0]])):
+    worst_attn, worst_bf16 = worst_of(calls)
+    worst[name] = worst_attn["max_abs_err"]
+    say(f"serve: {GEMMA_ARCH} flash_attention at (256, 256), G 2, on all "
+        f"{len(calls)} {name} layers' inputs, worst layer by each measure "
+        f"(median |ref|: the smallest layer's), {attn_text(worst_attn, fa)};"
+        f" max |kernel - plain in bf16| {worst_bf16:.3e} (the reference's "
+        "rounding, no tolerance)")
+  say(plain_prefill_text(res, rec, serve, st, fa))
+  return res, launches, rec, {"flash_attention 256x256": max(worst.values())}
+
+
+def gemma_serve_times(res, rec, serve, fa, dev, name_limit):
+  """gemma3-12b's times: the attention kernel at the global and the local
+  layers' captured prefill inputs (SDPA ``is_causal`` with ``enable_gqa``
+  at the global, with a boolean band mask at the local), then the server's
+  prefill ms, decode rate, peak memory over those runs and profiled
+  steps.  Returns the global row with the local one under ``local``."""
+  lines = []
+  rows = {}
+  for window, (q, kx, v, causal, _) in sorted(rec.kept.items()):
+    rows[window], line = attn_times(q, kx, v, causal, fa, name_limit, window)
+    lines.append(line)
+  glob, local = rows[0], rows[res["cfg"].window_size]
+  if glob["device_ms"] and local["device_ms"]:
+    lines.append(f"times: flash_attention at (256, 256): the local layers' "
+                 f"window takes {local['device_ms'] / glob['device_ms']:.1%}"
+                 f" of the global layers' device time, for "
+                 f"{local['bound_ms'] / glob['bound_ms']:.1%} of the bound "
+                 f"[{name_limit}]")
+  rec.kept.clear()
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats(dev)
+  lines += generate_times(res, serve, name_limit)
+  peak = torch.cuda.max_memory_allocated(dev) / 2**30
+  lines.append(f"times: serve {GEMMA_ARCH} peak memory over the timed runs "
+               f"and profiles {peak:.3f} GiB [{name_limit}]")
+  windowed = sum(1 for window, _, _ in rec.held if window)
+  return {**glob, "windowed_launches": windowed, "local": local}, lines
+
+
+# ---------------------------------------------------------------------------
 # The training paths: deepseek-v2-lite-16b at full width, 4 of 27 layers,
 # and llama3.2-1b at full width and depth.
 # ---------------------------------------------------------------------------
@@ -1743,7 +2031,11 @@ def grok_serve_times(res, rec, serve, st, fa, name_limit):
 # 44 GB at 4 layers (2.76e9).  Width, grad_accum 8 and remat "full" are the
 # config's.  llama3.2-1b runs whole: 1.236e9 parameters, about 20 GB of
 # state, the config's grad_accum 4 (microbatches of 2 x 2048) and remat
-# "full".
+# "full".  gemma3-12b at full width, cut to one block cycle of 6 layers (5
+# local, 1 global): 2.35e9 parameters, about 38 GB of state at 16 bytes a
+# parameter (48 layers would be 188 GB), the config's grad_accum 8
+# (microbatches of 1 x 2048) and remat "full"; its first attention call is
+# a local layer's, under the window.
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 4
 TRAIN_COMMON = ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
                 "--trim-frac", "0.1", "--corrupt", "0.1",
@@ -1752,7 +2044,8 @@ EXPERT_LEAF = "layers.0.params.ffn.we_in"     # (64, 2048, 1408) bf16
 # What each train run is: its command line, the config it must give
 # (layers, d_model, grad_accum, remat, dtype), the leaf whose AdamW update
 # is checked card against CPU, the attention shapes one microbatch gives
-# the kernel (q, v), and its depth as printed.
+# the kernel (q, v) and its first call's window (0 where absent), and its
+# depth as printed.
 TRAIN_RUNS = {
     ARCH: {
         "args": ["--arch", ARCH, "--set", f"num_layers={TRAIN_LAYERS}",
@@ -1767,6 +2060,14 @@ TRAIN_RUNS = {
         "leaf": "layers.0.params.ffn.w_in",      # (2048, 8192) bf16
         "attn": ((2, TRAIN_SEQ, 32, 64), (2, TRAIN_SEQ, 8, 64)),
         "depth": "all 16 layers"},
+    GEMMA_ARCH: {
+        "args": ["--arch", GEMMA_ARCH, "--set", "num_layers=6",
+                 *TRAIN_COMMON],
+        "config": (6, 3840, 8, "full", "bfloat16"),
+        "leaf": "layers.0.params.ffn.w_in",      # (3840, 15360) bf16
+        "attn": ((1, TRAIN_SEQ, 16, 256), (1, TRAIN_SEQ, 8, 256)),
+        "window": 1024,
+        "depth": "6 of 48 layers (one 5:1 cycle)"},
 }
 TRAIN_RANGES = ("repro_forward_train", "repro_soft_lts_loss",
                 "repro_optimizer_update")
@@ -1811,8 +2112,9 @@ class TrainRecorder:
   microbatch's loss), ``adamw.update`` (the first step's gradients, finite
   and non-zero on every leaf or not; the launch counts at each step's end;
   each step's metrics; the last step's inputs and result on the leaf
-  ``leaf``), the attention wrapper (the first call's q, k, v) and the
-  router's ``soft_topk_mask`` (the first call's logits, if any)."""
+  ``leaf``), the attention wrapper (the first call's q, k, v, causal flag
+  and window) and the router's ``soft_topk_mask`` (the first call's
+  logits, if any)."""
 
   def __init__(self, ops, steps, adamw, fa, moe, leaf: str):
     self.ops, self.steps, self.adamw, self.fa, self.moe = (
@@ -1863,7 +2165,7 @@ class TrainRecorder:
     def attn_rec(q, k, v, causal=True, **opts):
       if self.attn is None:
         self.attn = (q.detach().clone(), k.detach().clone(),
-                     v.detach().clone(), causal)
+                     v.detach().clone(), causal, opts.get("window", 0))
       return attn(q, k, v, causal, **opts)
 
     def mask_rec(values, k, *args, **kwargs):
@@ -1991,22 +2293,23 @@ def train_checks(rec, cfg, fa, dev, arch: str) -> tuple[list[str], dict]:
   Returns the lines and the tensors the times reuse."""
   import repro_torch as rt
 
-  q, k, v, causal = rec.attn
+  q, k, v, causal, window = rec.attn
   q_shape, v_shape = TRAIN_RUNS[arch]["attn"]
-  check(tuple(q.shape) == q_shape and tuple(v.shape) == v_shape,
-        f"captured attention shapes {q.shape}, {v.shape}")
+  check(tuple(q.shape) == q_shape and tuple(v.shape) == v_shape
+        and window == TRAIN_RUNS[arch].get("window", 0),
+        f"captured attention shapes {q.shape}, {v.shape}, window {window}")
   with torch.no_grad():
-    out = fa.flash_attention(q, k, v, causal)
-  fwd = attn_close(out, q, k, v, causal, fa)
+    out = fa.flash_attention(q, k, v, causal, window=window)
+  fwd = attn_close(out, q, k, v, causal, fa, window)
   lines = [f"train: {arch} flash_attention forward on the captured layer "
            f"inputs q {tuple(q.shape)} k {tuple(k.shape)} v "
-           f"{tuple(v.shape)}: {attn_text(fwd, fa)}"]
+           f"{tuple(v.shape)} window {window}: {attn_text(fwd, fa)}"]
   gen = torch.Generator(device=dev).manual_seed(SEED)
   do = torch.randn(out.shape, generator=gen, device=dev,
                    dtype=torch.bfloat16)
-  grads = fa.flash_attention_bwd(q, k, v, out, do, causal)
-  for name, cmp in fa.compare_bwd_with_plain(grads, q, k, v, do,
-                                             causal).items():
+  grads = fa.flash_attention_bwd(q, k, v, out, do, causal, window=window)
+  for name, cmp in fa.compare_bwd_with_plain(grads, q, k, v, do, causal,
+                                             window).items():
     text = attn_text(cmp, fa, f"{name} - {name} of the plain version's "
                      "autograd in f32")
     check(cmp["finite"] and cmp["tol_ratio"] <= 1.0
@@ -2021,7 +2324,8 @@ def train_checks(rec, cfg, fa, dev, arch: str) -> tuple[list[str], dict]:
   if not routed:
     lines.append(f"train: {arch} called no router (dense layers)")
     lines.append("train: " + adamw_card_vs_cpu(rec, dev))
-    return lines, {"qkv": (q, k, v), "out": out, "do": do}
+    return lines, {"qkv": (q, k, v), "out": out, "do": do,
+                   "window": window}
   logits, kk, args, kwargs = rec.logits
   x = logits.reshape(-1, logits.shape[-1])
   cot = torch.randn(x.shape, generator=gen, device=dev)
@@ -2037,7 +2341,7 @@ def train_checks(rec, cfg, fa, dev, arch: str) -> tuple[list[str], dict]:
                f"the card: values {e_val:.3e}, gradients {e_grad:.3e} "
                "(tol 1e-5 * (1 + max|scan|))")
   lines.append("train: " + adamw_card_vs_cpu(rec, dev))
-  return lines, {"qkv": (q, k, v), "out": out, "do": do}
+  return lines, {"qkv": (q, k, v), "out": out, "do": do, "window": window}
 
 
 def timed_steps(trainer, state, n: int) -> list[float]:
@@ -2143,22 +2447,27 @@ def train_times(res, rec, captured, fa, name_limit,
       f"{peak:.2f} GiB ({res['peak_gib']:.2f} in the recorded run) "
       f"[{name_limit}]")
   q, k, v = captured["qkv"]
-  out, do = captured["out"], captured["do"]
-  fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v, True), 20)
-  fwd_dev = kernel_device_ms(lambda: fa.flash_attention(q, k, v, True),
+  out, do, window = captured["out"], captured["do"], captured["window"]
+  fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v, True,
+                                                window=window), 20)
+  fwd_dev = kernel_device_ms(lambda: fa.flash_attention(q, k, v, True,
+                                                        window=window),
                              "flash_kernel")
-  plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
-  bwd = lambda: fa.flash_attention_bwd(q, k, v, out, do, True)  # noqa: E731
+  plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                        window=window), 3)
+  bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
+      q, k, v, out, do, True, window=window)
   bwd_ms = median_ms(bwd, 10)
   bwd_dev = kernel_device_ms(bwd, "", calls=5)
   qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                 for t in (q, k, v))
   dot = do.transpose(1, 2)
   gqa = q.shape[2] != k.shape[2]
+  mask = band_mask(q, k, window)
 
   def sdpa(*xs):
     return torch.nn.functional.scaled_dot_product_attention(
-        *xs, is_causal=True, enable_gqa=gqa)
+        *xs, attn_mask=mask, is_causal=not window, enable_gqa=gqa)
 
   def sdpa_fwd():
     with torch.no_grad():
@@ -2170,14 +2479,16 @@ def train_times(res, rec, captured, fa, name_limit,
   lib_fwd = median_ms(sdpa_fwd, 20)
   lib_fb = median_ms(sdpa_fwd_bwd, 10)
   lib_fb_dev = kernel_device_ms(sdpa_fwd_bwd, "", calls=5)
-  bound_ms, bound_by = attn_bound(q, k, v, True)
+  bound_ms, bound_by = attn_bound(q, k, v, True, window)
   row = {"ms": fwd_ms, "device_ms": fwd_dev, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_fwd,
          "shape": list(q.shape), "width": [q.shape[-1], v.shape[-1]],
-         "bwd_ms": bwd_ms, "library_fwd_bwd_ms": lib_fb}
+         "window": window, "bwd_ms": bwd_ms, "library_fwd_bwd_ms": lib_fb}
   lines.append(
       f"times: train {arch} attention q {tuple(q.shape)} k "
-      f"{tuple(k.shape)} v {tuple(v.shape)} causal: kernel forward "
+      f"{tuple(k.shape)} v {tuple(v.shape)} "
+      + (f"window {window} (SDPA: a boolean band mask)" if window
+         else "causal") + ": kernel forward "
       f"{fwd_ms:.4f} ms (device {ms_text(fwd_dev)}, profiler), plain "
       f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
       f"flash_attention_bwd {bwd_ms:.3f} ms (device {ms_text(bwd_dev)}, "
@@ -2215,7 +2526,7 @@ def train_times(res, rec, captured, fa, name_limit,
 
 def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     serve_rows, dense_row, grok_row, grok_gate_rows,
-                    train_launches, train_rows, engine_runs,
+                    gemma_row, train_launches, train_rows, engine_runs,
                     engine_rows) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
@@ -2224,8 +2535,10 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   and attention.  Attention's top-level numbers stay those of the MLA
   width at the deepseek prefill, as in earlier lines; ``widths`` gives
   each built width's row (MLA, the dense width at the llama prefill, grok's
-  at its prefill) with its own launches, error and training shape's times
-  (none for grok, which is not trained).  The gates' top-level numbers stay
+  at its prefill, gemma's at its global layers' prefill with the local
+  layers' windowed one under ``local``) with its own launches, error and
+  training shape's times (none for grok, which is not trained; gemma's at
+  its first, windowed, layer).  The gates' top-level numbers stay
   deepseek's (4096, 64); ``shapes`` adds grok's (4096, 8) and (8, 8)."""
 
   def by_arch(counts: dict, kname: str) -> dict[str, int]:
@@ -2273,7 +2586,12 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
        "launches": serve_counts[GROK_ARCH]["flash_attention"],
        "train_launches": None,
        "max_abs_err": max_err["flash_attention 128x128"],
-       "train_shape": None}]
+       "train_shape": None},
+      {**gemma_row, "arch": GEMMA_ARCH,
+       "launches": serve_counts[GEMMA_ARCH]["flash_attention"],
+       "train_launches": train_launches[GEMMA_ARCH]["flash_attention"],
+       "max_abs_err": max_err["flash_attention 256x256"],
+       "train_shape": train_rows[GEMMA_ARCH]}]
   kernels.append({
       "name": "flash_attention", "route": "cuda",
       "source": SOURCES["flash_attention"],
@@ -2334,7 +2652,7 @@ def main() -> int:
   max_err = {"pav_l2": 0.0, "pav_l2 vs stack": 0.0, "pav_kl": 0.0,
              "pav_kl vs stack": 0.0, "soft_topk_gates": 0.0,
              "flash_attention": 0.0, "flash_attention 64x64": 0.0,
-             "flash_attention 128x128": 0.0}
+             "flash_attention 128x128": 0.0, "flash_attention 256x256": 0.0}
 
   def record(kname, out, ref):
     err = close(out, ref)
@@ -2561,6 +2879,20 @@ def main() -> int:
     say(line)
   del grok_res, grok_rec
 
+  # serve, gemma ------------------------------------------------------------
+  # Full width and depth (21.9 GiB of weights, 6.1 GiB of caches).
+  gc.collect()
+  torch.cuda.empty_cache()
+  gemma_res, gemma_launches, gemma_rec, gemma_err = gemma_serve_path(
+      dev, serve, kops, st, fa)
+  for kname, err in gemma_err.items():
+    max_err[kname] = max(max_err[kname], err)
+  gemma_row, gemma_lines = gemma_serve_times(gemma_res, gemma_rec, serve, fa,
+                                             dev, name_limit)
+  for line in gemma_lines:
+    say(line)
+  del gemma_res, gemma_rec
+
   # 6. train ------------------------------------------------------------------
   # Each trainer's model and state go before the next one's.
   train_launches, train_rows = {}, {}
@@ -2584,9 +2916,9 @@ def main() -> int:
   kernels = kernels_summary(
       launches=launches, max_err=max_err, kernel_rows=kernel_rows,
       serve_counts={ARCH: serve_launches, DENSE_ARCH: dense_launches,
-                    GROK_ARCH: grok_launches},
+                    GROK_ARCH: grok_launches, GEMMA_ARCH: gemma_launches},
       serve_rows=serve_rows, dense_row=dense_row, grok_row=grok_row,
-      grok_gate_rows=grok_gate_rows,
+      grok_gate_rows=grok_gate_rows, gemma_row=gemma_row,
       train_launches=train_launches, train_rows=train_rows,
       engine_runs=engine_runs, engine_rows=engine_rows)
   say(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-// Flash attention forward (causal or not, GQA, D != Dv allowed) for Hopper
-// (sm_90a), bf16 in and out, f32 softmax state.
+// Flash attention forward (causal or not, GQA, D != Dv allowed, a causal
+// sliding window) for Hopper (sm_90a), bf16 in and out, f32 softmax state.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_tpu (body _flash_kernel), and with it the attention of
@@ -10,10 +10,13 @@
 // query head h = hkv * G + g attends to kv head hkv.  Scores are scaled by
 // 1 / sqrt(D) (the q/k width, not Dv); causal masking is top-left aligned
 // (key position <= query position), as in the reference with q_offset 0.
+// A window W > 0 (causal only) also masks keys at or below query - W: query
+// i sees keys i - W + 1 .. i, the reference's `local` layers' attention.
 //
-// Three widths are built: (D, Dv) = (192, 128), MLA's (deepseek-v2-lite),
-// (64, 64), the GQA head width of llama3.2-1b and tinyllama-1.1b, and
-// (128, 128), grok-1's (48 query heads over 8 kv heads, G = 6).
+// Four widths are built: (D, Dv) = (192, 128), MLA's (deepseek-v2-lite),
+// (64, 64), the GQA head width of llama3.2-1b and tinyllama-1.1b,
+// (128, 128), grok-1's (48 query heads over 8 kv heads, G = 6), and
+// (256, 256), gemma3-12b's (16 query heads over 8 kv heads, G = 2).
 //
 // What bounds it on this card: at the MLA serving prefill shape (8 x 512
 // tokens, 16 heads, D 192, Dv 128) the causal work is about 10.7 GFLOP
@@ -23,7 +26,10 @@
 // bytes again; at llama's training shape (2 x 2048) 34 GFLOP (35 us)
 // against the same 41.9 MB, operations; at grok-1's prefill (8 x 512, 48
 // heads over 8 kv heads, D = Dv = 128) 25.8 GFLOP (26 us) against 117 MB
-// (35 us), bytes.  What held the first (mma.sync)
+// (35 us), bytes; at gemma3-12b's (8 x 2048, 16 heads over 8 kv heads,
+// D = Dv = 256) 275 GFLOP (278 us) against 403 MB (120 us) in a global
+// layer and, under the window of 1024, 206 GFLOP (209 us) against the same
+// bytes in a local one: operations.  What held the first (mma.sync)
 // version at 7.6x that bound, and what this design does about each:
 //   * synchronous K/V loads between two barriers, nothing in flight during
 //     the products -> a producer warpgroup streams K and V tiles with TMA
@@ -54,11 +60,16 @@
 // first.  Warpgroups 0 and 1 (setmaxnreg 232) each own 64 rows of an item;
 // warpgroup 2 (setmaxnreg 40) is the producer, of which one thread issues
 // every copy.  For each item the producer loads the Q tile (D / 64
-// 64-column boxes of (64, G, bq): 48 KB at D 192, 32 KB at D 128, 16 KB at
-// D 64) into one of two Q buffers, and for each kv tile of kKv = 64 keys K
-// (24, 16 or 8 KB) and V (16, 16 or 8 KB) into the next stage of a
-// kStages = 3 ring (216 KB of shared memory in all at (192, 128), 160 KB at
-// (128, 128), 81 KB at (64, 64)), all 128-byte
+// 64-column boxes of (64, G, bq): 64 KB at D 256, 48 KB at D 192, 32 KB at
+// D 128, 16 KB at D 64) into one of kQBufs Q buffers, and for each kv tile
+// of kKv = 64 keys K (32, 24, 16 or 8 KB) and V (32, 16, 16 or 8 KB) into
+// the next stage of a ring of kStages (Smem): up to D = 192 two Q buffers
+// and 3 stages (216 KB of shared memory in all at (192, 128), 160 KB at
+// (128, 128), 81 KB at (64, 64)); at (256, 256), where that plan would
+// take 320 KB of the 227 a block has, one Q buffer and 2 stages (193 KB),
+// so the next item's Q loads only once both warpgroups have issued their
+// last scores, and a stage is refilled only after both are done with the
+// tile two back.  All 128-byte
 // swizzled, through 4-D tensor maps over (width, head, position, batch) so
 // that rows past Sq or Skv are zero-filled.  Ring and Q buffers run on
 // across items, so the next item's loads overlap the current one.  A
@@ -71,16 +82,28 @@
 // both, releases stage j (each consumer warp arrives on its empty
 // barrier) and runs tile j + 1's softmax.  Between a product's issue and
 // its wait no other instruction touches an accumulator, or ptxas would
-// serialize every wgmma of the kernel (its warning C7514).  Causal: an
-// item's kv tiles stop at its last query row; a warpgroup skips the
-// products of a tile wholly above its own rows, and masks only a tile that
-// crosses its diagonal or the end of Skv.  The output is written from
+// serialize every wgmma of the kernel (its warning C7514).  Registers: the
+// O accumulator is DV / 2 f32 a thread, 128 at DV 256, beside S (32) and
+// P (16); every width compiles to 168 registers with setmaxnreg 232 for
+// the consumers and spills nothing (ptxas -v), so the overlap of S_{j+1}
+// with O += P_j V_j is kept at D 256 too.  Causal: an item's kv tiles stop
+// at its last query row; a warpgroup skips the products of a tile wholly
+// above its own rows, and masks only a tile that crosses its diagonal or
+// the end of Skv.  Window: an item's kv tiles start at the tile of its
+// first position's first key, max(0, q0 - W + 1) / kKv (the producer loads
+// none below); a warpgroup waits for and releases, without products, the
+// item's tiles wholly below its own first row's window, and masks only a
+// tile that also reaches down to its last row's window edge.  The items
+// keep their order, the last query tiles first: under a window they cost
+// nearly the same.  A row's first tiles may hold none of its keys; a
+// masked score is -inf, so they add nothing.  The output is written from
 // registers; rows past Sq are not.
 //
 // Host side: the tensor maps are encoded per call with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 // -lcuda), and passed as __grid_constant__ kernel parameters.
 
+#include <cmath>
 #include <cstdint>
 
 #include <cuda.h>
@@ -91,7 +114,6 @@ namespace {
 
 constexpr int kRows = 128;           // query rows per CTA
 constexpr int kKv = 64;              // keys per kv tile
-constexpr int kStages = 3;            // depth of the K/V ring
 constexpr int kConsumerThreads = 256;
 constexpr int kThreads = kConsumerThreads + 128;
 constexpr int kBox = 64;             // bf16 columns per 128-byte swizzle box
@@ -261,6 +283,66 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 256, f32) += A B: A (64 x 16, bf16) in registers, B (16 x 256,
+// bf16) in shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -275,22 +357,29 @@ __device__ __forceinline__ float ex2(float x) {
 
 // Online softmax of one kv tile for this thread's two rows.  sc holds the
 // tile's raw scores (element e of n8 tile nt: row gid + 8 * (e / 2), key
-// kv0 + nt * 8 + tig * 2 + e % 2); masked where need_mask says so, they
-// become P = 2^(score * scale_log2 - m), packed to bf16 as wgmma's register
-// A fragments (the S fragment of keys 16 kk .. 16 kk + 15 is exactly the A
-// fragment of k-step kk).  m (log2 domain) and l are the running max and
-// sum; alpha the factor by which the output accumulated so far must
-// shrink.  A masked score is kNeg, whose 2^ is 0 once m is finite, which
-// it is from the first tile on (key 0 is every row's).
+// kv0 + nt * 8 + tig * 2 + e % 2); masked where need_mask says so (past
+// Skv, past the row's position under the causal mask, at or below the
+// row's position - window under a window), they become P = 2^(score *
+// scale_log2 - m), packed to bf16 as wgmma's register A fragments (the S
+// fragment of keys 16 kk .. 16 kk + 15 is exactly the A fragment of k-step
+// kk).  m (log2 domain) and l are the running max and sum; alpha the
+// factor by which the output accumulated so far must shrink.  A masked
+// score is -inf, whose 2^ is 0 whatever m is: under a window a row's first
+// tiles may hold none of its keys, and m then stays finite (near kNeg)
+// until a tile does.
 __device__ __forceinline__ void softmax_tile(
     float (&sc)[kKv / 2], uint32_t (&pa)[kKv / 16][4], float (&m)[2],
     float (&l)[2], float (&alpha)[2], float scale_log2, bool need_mask,
-    int kv0, int skv, bool causal, const int (&qpos)[2], int tig) {
+    int kv0, int skv, bool causal, int window, const int (&qpos)[2],
+    int tig) {
   if (need_mask) {
 #pragma unroll
     for (int k = 0; k < kKv / 2; ++k) {
       const int kp = kv0 + (k / 4) * 8 + tig * 2 + (k & 1);
-      if (kp >= skv || (causal && kp > qpos[(k >> 1) & 1])) sc[k] = kNeg;
+      const int qp = qpos[(k >> 1) & 1];
+      if (kp >= skv || (causal && kp > qp) ||
+          (window > 0 && kp <= qp - window))
+        sc[k] = -INFINITY;
     }
   }
   float row_max[2] = {kNeg, kNeg};
@@ -330,17 +419,26 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
+// The shared-memory plan of a width: kQBufs Q buffers of kRows rows and a
+// ring of kStages K/V stages.  Two Q buffers and 3 stages up to D = 192;
+// at D = 256 a Q tile is 64 KB and a K + V stage 64 KB, so one Q buffer
+// and 2 stages (192 KB of buffers; the plan of the narrower widths would
+// need 320).
 template <int D, int DV>
 struct Smem {
+  static constexpr int kQBufs = D > 192 ? 1 : 2;
+  static constexpr int kStages = D > 192 ? 2 : 3;
   static constexpr int kQBytes = kRows * D * 2;          // D / 64 boxes
   static constexpr int kKBytes = kKv * D * 2;
   static constexpr int kVBytes = kKv * DV * 2;
   static constexpr int kStageBytes = kKBytes + kVBytes;
-  static constexpr int kKvOffset = 2 * kQBytes;          // two Q buffers
+  static constexpr int kKvOffset = kQBufs * kQBytes;
   static constexpr int kBarOffset = kKvOffset + kStages * kStageBytes;
-  // q_full[2], q_empty[2], full[kStages], empty[kStages]; plus 1 KB to
-  // align the base.
-  static constexpr int kBytes = kBarOffset + 8 * (4 + 2 * kStages) + 1024;
+  // q_full[kQBufs], q_empty[kQBufs], full[kStages], empty[kStages]; plus
+  // 1 KB to align the base.
+  static constexpr int kBytes =
+      kBarOffset + 8 * (2 * kQBufs + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
 };
 
 template <int D, int DV>
@@ -349,12 +447,14 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
              __nv_bfloat16* __restrict__ out, int batch, int sq, int skv,
-             int h, int hkv, int causal, float scale_log2) {
+             int h, int hkv, int causal, int window, float scale_log2) {
   static_assert(D % kBox == 0 && DV % kBox == 0, "whole swizzle boxes");
-  static_assert(kKv == 64 && (DV == 64 || DV == 128),
-                "the wgmma wrappers are n64 (scores) and n64 or n128 "
+  static_assert(kKv == 64 && (DV == 64 || DV == 128 || DV == 256),
+                "the wgmma wrappers are n64 (scores) and n64, n128 or n256 "
                 "(output)");
   using S = Smem<D, DV>;
+  constexpr int kQBufs = S::kQBufs;
+  constexpr int kStages = S::kStages;
   constexpr int kBoxBytes = kBox * 2;                    // 128-byte rows
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles need 1024-byte-aligned addresses.
@@ -362,14 +462,17 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   unsigned char* q_s = smem;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBarOffset);
-  uint64_t* q_full = bars;        // per Q buffer
-  uint64_t* q_empty = bars + 2;
-  uint64_t* full = bars + 4;      // per stage
-  uint64_t* empty = bars + 4 + kStages;
+  uint64_t* q_full = bars;                  // per Q buffer
+  uint64_t* q_empty = bars + kQBufs;
+  uint64_t* full = bars + 2 * kQBufs;       // per stage
+  uint64_t* empty = full + kStages;
 
   // Work item i: query tile n_q - 1 - i / (batch * hkv) (the last, longest
   // tiles first) of (batch, kv head) i % (batch * hkv).  The CTA takes
-  // items blockIdx.x, blockIdx.x + gridDim.x, ...
+  // items blockIdx.x, blockIdx.x + gridDim.x, ...  Its kv tiles are
+  // [first, last): under the causal mask they end at its last query
+  // position's tile, under a window they start at the tile of its first
+  // position's first key, q0 - window + 1.
   const int g_count = h / hkv;
   const int bq = kRows / g_count;               // query positions per item
   const int q_rows = bq * g_count;              // rows loaded: 128 - 128 % G
@@ -378,7 +481,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_items = n_bh * n_q;
   const int n_tiles = (skv + kKv - 1) / kKv;
   struct Item {
-    int kvh, b, q0, last;
+    int kvh, b, q0, first, last;
   };
   auto item = [&](int i) {
     Item it;
@@ -387,11 +490,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     it.q0 = (n_q - 1 - i / n_bh) * bq;
     it.last = causal ? min(n_tiles, (min(it.q0 + bq, sq) - 1) / kKv + 1)
                      : n_tiles;
+    it.first = window > 0 ? max(0, it.q0 - window + 1) / kKv : 0;
     return it;
   };
 
   if (threadIdx.x == 0) {
-    for (int qb = 0; qb < 2; ++qb) {
+    for (int qb = 0; qb < kQBufs; ++qb) {
       mbar_init(&q_full[qb], 1);
       mbar_init(&q_empty[qb], kConsumerThreads / 32);
     }
@@ -408,18 +512,20 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == kConsumerThreads) {
       // tc counts kv tiles over all of the CTA's items (the ring's
-      // position), ic the items (Q buffer ic % 2, its use ic / 2).
+      // position), ic the items (Q buffer ic % kQBufs, its use
+      // ic / kQBufs).
       int tc = 0, ic = 0;
       for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++ic) {
         const Item it = item(i);
-        const int qb = ic & 1;
-        if (ic >= 2) mbar_wait(&q_empty[qb], ((ic >> 1) - 1) & 1);
+        const int qb = ic % kQBufs;
+        if (ic >= kQBufs)
+          mbar_wait(&q_empty[qb], ((ic / kQBufs) - 1) & 1);
         // The boxes' bytes, which are the buffer's only where G divides 128.
         mbar_expect_tx(&q_full[qb], q_rows * D * 2);
         for (int c = 0; c < D / kBox; ++c)
           tma_load_4d(q_s + qb * S::kQBytes + c * kRows * kBoxBytes, &tm_q,
                       &q_full[qb], c * kBox, it.kvh * g_count, it.q0, it.b);
-        for (int j = 0; j < it.last; ++j, ++tc) {
+        for (int j = it.first; j < it.last; ++j, ++tc) {
           const int s = tc % kStages;
           if (tc >= kStages) mbar_wait(&empty[s], ((tc / kStages) - 1) & 1);
           unsigned char* k_s = smem + S::kKvOffset + s * S::kStageBytes;
@@ -451,7 +557,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int item_i = blockIdx.x; item_i < n_items;
        item_i += gridDim.x, ++ic) {
     const Item it = item(item_i);
-    const int qb = ic & 1;
+    const int qb = ic % kQBufs;
     const uint32_t q_base =
         smem_addr(q_s + qb * S::kQBytes) + wg * 64 * kBoxBytes;
     int qpos[2];
@@ -459,14 +565,18 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int wg_first = it.q0 + (wg * 64) / g_count;
     const int wg_last =
         min(it.q0 + min(wg * 64 + 63, q_rows - 1) / g_count, sq - 1);
-    // This warpgroup's tiles: under the causal mask, up to its last row;
-    // the item's later tiles it only waits for and releases.
+    // This warpgroup's tiles [w0, nw): under the causal mask, up to its
+    // last row; under a window, from the tile of its first row's first
+    // key.  The item's other tiles it only waits for and releases.
     const int nw = wg_first >= sq ? 0
                    : causal       ? min(it.last, wg_last / kKv + 1)
                                   : it.last;
-    auto stage_of = [&](int j) { return (tc + j) % kStages; };
+    const int w0 = nw == 0 || window == 0
+                       ? it.first
+                       : max(it.first, max(0, wg_first - window + 1) / kKv);
+    auto stage_of = [&](int j) { return (tc + j - it.first) % kStages; };
     auto wait_tile = [&](int j) {
-      mbar_wait(&full[stage_of(j)], ((tc + j) / kStages) & 1);
+      mbar_wait(&full[stage_of(j)], ((tc + j - it.first) / kStages) & 1);
     };
     auto release_tile = [&](int j) {   // this warp is done with tile j
       __syncwarp();
@@ -497,8 +607,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       wgmma_commit();
     };
+    // Tile j needs the mask where it runs past Skv, crosses the diagonal
+    // of this warpgroup's first row, or (under a window) reaches down to
+    // the lower edge of its last row's window.
     auto need_mask = [&](int j) {
-      return (j + 1) * kKv > skv || (causal && (j + 1) * kKv - 1 > wg_first);
+      return (j + 1) * kKv > skv || (causal && (j + 1) * kKv - 1 > wg_first)
+             || (window > 0 && j * kKv <= wg_last - window);
     };
 
     float m[2] = {kNeg, kNeg};
@@ -510,21 +624,25 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     float sc[kKv / 2];
     uint32_t pa[kKv / 16][4];
 
-    mbar_wait(&q_full[qb], (ic >> 1) & 1);
+    mbar_wait(&q_full[qb], (ic / kQBufs) & 1);
     if (nw == 0) release_q();
+    for (int j = it.first; j < w0; ++j) {   // wholly below the window
+      wait_tile(j);
+      release_tile(j);
+    }
     if (nw > 0) {
-      wait_tile(0);
-      issue_scores(sc, 0);
+      wait_tile(w0);
+      issue_scores(sc, w0);
       wgmma_wait<0>();
       fence_regs(sc);
-      if (nw == 1) release_q();
-      softmax_tile(sc, pa, m, l, alpha, scale_log2, need_mask(0), 0, skv,
-                   causal, qpos, tig);
+      if (nw == w0 + 1) release_q();
+      softmax_tile(sc, pa, m, l, alpha, scale_log2, need_mask(w0), w0 * kKv,
+                   skv, causal, window, qpos, tig);
     }
     // Tile j's P V product and tile j + 1's scores go to the tensor cores
     // together; tile j + 1's softmax follows once both are done (and
     // overlaps the other warpgroup's products).
-    for (int j = 0; j < nw; ++j) {
+    for (int j = w0; j < nw; ++j) {
 #pragma unroll
       for (int nt = 0; nt < DV / 8; ++nt) {
         o[nt * 4 + 0] *= alpha[0];
@@ -555,14 +673,14 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(sc);
         if (j + 2 == nw) release_q();
         softmax_tile(sc, pa, m, l, alpha, scale_log2, need_mask(j + 1),
-                     (j + 1) * kKv, skv, causal, qpos, tig);
+                     (j + 1) * kKv, skv, causal, window, qpos, tig);
       }
     }
-    for (int j = nw; j < it.last; ++j) {
+    for (int j = nw > 0 ? nw : w0; j < it.last; ++j) {
       wait_tile(j);
       release_tile(j);
     }
-    tc += it.last;
+    tc += it.last - it.first;
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -628,8 +746,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
 
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int h, int hkv, int causal, float scale,
-           cudaStream_t stream) {
+           int sq, int skv, int h, int hkv, int causal, int window,
+           float scale, cudaStream_t stream) {
   const int g_count = h / hkv;
   const int bq = kRows / g_count;   // the Q box: (64, G, bq), bq * G <= 128
   CUtensorMap tm_q, tm_k, tm_v;
@@ -660,7 +778,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const int grid = n_items < sms[device] ? n_items : sms[device];
   flash_kernel<D, DV><<<grid, kThreads, kSmem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), b, sq, skv, h, hkv,
-      causal, scale * 1.4426950408889634f);
+      causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -669,27 +787,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // Plain C entry point, loaded with ctypes.  q (b, sq, h, d), k (b, skv, hkv,
 // d), v (b, skv, hkv, dv), out (b, sq, h, dv): bf16, C-contiguous, 16-byte
 // aligned, on the current device; hkv divides h and h / hkv <= 128.
-// (d, dv) is (192, 128), the MLA widths, (64, 64) or (128, 128), the dense
-// GQA widths; another width is one more instantiation of the template
-// (whole 64-column boxes, and a wgmma wrapper of n = dv), and until then
-// returns cudaErrorInvalidValue.  Returns the launch's cudaError_t.
+// (d, dv) is (192, 128), the MLA widths, or (64, 64), (128, 128) or
+// (256, 256), the dense GQA widths; another width is one more
+// instantiation of the template (whole 64-column boxes, a wgmma wrapper of
+// n = dv, a shared-memory plan that fits), and until then returns
+// cudaErrorInvalidValue.  window > 0 (causal only) keeps the keys of
+// positions query - window + 1 .. query; 0 keeps all.  Returns the
+// launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int sq,
                                       int skv, int h, int hkv, int d, int dv,
-                                      int causal, float scale,
+                                      int causal, int window, float scale,
                                       cudaStream_t stream) {
   if (b == 0 || sq == 0) return 0;
-  if (hkv < 1 || h % hkv || h / hkv > kRows || skv < 1) {
+  if (hkv < 1 || h % hkv || h / hkv > kRows || skv < 1 || window < 0 ||
+      (window > 0 && !causal)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (d == 192 && dv == 128)
-    return launch<192, 128>(q, k, v, out, b, sq, skv, h, hkv, causal, scale,
-                            stream);
+    return launch<192, 128>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
+                            scale, stream);
   if (d == 64 && dv == 64)
-    return launch<64, 64>(q, k, v, out, b, sq, skv, h, hkv, causal, scale,
-                          stream);
+    return launch<64, 64>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
+                          scale, stream);
   if (d == 128 && dv == 128)
-    return launch<128, 128>(q, k, v, out, b, sq, skv, h, hkv, causal, scale,
-                            stream);
+    return launch<128, 128>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
+                            scale, stream);
+  if (d == 256 && dv == 256)
+    return launch<256, 256>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
+                            scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,8 @@ output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
   tensor, a ``torch.autograd.Function`` whose forward is the hand-written
   kernel in ``csrc/flash_attention.cu`` (bf16, f32 softmax state, tensor
   cores, built for the widths in ``KERNEL_WIDTHS``; see the note there) and
-  whose backward is ``flash_attention_bwd``;
+  whose backward is ``flash_attention_bwd``; the kernel takes the causal
+  mask's sliding window (``window``, the ``local`` layers' attention);
   on a CPU tensor, the plain version with every option, differentiated by
   autograd.  Each kernel launch adds one to ``LAUNCHES["flash_attention"]``.
 * ``flash_attention_bwd``: the gradients of q, k and v, as
@@ -19,12 +20,18 @@ output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
 * ``flash_attention_plain``: the reference's chunked online-softmax
   attention in plain PyTorch, on any device, with its dtype behaviour:
   scores and block outputs in the input dtype, the running max and sum in
-  f32.  It also has the reference's sliding window, logit soft-cap and
-  query offset, which the kernel does not take (none is on the serving or
-  training path; on the card they raise).
+  f32.  Under a window it visits each key chunk that overlaps a query
+  chunk's window once; the reference's visits a fixed number of chunks
+  from ``q_lo - window``, clipped to the last, and so counts the last
+  chunk twice where they run past it (and misses chunks where ``q_chunk``
+  exceeds ``kv_chunk``): fault R4 of the reference (ROADMAP.md), which
+  gives a wrong result, not another rounding.  It also has the
+  reference's logit soft-cap and query offset, which the kernel does not
+  take (neither is on a serving or training path; on the card they
+  raise).
 * ``compare_with_plain`` / ``compare_bwd_with_plain``: the error models of
   the forward kernel and of the backward, held against the plain version
-  (and its autograd) in f32 on the same inputs.
+  (and its autograd) in f32 on the same inputs, window and all.
 """
 
 from __future__ import annotations
@@ -39,9 +46,9 @@ from repro_torch.kernels import _build
 # Launch count of the kernel; only the wrapper below increments it.
 LAUNCHES = {"flash_attention": 0}
 # (D, Dv) built: the MLA widths (deepseek), the dense GQA head widths of
-# llama3.2-1b and tinyllama-1.1b (64) and of grok-1 (128).  Any other width
-# raises on the card.
-KERNEL_WIDTHS = ((192, 128), (64, 64), (128, 128))
+# llama3.2-1b and tinyllama-1.1b (64), of grok-1 (128) and of gemma3-12b
+# (256).  Any other width raises on the card.
+KERNEL_WIDTHS = ((192, 128), (64, 64), (128, 128), (256, 256))
 # Query rows of one block's tile: a work item takes 128 // G query positions
 # of G heads each (at G = 6, 21 positions, 126 rows), so G is at most 128.
 ROWS_PER_BLOCK = 128
@@ -89,8 +96,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   """Chunked attention. q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D|Dv) -> (B,Sq,H,Dv).
 
   ``q_offset``: global position of q[0] relative to k[0].  With
-  ``window > 0`` only the kv blocks inside the window are visited;
-  otherwise all kv blocks are, with causal masking.
+  ``window > 0`` (causal whatever ``causal`` says, as in the reference)
+  only the kv blocks overlapping [q_lo - window + 1, q_hi] are visited,
+  each once; otherwise all kv blocks are, with causal masking.
   """
   b, sq, h, d = q.shape
   _, skv, hkv, _ = k.shape
@@ -116,19 +124,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.zeros((b, hkv, g, q_chunk, dv), dtype=v.dtype, device=dev)
     if window > 0:
       # Visit only the blocks overlapping [q_lo - window + 1, q_hi].
-      first = (q_offset + qi * q_chunk - window) // kv_chunk
-      visits = [(min(max(first + j, 0), nkv - 1), first + j >= 0)
-                for j in range(window // kv_chunk + 2)]
+      q_lo = q_offset + qi * q_chunk
+      visits = range(max(q_lo - window + 1, 0) // kv_chunk,
+                     min((q_lo + q_chunk - 1) // kv_chunk + 1, nkv))
     else:
-      visits = [(j, True) for j in range(nkv)]
-    for blk, valid in visits:
+      visits = range(nkv)
+    for blk in visits:
       k_blk = k[:, blk * kv_chunk:(blk + 1) * kv_chunk]
       v_blk = v[:, blk * kv_chunk:(blk + 1) * kv_chunk]
       kv_pos = blk * kv_chunk + torch.arange(kv_chunk, device=dev)
       if window > 0:
         mask = ((kv_pos[None, :] <= q_pos[:, None])
-                & (kv_pos[None, :] > q_pos[:, None] - window)
-                & valid)
+                & (kv_pos[None, :] > q_pos[:, None] - window))
       elif causal:
         mask = kv_pos[None, :] <= q_pos[:, None]
       else:
@@ -177,19 +184,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
-  """One launch of the forward kernel on checked CUDA tensors."""
+            causal: bool, window: int = 0) -> torch.Tensor:
+  """One launch of the forward kernel on checked CUDA tensors (``window``
+  > 0 with ``causal`` only; 0: none)."""
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
   out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
   launch = _build.entry(
       "flash_attention", "flash_attention_launch",
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
       + [ctypes.c_float, ctypes.c_void_p])
   with _build.on_device(q.device):
     err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-        skv, h, hkv, d, dv, int(causal), 1.0 / math.sqrt(d),
+        skv, h, hkv, d, dv, int(causal), int(window), 1.0 / math.sqrt(d),
         _build.current_stream(q.device))
   if err != 0:
     raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
@@ -203,16 +211,17 @@ class _FlashAttention(torch.autograd.Function):
   log-sum-exp from q and k (the kernel does not store it)."""
 
   @staticmethod
-  def forward(ctx, q, k, v, causal):
-    out = _launch(q, k, v, causal)
-    ctx.causal = causal
+  def forward(ctx, q, k, v, causal, window):
+    out = _launch(q, k, v, causal, window)
+    ctx.causal, ctx.window = causal, window
     ctx.save_for_backward(q, k, v, out)
     return out
 
   @staticmethod
   def backward(ctx, do):
     q, k, v, out = ctx.saved_tensors
-    return (*flash_attention_bwd(q, k, v, out, do, ctx.causal), None)
+    return (*flash_attention_bwd(q, k, v, out, do, ctx.causal,
+                                 window=ctx.window), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -223,9 +232,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   """Fused attention forward. q: (B,Sq,H,D); k, v: (B,Skv,Hkv,D|Dv).
 
   A CUDA tensor runs the kernel (bf16 only; ``q_chunk`` and ``kv_chunk``
-  are the plain version's chunking and do not apply), differentiable
-  through ``flash_attention_bwd``; a CPU tensor the plain version; any
-  other device raises.
+  are the plain version's chunking and do not apply; a ``window`` needs
+  ``causal``), differentiable through ``flash_attention_bwd``; a CPU
+  tensor the plain version; any other device raises.
   """
   if q.device.type == "cpu":
     return flash_attention_plain(
@@ -234,13 +243,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   if q.device.type != "cuda":
     raise ValueError(f"flash_attention takes CPU or CUDA tensors; got "
                      f"{q.device}")
-  if window > 0 or softcap > 0.0 or q_offset != 0:
+  if window > 0 and not causal:
     raise NotImplementedError(
-        "attention with a sliding window, logit soft-cap or query offset "
-        "on the card is not ported yet (ROADMAP.md, queue 1: "
+        "a sliding window without the causal mask is not built on the card "
+        "(the reference's window is causal; ROADMAP.md, queue 1: "
         "window/softcap attention)")
+  if softcap > 0.0 or q_offset != 0:
+    raise NotImplementedError(
+        "attention with a logit soft-cap or query offset on the card is not "
+        "ported yet (ROADMAP.md, queue 1: window/softcap attention)")
   _check(q, k, v)
-  return _FlashAttention.apply(q, k, v, bool(causal))
+  return _FlashAttention.apply(q, k, v, bool(causal), max(int(window), 0))
 
 
 # ---------------------------------------------------------------------------
@@ -248,27 +261,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _scores(q_blk, k_blk, q0: int, k0: int, scale: float, causal: bool):
+def _scores(q_blk, k_blk, q0: int, k0: int, scale: float, causal: bool,
+            window: int = 0):
   """Masked f32 scores of a block, (B, Hkv, G, cq, ckv); q_blk (B, cq, Hkv,
-  G, D) and k_blk (B, ckv, Hkv, D) in f32, starting at positions q0, k0."""
+  G, D) and k_blk (B, ckv, Hkv, D) in f32, starting at positions q0, k0;
+  under a window (causal only) keys at or below query - window masked too,
+  as in the forward."""
   s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
   if causal:
     q_pos = torch.arange(q0, q0 + q_blk.shape[1], device=s.device)
     kv_pos = torch.arange(k0, k0 + k_blk.shape[1], device=s.device)
-    s = s.masked_fill(kv_pos[None, :] > q_pos[:, None], _NEG_INF)
+    masked = kv_pos[None, :] > q_pos[:, None]
+    if window > 0:
+      masked |= kv_pos[None, :] <= q_pos[:, None] - window
+    s = s.masked_fill(masked, _NEG_INF)
   return s
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
-                        causal: bool = True, *, q_chunk: int = 512,
-                        kv_chunk: int = 1024):
+                        causal: bool = True, *, window: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 1024):
   """Gradients (dq, dk, dv) of attention at (q, k, v), output ``o`` and
   output cotangent ``do``, in the layouts and dtypes of q, k and v.
 
   FlashAttention-2's backward over query chunks of ``q_chunk`` rows and
   key chunks of ``kv_chunk`` (a ragged last chunk allowed; with ``causal``
-  a key chunk wholly after a query chunk is skipped).  Per query chunk,
+  a key chunk wholly after a query chunk is skipped, and with a ``window``
+  one wholly below every query's window).  Per query chunk,
   first the row log-sum-exp of the masked scores S * scale, merged chunk
   by chunk; then, per key chunk, P = exp(S * scale - lse), dV += P^T dO,
   dP = dO V^T, dS = P * (dP - D) with D = rowsum(dO * O), dQ += dS K * scale
@@ -279,6 +299,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   _, skv, hkv, dv = v.shape
   g = h // hkv
   scale = 1.0 / math.sqrt(d)
+  causal = causal or window > 0   # the plain version's window is causal
   f32 = torch.float32
   qf = q.to(f32).reshape(b, sq, hkv, g, d)
   kf, vf = k.to(f32), v.to(f32)
@@ -290,16 +311,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q1 = min(q0 + q_chunk, sq)
     q_blk, do_blk = qf[:, q0:q1], dof[:, q0:q1]
     blocks = [(k0, min(k0 + kv_chunk, skv)) for k0 in range(0, skv, kv_chunk)
-              if not causal or k0 < q1]
+              if not causal or (k0 < q1 and (window <= 0 or min(
+                  k0 + kv_chunk, skv) - 1 > q0 - window))]
     lse = None
     for k0, k1 in blocks:
       part = torch.logsumexp(
-          _scores(q_blk, kf[:, k0:k1], q0, k0, scale, causal), dim=-1)
+          _scores(q_blk, kf[:, k0:k1], q0, k0, scale, causal, window),
+          dim=-1)
       lse = part if lse is None else torch.logaddexp(lse, part)
     d_blk = delta[..., q0:q1, None]
     for k0, k1 in blocks:
       k_blk, v_blk = kf[:, k0:k1], vf[:, k0:k1]
-      p = torch.exp(_scores(q_blk, k_blk, q0, k0, scale, causal)
+      p = torch.exp(_scores(q_blk, k_blk, q0, k0, scale, causal, window)
                     - lse[..., None])
       dvv[:, k0:k1] += torch.einsum("bhgqk,bqhgc->bkhc", p, do_blk)
       ds = p * (torch.einsum("bqhgc,bkhc->bhgqk", do_blk, v_blk) - d_blk)
@@ -324,9 +347,10 @@ REL_FROB_LIMIT = 2.0**-7
 
 
 def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor, causal: bool) -> dict[str, float]:
+                       v: torch.Tensor, causal: bool,
+                       window: int = 0) -> dict[str, float]:
   """The kernel's output against the plain version in f32 on the same bf16
-  inputs.
+  inputs, with the same mask (``window`` as in ``flash_attention``).
 
   The kernel rounds P to bf16 for the P V product and the output to bf16,
   each a relative error of at most BF16_U; its f32 scores, exponentials and
@@ -338,8 +362,8 @@ def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
   ``median_ref`` is the median |ref|, the scale that both sit against.
   """
   qf, kf, vf = q.float(), k.float(), v.float()
-  ref = flash_attention_plain(qf, kf, vf, causal=causal)
-  a = flash_attention_plain(qf, kf, vf.abs(), causal=causal)
+  ref = flash_attention_plain(qf, kf, vf, causal=causal, window=window)
+  a = flash_attention_plain(qf, kf, vf.abs(), causal=causal, window=window)
   err = (out.float() - ref).abs()
   tol = torch.clamp(2 * BF16_U * (ref.abs() + a), min=1e-30)
   return {
@@ -352,7 +376,7 @@ def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
   }
 
 
-def _magnitudes(q, k, v, do, causal: bool):
+def _magnitudes(q, k, v, do, causal: bool, window: int = 0):
   """The backward's terms over absolute values, in f32, dense: for each
   of dq, dk, dv the same sums as the gradient with every factor replaced
   by its size, D by A_D = rowsum(|dO| * (|O| + A)) (A the attention over
@@ -363,9 +387,11 @@ def _magnitudes(q, k, v, do, causal: bool):
   qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
   kh, vh = (x.repeat_interleave(g, dim=2) for x in (kf, vf))
   s = torch.einsum("bqhd,bkhd->bhqk", qf, kh) / math.sqrt(d)
-  if causal:
+  if causal or window > 0:
     mask = torch.ones(sq, k.shape[1], dtype=torch.bool,
                       device=s.device).tril()
+    if window > 0:
+      mask = mask.triu(1 - window)
     s = s.masked_fill(~mask, _NEG_INF)
   p = torch.softmax(s, dim=-1)
   o = torch.einsum("bhqk,bkhc->bqhc", p, vh).abs()
@@ -382,8 +408,8 @@ def _magnitudes(q, k, v, do, causal: bool):
 
 
 def compare_bwd_with_plain(grads, q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, do: torch.Tensor,
-                           causal: bool) -> dict[str, dict[str, float]]:
+                           v: torch.Tensor, do: torch.Tensor, causal: bool,
+                           window: int = 0) -> dict[str, dict[str, float]]:
   """``grads`` = (dq, dk, dv) against the autograd of the plain version in
   f32 on the same inputs, by the error model of the forward carried
   through the backward.
@@ -399,11 +425,11 @@ def compare_bwd_with_plain(grads, q: torch.Tensor, k: torch.Tensor,
   ``compare_with_plain``.
   """
   xs = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
-  ref = flash_attention_plain(*xs, causal=causal)
+  ref = flash_attention_plain(*xs, causal=causal, window=window)
   refs = torch.autograd.grad(ref, xs, do.float())
   out = {}
   for name, got, want, a in zip(("dq", "dk", "dv"), grads, refs,
-                                _magnitudes(q, k, v, do, causal)):
+                                _magnitudes(q, k, v, do, causal, window)):
     err = (got.float() - want).abs()
     tol = torch.clamp(2 * BF16_U * (want.abs() + a), min=1e-30)
     out[name] = {

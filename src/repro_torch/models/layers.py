@@ -1,11 +1,12 @@
-"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, GQA attention,
-embedding, LM head, loss.
+"""Shared model layers: RMSNorm, RoPE, SwiGLU and GeGLU MLPs, GQA
+attention with an optional sliding window, embedding, LM head, loss.
 
-Counterpart of ``repro.models.layers``, for the layers the port's two
-layer kinds run: the ``mla_moe`` kind (deepseek-v2-lite) uses the norm,
-RoPE, the shared experts' MLP and the head; the ``dense`` kind (llama3.2-1b,
+Counterpart of ``repro.models.layers``, for the layers the port's layer
+kinds run: the ``mla_moe`` kind (deepseek-v2-lite) uses the norm, RoPE,
+the shared experts' MLP and the head; the ``dense`` kind (llama3.2-1b,
 tinyllama-1.1b) adds GQA attention (``attn_*``, ``decode_attention``) and
-the SwiGLU MLP.  Sequence attention is
+the SwiGLU MLP; the ``local`` and ``global`` kinds (gemma3-12b) the GeGLU
+MLP and, for ``local``, the sliding window.  Sequence attention is
 ``repro_torch.kernels.flash_attention``, which dispatches by device itself.
 Parameters are plain dicts of tensors in the JAX layouts (``w_in`` (d, f),
 ``wq`` (d, h, dh), ``table`` (V, d), ...), so the same pytree maps one to
@@ -87,11 +88,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor | int,
 # ---------------------------------------------------------------------------
 
 
+# The gated MLP variants: the same three weights, the gate's activation.
+GATED = {"swiglu": F.silu,
+         "geglu": lambda g: F.gelu(g, approximate="tanh")}
+
+
 def mlp_init(gen: torch.Generator, d: int, f: int, variant: str, dtype,
              device) -> Params:
-  """SwiGLU weights with the reference's scales: 1/sqrt(d) in, 1/sqrt(f)
-  out."""
-  if variant != "swiglu":
+  """SwiGLU or GeGLU weights with the reference's scales: 1/sqrt(d) in,
+  1/sqrt(f) out."""
+  if variant not in GATED:
     raise not_ported(f"MLP variant {variant!r}", "other layer kinds")
   si, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
   return {"w_in": normal(gen, (d, f), si, dtype, device),
@@ -100,12 +106,13 @@ def mlp_init(gen: torch.Generator, d: int, f: int, variant: str, dtype,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
-  """SwiGLU MLP: (silu(x w_gate) * x w_in) w_out."""
-  if variant != "swiglu":
+  """Gated MLP: (act(x w_gate) * x w_in) w_out, act silu (SwiGLU) or the
+  tanh-approximated gelu (GeGLU, the reference's ``approximate=True``)."""
+  if variant not in GATED:
     raise not_ported(f"MLP variant {variant!r}", "other layer kinds")
   h = torch.einsum("...d,df->...f", x, p["w_in"])
   g = torch.einsum("...d,df->...f", x, p["w_gate"])
-  return torch.einsum("...f,fd->...d", F.silu(g) * h, p["w_out"])
+  return torch.einsum("...f,fd->...d", GATED[variant](g) * h, p["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -114,13 +121,15 @@ def mlp_apply(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len: int,
+                     window: int = 0) -> torch.Tensor:
   """Single-token attention. q: (B,H,D); caches: (B,S,Hkv,D) -> (B,H,D).
 
   A masked softmax over the full-length cache (positions below
-  ``cache_len``), the G = H / Hkv query heads of a kv head together; scores
-  in f32, the weights cast to the values' dtype, as in the reference (plain
-  ops there too: no kernel).
+  ``cache_len`` and, with ``window > 0``, above ``cache_len - 1 - window``),
+  the G = H / Hkv query heads of a kv head together; scores in f32, the
+  weights cast to the values' dtype, as in the reference (plain ops there
+  too: no kernel).
   """
   b, h, d = q.shape
   s, hkv = k_cache.shape[1:3]
@@ -128,7 +137,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
   qg = q.reshape(b, hkv, g, d)
   scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).to(torch.float32)
   scores = scores * (1.0 / math.sqrt(d))
-  valid = torch.arange(s, device=q.device) < cache_len
+  pos = torch.arange(s, device=q.device)
+  valid = pos < cache_len
+  if window > 0:
+    valid &= pos > cache_len - 1 - window
   scores = torch.where(valid, scores,
                        torch.full((), _NEG_INF, device=q.device))
   p = torch.softmax(scores, dim=-1)
@@ -148,16 +160,17 @@ def attn_init(cfg, gen: torch.Generator, dtype, device) -> Params:
 
 
 def attn_apply_seq(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
-                   *, return_kv: bool = False):
-  """Full-sequence causal GQA attention (train / prefill). x: (B,S,d) ->
-  (B,S,d) [, (k, v) of (B,S,Hkv,dh), k after RoPE: the cache]."""
+                   *, window: int = 0, return_kv: bool = False):
+  """Full-sequence causal GQA attention (train / prefill), over the last
+  ``window`` positions where ``window > 0``. x: (B,S,d) -> (B,S,d) [, (k,
+  v) of (B,S,Hkv,dh), k after RoPE: the cache]."""
   q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
   k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
   v = torch.einsum("bsd,dhk->bshk", x, p["wv"]).contiguous()
   q = rope(q, positions, cfg.rope_theta)
   k = rope(k, positions, cfg.rope_theta)
-  o = _fa.flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                          kv_chunk=cfg.kv_chunk)
+  o = _fa.flash_attention(q, k, v, causal=True, window=window,
+                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
   out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
   if return_kv:
     return out, (k, v)
@@ -165,8 +178,9 @@ def attn_apply_seq(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
 
 
 def attn_apply_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
-                      cfg):
-  """One-token step. x: (B,d); cache {k, v}: (B,S,Hkv,dh).
+                      cfg, *, window: int = 0):
+  """One-token step. x: (B,d); cache {k, v}: (B,S,Hkv,dh); ``window`` as in
+  ``decode_attention``.
 
   Writes the token's k and v into ``cache`` at ``pos`` in place (the
   reference returns updated copies) and returns (out (B,d), cache).
@@ -178,7 +192,7 @@ def attn_apply_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
   k = rope(k, pos, cfg.rope_theta)
   cache["k"][:, pos] = k.to(cache["k"].dtype)
   cache["v"][:, pos] = v.to(cache["v"].dtype)
-  o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+  o = decode_attention(q, cache["k"], cache["v"], pos + 1, window)
   return torch.einsum("bhk,hkd->bd", o, p["wo"]), cache
 
 

@@ -1,9 +1,13 @@
 """Model assembly: the layer stack by kind, training pass, prefill, decode.
 
-Counterpart of ``repro.models.transformer`` for three layer kinds, each a
-mixer and an FFN (``MIXERS``, ``MOE_KINDS``):
+Counterpart of ``repro.models.transformer`` for five layer kinds, each a
+mixer and an FFN (``MIXERS``, ``MOE_KINDS``; the dense FFN is the MLP of
+the config's ``mlp_variant``, SwiGLU or GeGLU):
 
-  dense     GQA attention + SwiGLU MLP (llama3.2-1b, tinyllama-1.1b)
+  dense     GQA attention + MLP (llama3.2-1b, tinyllama-1.1b)
+  global    GQA attention + MLP (gemma3-12b's full-attention layers)
+  local     GQA attention over the last ``window_size`` positions + MLP
+            (gemma3-12b's sliding-window layers, ``_window``)
   moe       GQA attention + MoE FFN with the soft top-k router (grok-1)
   mla_moe   MLA attention + MoE FFN with shared experts (deepseek-v2-lite)
 
@@ -41,14 +45,21 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
 # Each layer kind's mixer, by its parameter group: GQA attention or MLA.
-MIXERS = {"dense": "attn", "moe": "attn", "mla_moe": "mla"}
-# The kinds whose FFN is the MoE FFN; the others' is the SwiGLU MLP.
+MIXERS = {"dense": "attn", "global": "attn", "local": "attn", "moe": "attn",
+          "mla_moe": "mla"}
+# The kinds whose FFN is the MoE FFN; the others' is the config's MLP.
 MOE_KINDS = ("moe", "mla_moe")
 KINDS = tuple(MIXERS)
 
 
 def dtype_of(cfg) -> torch.dtype:
   return getattr(torch, cfg.dtype)
+
+
+def _window(cfg, kind: str) -> int:
+  """The attention window of a layer kind: the config's for ``local``,
+  none (0) for every other kind, as in the reference."""
+  return cfg.window_size if kind == "local" else 0
 
 
 def check_supported(cfg) -> None:
@@ -82,23 +93,25 @@ class ParamTree(nn.Module):
 
 
 class Layer(nn.Module):
-  """One block of kind ``kind``: the pre-norm mixer (GQA attention or MLA,
-  ``MIXERS``), then the pre-norm FFN (the MoE FFN for ``MOE_KINDS``, else
-  the SwiGLU MLP)."""
+  """One block of kind ``kind``: the pre-norm mixer (GQA attention, over
+  the kind's window, or MLA, ``MIXERS``), then the pre-norm FFN (the MoE
+  FFN for ``MOE_KINDS``, else the config's MLP)."""
 
   def __init__(self, cfg, params: dict, kind: str):
     super().__init__()
     self.cfg, self.kind = cfg, kind
     self.mixer = MIXERS[kind]
+    self.window = _window(cfg, kind)
     self.params = ParamTree(params)
 
   def _mix_seq(self, p, h, positions, collect_cache: bool):
     """(mixed, cache or None) of the attention over the whole sequence."""
     if self.mixer == "attn":
       if not collect_cache:
-        return L.attn_apply_seq(p["attn"], h, positions, self.cfg), None
+        return L.attn_apply_seq(p["attn"], h, positions, self.cfg,
+                                window=self.window), None
       mixed, (k, v) = L.attn_apply_seq(p["attn"], h, positions, self.cfg,
-                                       return_kv=True)
+                                       window=self.window, return_kv=True)
       return mixed, {"k": k, "v": v}
     if not collect_cache:
       return MLA.mla_apply_seq(p["mla"], h, positions, self.cfg), None
@@ -108,7 +121,8 @@ class Layer(nn.Module):
   def _mix_decode(self, p, h, cache, pos: int):
     """(mixed, cache) of one token, the cache updated in place."""
     if self.mixer == "attn":
-      return L.attn_apply_decode(p["attn"], h, cache, pos, self.cfg)
+      return L.attn_apply_decode(p["attn"], h, cache, pos, self.cfg,
+                                 window=self.window)
     return MLA.mla_apply_decode(p["mla"], h, cache, pos, self.cfg)
 
   def _ffn(self, p, h):
@@ -278,8 +292,10 @@ def forward_train(cfg, model: Transformer, batch: dict):
 
 def init_cache(cfg, batch: int, max_len: int, device="cpu") -> list[dict]:
   """One zeroed cache per layer, full length: for a GQA layer (``dense``,
-  ``moe``) k and v (B, max_len, Hkv, dh), for ``mla_moe`` the latents c_kv
-  (B, max_len, r) and k_rope (B, max_len, rd)."""
+  ``global``, ``local``, ``moe``) k and v (B, max_len, Hkv, dh), for
+  ``mla_moe`` the latents c_kv (B, max_len, r) and k_rope (B, max_len,
+  rd).  A ``local`` layer's cache is full length too, as the reference
+  keeps it: decode masks the positions below its window."""
   dtype = dtype_of(cfg)
   return [L.attn_init_cache(cfg, batch, max_len, dtype, device)
           if MIXERS[kind] == "attn" else

@@ -7,13 +7,15 @@ on the same numpy inputs, in f32: causal and not, GQA, the MLA smoke
 widths (D = 24, Dv = 16), the kernel's dense widths D = Dv = 64 at G = 4
 (llama3.2-1b) and G = 8 (tinyllama-1.1b) with a ragged S and D = Dv = 128
 at G = 6 (grok-1, a G that does not divide the kernel's 128-row tile),
+D = Dv = 256 at G = 2 (gemma3-12b) with and without its sliding window,
 chunks that do not divide S, and the sliding window, soft-cap and query offset the
 reference also has.  Tolerance 1e-5 * (1 + max|input|)
 (``test_torch_common``).  A width the kernel is not built for raises in
 ``_check``, before any launch.  The backward
 ``flash_attention_bwd`` against ``jax.vjp`` of the same reference and
-against the plain version's autograd.  The kernel itself runs only on
-the card (``requires_cuda``).
+against the plain version's autograd, with and without a window.  The
+kernel itself runs only on the card (``requires_cuda``), at every built
+width, with windows that bind and do not.
 """
 
 from __future__ import annotations
@@ -57,6 +59,9 @@ CASES = {
                                      dict(q_chunk=16, kv_chunk=16)),
     "causal_grok_width_g6_ragged": (1, 23, 23, 12, 2, 128, 128,
                                     dict(q_chunk=8, kv_chunk=8)),
+    "window_gemma_width_g2_ragged": (1, 45, 45, 4, 2, 256, 256,
+                                     dict(window=16, q_chunk=8,
+                                          kv_chunk=8)),
 }
 
 
@@ -65,11 +70,26 @@ def _inputs(b, sq, skv, h, hkv, d, dv):
           rng.normal(size=(b, skv, hkv, dv)))
 
 
+def _reference_opts(opts, sq, skv):
+  """The reference's options; under a window, one query and one key chunk,
+  the one chunking at which its windowed attention visits each key chunk
+  once where the window is not a multiple of Skv (fault R4: otherwise it
+  counts the last twice)."""
+  if not opts.get("window"):
+    return opts
+  assert opts["window"] % skv
+  return {**opts, "q_chunk": sq, "kv_chunk": skv}
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_version_matches_reference(case):
+  """Window cases: the port at the case's chunks against the reference at
+  one chunk each (``_reference_opts``)."""
   *shape, opts = CASES[case]
   q, k, v = _inputs(*shape)
-  want = jax.jit(lambda a, b, c: jlayers.flash_attention(a, b, c, **opts))(
+  ref_opts = _reference_opts(opts, shape[1], shape[2])
+  want = jax.jit(lambda a, b, c: jlayers.flash_attention(a, b, c,
+                                                         **ref_opts))(
       *(jnp.asarray(x, jnp.float32) for x in (q, k, v)))
   got = fa.flash_attention_plain(*(as_torch(x) for x in (q, k, v)), **opts)
   assert got.shape == want.shape
@@ -156,7 +176,11 @@ def test_check_refuses_an_unbuilt_width():
                                    (8, 512, 512, 48, 8, 128, 128, True),
                                    (3, 333, 333, 48, 8, 128, 128, True),
                                    (1, 77, 130, 48, 8, 128, 128, False),
-                                   (1, 200, 200, 96, 1, 128, 128, True)])
+                                   (1, 200, 200, 96, 1, 128, 128, True),
+                                   (2, 512, 512, 16, 8, 256, 256, True),
+                                   (3, 333, 333, 16, 8, 256, 256, True),
+                                   (1, 77, 130, 16, 8, 256, 256, False),
+                                   (1, 200, 200, 48, 8, 256, 256, True)])
 def test_cuda_kernel_matches_plain_version(shape, cuda_device):
   """On the card: the kernel (bf16 in and out, f32 softmax state) against
   the plain version in f32 on the same bf16 inputs, by the kernel's error
@@ -173,6 +197,40 @@ def test_cuda_kernel_matches_plain_version(shape, cuda_device):
   assert cmp["finite"]
   assert cmp["tol_ratio"] <= 1.0, cmp
   assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, cmp
+
+
+def _dense_window(q, k, v, window):
+  """Sliding-window causal attention as one masked softmax (numpy, f64):
+  query i sees keys i - window + 1 .. i."""
+  g = q.shape[2] // k.shape[2]
+  k, v = (np.repeat(x, g, axis=2) for x in (k, v))
+  s = np.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+  i = np.arange(q.shape[1])[:, None]
+  j = np.arange(k.shape[1])[None]
+  s = np.where((j <= i) & (j > i - window), s, -np.inf)
+  p = np.exp(s - s.max(-1, keepdims=True))
+  return np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v)
+
+
+@pytest.mark.parametrize("sq, window, q_chunk, kv_chunk",
+                         [(48, 32, 16, 16), (64, 16, 16, 16),
+                          (40, 9, 8, 4)])
+def test_window_fault_r4_of_the_reference(sq, window, q_chunk, kv_chunk):
+  """Fault R4: at these chunkings (the first is the gemma smoke config's
+  window and chunks at its 48-token prompts) the reference's windowed
+  attention counts its last key chunk twice or misses one, and is off the
+  one masked softmax by more than 1e-2; the plain version at the same
+  chunks is within 1e-5 of it, as at every other chunking."""
+  q, k, v = _inputs(1, sq, sq, 4, 2, 8, 8)
+  want = _dense_window(q, k, v, window)
+  ref = np.asarray(jax.jit(lambda a, b, c: jlayers.flash_attention(
+      a, b, c, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk))(
+          *(jnp.asarray(x, jnp.float32) for x in (q, k, v))))
+  assert np.abs(ref - want).max() > 1e-2
+  for qc, kc in ((q_chunk, kv_chunk), (sq, sq), (5, 3), (8, 16)):
+    got = fa.flash_attention_plain(*(as_torch(x) for x in (q, k, v)),
+                                   window=window, q_chunk=qc, kv_chunk=kc)
+    assert_close(got, want, v)
 
 
 def test_wrapper_on_cpu_takes_every_option():
@@ -196,8 +254,8 @@ def test_cuda_wrapper_refuses_an_unbuilt_width(cuda_device):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("opts", [dict(window=4), dict(softcap=2.0),
-                                  dict(q_offset=1)])
+@pytest.mark.parametrize("opts", [dict(window=4, causal=False),
+                                  dict(softcap=2.0), dict(q_offset=1)])
 def test_cuda_wrapper_refuses_options_the_kernel_lacks(opts, cuda_device):
   q, k, v = (as_torch(x, torch.bfloat16).to(cuda_device)
              for x in _inputs(1, 8, 8, 2, 2, 192, 128))
@@ -205,15 +263,19 @@ def test_cuda_wrapper_refuses_options_the_kernel_lacks(opts, cuda_device):
     fa.flash_attention(q, k, v, **opts)
 
 
-def _bf16_kernel_model(q, k, v, causal, extra_key=False):
+def _bf16_kernel_model(q, k, v, causal, extra_key=False, window=0):
   """What the kernel computes, in plain f32 arithmetic: P rounded to bf16
   for the P V product, the sum l from unrounded P, the output rounded to
   bf16.  ``extra_key`` lets every query see one key past the causal limit
-  (a mask one key off)."""
+  (a mask one key off); with a ``window``, one key past its lower edge
+  instead."""
   s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
   sq, skv = s.shape[-2:]
   if causal:
-    allowed = torch.ones(sq, skv, dtype=torch.bool).tril(int(extra_key))
+    allowed = torch.ones(sq, skv, dtype=torch.bool).tril(
+        0 if window else int(extra_key))
+    if window:
+      allowed = allowed.triu(1 - window - int(extra_key))
     s = s.masked_fill(~allowed, -1e30)
   p = torch.exp(s - s.amax(-1, keepdim=True))
   l = p.sum(-1).permute(0, 2, 1)[..., None]
@@ -238,6 +300,87 @@ def test_error_model_holds_rounding_and_catches_a_mask_error():
   cmp = fa.compare_with_plain(bad, q, k, v, True)
   assert cmp["tol_ratio"] > 1.0, cmp
   assert cmp["rel_frob"] > fa.REL_FROB_LIMIT, cmp
+
+
+def test_error_model_holds_rounding_and_catches_a_window_edge_error():
+  """With a window of 16 the same holds at the window's lower edge: the
+  kernel's roundings pass, and an output whose rows past the 128th each
+  see one key below their window (17 keys for 16) breaks both limits."""
+  q, k, v = (as_torch(x, torch.bfloat16).float()
+             for x in _inputs(1, 256, 256, 4, 2, 64, 32))
+  k, v = (x.repeat_interleave(2, dim=2) for x in (k, v))   # G = 2 as MHA
+  good = _bf16_kernel_model(q, k, v, True, window=16)
+  cmp = fa.compare_with_plain(good, q, k, v, True, window=16)
+  assert cmp["finite"]
+  assert cmp["tol_ratio"] <= 0.75, cmp
+  assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT / 2, cmp
+  bad = good.clone()
+  bad[:, 128:] = _bf16_kernel_model(q, k, v, True, extra_key=True,
+                                    window=16)[:, 128:]
+  cmp = fa.compare_with_plain(bad, q, k, v, True, window=16)
+  assert cmp["tol_ratio"] > 1.0, cmp
+  assert cmp["rel_frob"] > fa.REL_FROB_LIMIT, cmp
+  # Held without the window, the windowed output fails too.
+  cmp = fa.compare_with_plain(good, q, k, v, True)
+  assert cmp["tol_ratio"] > 1.0 and cmp["rel_frob"] > fa.REL_FROB_LIMIT
+
+
+# (B, Sq, Skv, H, Hkv, D, Dv, window): every built width under a window
+# that binds, gemma's (256, 256) at G = 2 with windows not a multiple of
+# the kernel's 64-key tile (100), of one key, of exactly a tile, and past
+# Skv (where the result must be the causal one), ragged S at G = 6.
+WINDOW_CUDA_SHAPES = [(2, 512, 512, 16, 8, 256, 256, 100),
+                      (1, 2048, 2048, 16, 8, 256, 256, 1024),
+                      (3, 333, 333, 16, 8, 256, 256, 1),
+                      (2, 300, 300, 16, 8, 256, 256, 64),
+                      (2, 300, 300, 16, 8, 256, 256, 4096),
+                      (2, 333, 333, 32, 8, 64, 64, 100),
+                      (2, 333, 333, 48, 8, 128, 128, 77),
+                      (2, 333, 333, 16, 16, 192, 128, 130)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", WINDOW_CUDA_SHAPES)
+def test_cuda_kernel_takes_the_window(shape, cuda_device):
+  """On the card, under a sliding window: the kernel against the plain
+  version with the same window by the error model; with a window at least
+  Skv, bit for bit the causal kernel's output."""
+  b, sq, skv, h, hkv, d, dv, window = shape
+  q, k, v = (as_torch(x, torch.bfloat16).to(cuda_device)
+             for x in _inputs(b, sq, skv, h, hkv, d, dv))
+  before = fa.LAUNCHES["flash_attention"]
+  got = fa.flash_attention(q, k, v, True, window=window)
+  torch.cuda.synchronize()
+  assert fa.LAUNCHES["flash_attention"] == before + 1
+  cmp = fa.compare_with_plain(got, q, k, v, True, window=window)
+  assert cmp["finite"]
+  assert cmp["tol_ratio"] <= 1.0, cmp
+  assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, cmp
+  if window >= skv:
+    assert torch.equal(got, fa.flash_attention(q, k, v, True))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(1, 300, 300, 16, 8, 256, 256, 100),
+                                   (2, 200, 200, 32, 8, 64, 64, 33)])
+def test_cuda_windowed_gradients(shape, cuda_device):
+  """The windowed forward on the card under autograd: q, k and v get
+  finite, non-zero gradients within the backward's error model of the
+  plain version's windowed autograd in f32."""
+  b, sq, skv, h, hkv, d, dv, window = shape
+  xs = [as_torch(x, torch.bfloat16).to(cuda_device).requires_grad_(True)
+        for x in _inputs(b, sq, skv, h, hkv, d, dv)]
+  out = fa.flash_attention(*xs, True, window=window)
+  assert out.grad_fn is not None
+  do = as_torch(rng.normal(size=out.shape), torch.bfloat16).to(cuda_device)
+  grads = torch.autograd.grad(out, xs, do)
+  torch.cuda.synchronize()
+  for g in grads:
+    assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+  for name, cmp in fa.compare_bwd_with_plain(
+      grads, *(x.detach() for x in xs), do, True, window).items():
+    assert cmp["tol_ratio"] <= 1.0, (name, cmp)
+    assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, (name, cmp)
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +457,65 @@ def test_backward_bf16_within_error_model(case):
     assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, (name, cmp)
 
 
+# (B, Sq, Skv, H, Hkv, D, Dv, window, q_chunk, kv_chunk): windows that
+# bind, below and across chunk edges (ragged), a window of one key, one
+# past S; the backward at these chunks, the reference at one chunk each
+# (``_reference_opts``).
+WINDOW_BWD_CASES = {
+    "window_gqa_ragged": (2, 37, 37, 4, 2, 16, 8, 9, 8, 5),
+    "window_one_key": (1, 20, 20, 2, 1, 8, 8, 1, 7, 6),
+    "window_past_s": (1, 19, 19, 4, 2, 8, 4, 40, 8, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_BWD_CASES))
+def test_windowed_backward_matches_plain_autograd_and_reference(case):
+  """f32: the windowed backward within 1e-5 * (1 + max|want|) of the
+  autograd of the plain version with the same window and of ``jax.vjp`` of
+  the reference's windowed chunked attention (one chunk each: fault R4),
+  on the same inputs and cotangent; the chunks skipped below the window
+  change nothing."""
+  b, sq, skv, h, hkv, d, dv, window, qc, kc = WINDOW_BWD_CASES[case]
+  ref_opts = _reference_opts(dict(window=window), sq, skv)
+  q, k, v = _inputs(b, sq, skv, h, hkv, d, dv)
+  do = rng.normal(size=(b, sq, h, dv))
+  xs = [as_torch(x).requires_grad_(True) for x in (q, k, v)]
+  out = fa.flash_attention_plain(*xs, window=window)
+  want_plain = torch.autograd.grad(out, xs, as_torch(do))
+  got = fa.flash_attention_bwd(*(as_torch(x) for x in (q, k, v)),
+                               out.detach(), as_torch(do), True,
+                               window=window, q_chunk=qc, kv_chunk=kc)
+  jout, want_ref = jax_vjp(
+      lambda a, b_, c: jlayers.flash_attention(a, b_, c, **ref_opts),
+      (q, k, v), do)
+  assert_close(out, jout, v)
+  for g, w, r in zip(got, want_plain, want_ref):
+    assert_close(g, w, w)
+    assert_close(g, r, r)
+
+
+def test_windowed_backward_bf16_within_error_model_and_catches_no_window():
+  """bf16, O rounded as the kernel gives it: the windowed gradients within
+  ``compare_bwd_with_plain``'s model with the window; the same gradients
+  computed without the window fail it."""
+  q, k, v = (as_torch(x, torch.bfloat16)
+             for x in _inputs(1, 64, 64, 4, 2, 32, 16))
+  do = as_torch(rng.normal(size=(1, 64, 4, 16)), torch.bfloat16)
+  out = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                 window=8).to(torch.bfloat16)
+  got = fa.flash_attention_bwd(q, k, v, out, do, True, window=8)
+  for name, cmp in fa.compare_bwd_with_plain(got, q, k, v, do, True,
+                                             8).items():
+    assert cmp["finite"], name
+    assert cmp["tol_ratio"] <= 1.0, (name, cmp)
+    assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, (name, cmp)
+  bad = fa.flash_attention_bwd(q, k, v, out, do, True)
+  for name, cmp in fa.compare_bwd_with_plain(bad, q, k, v, do, True,
+                                             8).items():
+    assert cmp["tol_ratio"] > 1.0 and cmp["rel_frob"] > fa.REL_FROB_LIMIT, (
+        name, cmp)
+
+
 def test_backward_error_model_catches_a_mask_error():
   """The gradients of non-causal attention held as causal ones fail."""
   q, k, v = (as_torch(x, torch.bfloat16)
@@ -336,13 +538,13 @@ def test_autograd_function_saves_and_differentiates(monkeypatch):
   do = as_torch(rng.normal(size=(2, 20, 4, 16)))
   calls = []
 
-  def plain_launch(q, k, v, causal):
+  def plain_launch(q, k, v, causal, window=0):
     calls.append(causal)
-    return fa.flash_attention_plain(q, k, v, causal=causal)
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window)
 
   monkeypatch.setattr(fa, "_launch", plain_launch)
   xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-  out = fa._FlashAttention.apply(*xs, True)
+  out = fa._FlashAttention.apply(*xs, True, 0)
   assert out.grad_fn is not None and calls == [True]
   got = torch.autograd.grad(out, xs, do)
   _, *want = _plain_grads(q, k, v, do, True)

@@ -141,7 +141,7 @@ def test_unported_variants_raise(what):
     if what == "norm":
       layers.norm_apply({"scale": torch.ones(4)}, x, "layernorm")
     else:
-      layers.mlp_apply({}, x, "geglu")
+      layers.mlp_apply({}, x, "gelu")
 
 
 def test_mla_prefill_matches_reference(smoke):
