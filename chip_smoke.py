@@ -18,7 +18,11 @@ kernel at head width 128 with G = 6, and the soft top-k router over 8
 experts), and the LM server of gemma3-12b, the ``local`` / ``global``
 kinds, at full width and depth (on the flash-attention kernel at head
 width 256 with G = 2, 40 of its 48 layers under the sliding window of
-1024).  Phases, each printing its own lines;
+1024), and the LM servers of stablelm-3b (LayerNorm and the GELU MLP, on
+the kernel at head width 80) and recurrentgemma-2b (the ``rg`` kind beside
+MQA at G = 10 under a window of 2048), both at full width and depth, with
+the trainer of stablelm-3b whole and a check of recurrentgemma-2b's at one
+block cycle.  Phases, each printing its own lines;
 any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit.
@@ -57,8 +61,14 @@ any failure raises and the script exits non-zero:
             (``GEMMA_ATTN_CASES``: gemma's prefill shape causal and under
             its window of 1024, a ragged S, windows of 100 and of one key,
             a window past Skv (bit for bit the causal output), ragged Sq
-            and Skv under a window, and not causal); a width not built,
-            (80, 80), raises with no launch.
+            and Skv under a window, and not causal), (256, 256) at G 10
+            (``RG_ATTN_CASES``: recurrentgemma's prefill shape under its
+            window of 2048 and causal, windows of one key and past Skv, an
+            Sq that is no multiple of 12 positions a tile, not causal) and
+            (80, 80) at G 1, run padded to 128 columns
+            (``STABLELM_ATTN_CASES``: stablelm's prefill and training
+            shapes, not causal, Sq != Skv, a ragged S); a width not built,
+            (96, 96), raises with no launch.
 4. main     fwd+bwd of soft_rank / soft_sort (l2, kl) and
             soft_spearman_loss at (128, 1000) and (128, 10000) (eps 0.1),
             and soft_trimmed_token_loss on 2**20 token losses (trim 0.1,
@@ -147,6 +157,26 @@ any failure raises and the script exits non-zero:
             local layer's (SDPA with a boolean band mask, its backend
             named), prefill ms, decode tok/s, the peak over the timed runs
             and the profiled prefill and decode step.
+   serve stablelm-3b and recurrentgemma-2b (after the gemma server's
+            model is freed, each freed before the next): ``serve.main`` as
+            the reference configures each, nothing cut, seed 0, 32
+            generated.  stablelm-3b (32 ``dense`` layers, 32 heads of 80,
+            LayerNorm, the GELU MLP of 6912, untied head; 2,229,212,160
+            bf16 parameters, 4.15 GiB) on 8 prompts of 512 tokens: 32
+            flash_attention launches a prefill, the kernel at (80, 80).
+            recurrentgemma-2b (26 layers: 8 cycles of ``rg``, ``rg``,
+            ``local`` and a trailing ``rg``, ``rg``; the RG-LRU block of
+            2560; MQA of 10 heads over 1 kv head of 256 under a window of
+            2048; GeGLU of 7680; tied; 2,894,435,840 parameters, 5.39 GiB)
+            on 8 prompts of 4096 tokens, so that the window binds: 8
+            windowed flash_attention launches a prefill (G 10), none in
+            its rg layers, and every rg layer's f32 state finite after
+            decode.  Both: a decode step launches nothing; no gate and no
+            PAV kernel; logits finite; the kernel held to its error model
+            on every attention layer's inputs as it ran; a plain-path
+            prefill; then the kernel, plain and SDPA times at the first
+            attention layer's shape, prefill ms, decode tok/s, the peaks
+            and the profiled prefill and decode step.
 5. times    CUDA-event medians per kernel (on the main path's solver
             inputs and on random rows), plain version, operator fwd and
             fwd+bwd, and torch.sort at the same shape as a yardstick; the
@@ -170,8 +200,12 @@ any failure raises and the script exits non-zero:
             (16 layers, ~20 GB of state), the config's grad_accum 4;
             gemma3-12b at full width and one block cycle of 6 of 48 layers
             (~38 GB of state), the config's grad_accum 8, its first
-            attention call a local layer's under the window.  All three:
-            random bf16 weights from seed 0, 4 AdamW steps of 8 x 2048
+            attention call a local layer's under the window; stablelm-3b
+            whole (32 layers, ~36 GB of state), the config's grad_accum 8;
+            recurrentgemma-2b, checks only, at full width and one block
+            cycle (``rg``, ``rg``, ``local``: 3 of 26 layers, ~15 GB of
+            state), 2 steps, its attention call under the window of 2048.
+            All: random bf16 weights from seed 0, AdamW steps of 8 x 2048
             tokens with 10% corrupted targets, remat "full", the soft-LTS
             token loss (trim 0.1).  Every step's launch counts equal the
             counts from the code (``train_launches_per_step``, by layer
@@ -187,7 +221,7 @@ any failure raises and the script exits non-zero:
             plain version) and backward, with the captured call's window,
             beside scaled_dot_product_attention's (with a boolean band mask
             under a window), one profiled step and the optimizer by square
-            root.
+            root (none for recurrentgemma).
 7. summary  one ``{"kernels": [...]}`` line (every kernel's launches by
             path; flash_attention's times by width, the top-level ones the
             MLA width's at the deepseek prefill, as before, gemma's
@@ -937,6 +971,23 @@ GEMMA_ATTN_CASES = (
     (3, 333, 333, 16, 8, True, 0), (2, 333, 333, 16, 8, True, 100),
     (2, 333, 333, 16, 8, True, 1), (2, 333, 333, 16, 8, True, 4096),
     (2, 300, 450, 16, 8, True, 100), (2, 77, 130, 16, 8, False, 0))
+# recurrentgemma-2b's local layers at (256, 256), G 10 (10 query heads over
+# one kv head: 12 positions, 120 of the tile's 128 rows), same fields: its
+# serving prefill (8 x 4096 under the window of 2048) and causal; a window
+# of one key; a window past Skv (bit for bit the causal output); an Sq that
+# is no multiple of 12 (301) under a window that binds; ragged Sq and Skv,
+# not causal.
+RG_ATTN_CASES = (
+    (8, 4096, 4096, 10, 1, True, 2048), (2, 4096, 4096, 10, 1, True, 0),
+    (2, 301, 301, 10, 1, True, 1), (2, 301, 301, 10, 1, True, 4096),
+    (2, 301, 301, 10, 1, True, 100), (1, 77, 130, 10, 1, False, 0))
+# stablelm-3b's width (80, 80) at G 1 (run padded to 128 columns inside the
+# kernel), same fields: its serving prefill (8 x 512) and training
+# microbatch (1 x 2048), causal; not causal; Sq != Skv; a ragged S (333).
+STABLELM_ATTN_CASES = (
+    (8, 512, 512, 32, 32, True, 0), (1, 2048, 2048, 32, 32, True, 0),
+    (2, 512, 512, 32, 32, False, 0), (2, 300, 450, 32, 32, True, 0),
+    (3, 333, 333, 32, 32, True, 0), (2, 77, 130, 32, 32, False, 0))
 
 
 def attn_key(q: torch.Tensor, v: torch.Tensor) -> str:
@@ -1011,26 +1062,29 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
     max_err[key] = max(max_err[key], cmp["max_abs_err"])
     say(f"kernels: flash_attention q ({b}, {s}, {h}, {d}) v width {dv} kv "
         f"heads {hkv} (G {h // hkv}) causal {causal}: {attn_text(cmp, fa)}")
-  for b, sq, skv, h, hkv, causal, window in GEMMA_ATTN_CASES:
-    gen = torch.Generator(device=dev).manual_seed(sq + window)
-    q = torch.randn((b, sq, h, 256), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    k, v = (torch.randn((b, skv, hkv, 256), generator=gen, device=dev,
-                        dtype=torch.bfloat16) for _ in range(2))
-    out = fa.flash_attention(q, k, v, causal, window=window)
-    cmp = attn_close(out, q, k, v, causal, fa, window)
-    max_err["flash_attention 256x256"] = max(
-        max_err["flash_attention 256x256"], cmp["max_abs_err"])
-    same = ""
-    if window >= skv:
-      check(torch.equal(out, fa.flash_attention(q, k, v, causal)),
-            f"window {window} >= Skv {skv} differs from the causal output")
-      same = "; bit for bit the causal output"
-    say(f"kernels: flash_attention q ({b}, {sq}, {h}, 256) kv ({skv}, {hkv})"
-        f" (G {h // hkv}) causal {causal} window {window}: "
-        f"{attn_text(cmp, fa)}{same}")
+  for width, cases, key in (
+      (256, GEMMA_ATTN_CASES, "flash_attention 256x256"),
+      (256, RG_ATTN_CASES, "flash_attention 256x256 G10"),
+      (80, STABLELM_ATTN_CASES, "flash_attention 80x80")):
+    for b, sq, skv, h, hkv, causal, window in cases:
+      gen = torch.Generator(device=dev).manual_seed(sq + window)
+      q = torch.randn((b, sq, h, width), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+      k, v = (torch.randn((b, skv, hkv, width), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+      out = fa.flash_attention(q, k, v, causal, window=window)
+      cmp = attn_close(out, q, k, v, causal, fa, window)
+      max_err[key] = max(max_err[key], cmp["max_abs_err"])
+      same = ""
+      if window >= skv:
+        check(torch.equal(out, fa.flash_attention(q, k, v, causal)),
+              f"window {window} >= Skv {skv} differs from the causal output")
+        same = "; bit for bit the causal output"
+      say(f"kernels: flash_attention q ({b}, {sq}, {h}, {width}) kv ({skv}, "
+          f"{hkv}) (G {h // hkv}) causal {causal} window {window}: "
+          f"{attn_text(cmp, fa)}{same}")
   # A width that is not built raises before any launch: no plain fallback.
-  x = torch.zeros((1, 8, 4, 80), dtype=torch.bfloat16, device=dev)
+  x = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16, device=dev)
   before = fa.LAUNCHES["flash_attention"]
   try:
     fa.flash_attention(x, x, x)
@@ -1039,8 +1093,8 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
   else:
     refused = None
   check(refused is not None and fa.LAUNCHES["flash_attention"] == before,
-        "flash_attention at (D, Dv) = (80, 80) did not raise")
-  say(f"kernels: flash_attention at (D, Dv) = (80, 80) on the card raises "
+        "flash_attention at (D, Dv) = (96, 96) did not raise")
+  say(f"kernels: flash_attention at (D, Dv) = (96, 96) on the card raises "
       f"ValueError with no launch: {refused}")
 
 
@@ -1252,11 +1306,12 @@ def plain_prefill_text(res, rec, serve, st, fa) -> str:
   last-position logits; the first greedy token's agreement."""
   cfg = res["cfg"]
   n_layers, b = cfg.num_layers, res["prompts"].shape[0]
+  n_attn = sum(kind != "rg" for kind in cfg.layer_kinds())
   with Recorder(st, fa, plain=True, tensors=False) as plain_rec:
     plain_res = serve.generate(cfg, res["model"], res["prompts"], 1)
-  check(len(plain_rec.attn) == n_layers
+  check(len(plain_rec.attn) == n_attn
         and len(plain_rec.gates) == (n_layers if rec.gates else 0),
-        "the plain prefill did not pass every layer")
+        "the plain prefill did not pass every attention layer")
   parts = []
   if rec.gates:
     k = cfg.experts_per_token
@@ -1867,22 +1922,46 @@ def grok_serve_times(res, rec, serve, st, fa, name_limit):
 
 
 # ---------------------------------------------------------------------------
-# The local/global serving path (gemma3-12b at full width and depth).
+# The whole-model serving paths: gemma3-12b (the local / global kinds),
+# stablelm-3b (LayerNorm, the GELU MLP, head width 80) and recurrentgemma-2b
+# (the rg kind beside windowed MQA at G = 10), each at full width and depth.
 # ---------------------------------------------------------------------------
 
 GEMMA_ARCH = "gemma3-12b"
-# Prompts of 2048 tokens: at 512 no query is more than 1023 keys from the
-# first, and the window of 1024 would never bind.  max_len 2080.
-GEMMA_PROMPT = 2048
-GEMMA_ARGV = ["--arch", GEMMA_ARCH, "--batch", str(SERVE_BATCH),
-              "--prompt-len", str(GEMMA_PROMPT), "--gen", str(SERVE_GEN)]
-# (layers, d_model, heads, kv heads, head width, FFN width, vocabulary,
-# window, MLP, tied): the reference's config, nothing cut.
-GEMMA_SHAPE = (48, 3840, 16, 8, 256, 15360, 262144, 1024, "geglu", True)
-# Counted from the config: 48 layers of 219,454,720 (attention 62,914,560,
-# GeGLU 176,947,200, two norm scales), the tied table 262144 x 3840 once
-# (1,006,632,960), the final norm; the reference's eval_shape gives the same.
-GEMMA_PARAMS = 11_765_395_200
+STABLELM_ARCH = "stablelm-3b"
+RG_ARCH = "recurrentgemma-2b"
+# What each serve run is (``serve.main`` with --arch, the prompt length,
+# --batch 8 and --gen 32): its prompt length, the config it must give ((layers, d_model, heads, kv heads, head width, FFN width,
+# vocabulary, window, MLP, norm, tied): the reference's, nothing cut), its
+# parameter count and its attention kernel's error key.
+# gemma's prompts are 2048 tokens and recurrentgemma's 4096: at 512 neither
+# window (1024, 2048) would bind.  Counted from the configs, and the
+# reference's eval_shape gives the same: gemma3-12b 48 layers of
+# 219,454,720 (attention 62,914,560, GeGLU 176,947,200, two norm scales),
+# the tied 262144 x 3840 table once, the final norm; stablelm-3b 32 layers
+# of 61,614,080 (attention 26,214,400, the GELU MLP 35,389,440, two
+# LayerNorms of scale and bias), the table and the untied head of 50304 x
+# 2560 each, the final LayerNorm; recurrentgemma-2b 18 ``rg`` layers of
+# 91,768,320 (the RG-LRU block 32,780,800, GeGLU 58,982,400, two norm
+# scales) and 8 ``local`` of 73,405,440 (MQA 14,417,920), the tied 256000
+# x 2560 table once, the final norm.
+FULL_SERVE_RUNS = {
+    GEMMA_ARCH: {
+        "prompt": 2048,
+        "shape": (48, 3840, 16, 8, 256, 15360, 262144, 1024, "geglu",
+                  "rmsnorm", True),
+        "params": 11_765_395_200, "err_key": "flash_attention 256x256"},
+    STABLELM_ARCH: {
+        "prompt": SERVE_PROMPT,
+        "shape": (32, 2560, 32, 32, 80, 6912, 50304, 0, "gelu", "layernorm",
+                  False),
+        "params": 2_229_212_160, "err_key": "flash_attention 80x80"},
+    RG_ARCH: {
+        "prompt": 4096,
+        "shape": (26, 2560, 10, 1, 256, 7680, 256000, 2048, "geglu",
+                  "rmsnorm", True),
+        "params": 2_894_435_840, "err_key": "flash_attention 256x256 G10"},
+}
 
 
 class HeldRecorder(Recorder):
@@ -1901,123 +1980,181 @@ class HeldRecorder(Recorder):
     self.kept.setdefault(window, (q, k, v, causal, out))
 
 
-def gemma_serve_path(dev, serve, ops, st, fa):
-  """gemma3-12b's serving path once through ``serve.main`` (the command a
-  user runs; random weights from seed 0, 8 prompts of 2048 tokens, 32
+def rg_states_after_decode(res, serve) -> str:
+  """The prompts served again as ``generate`` serves them (prefill, then
+  31 greedy decode steps), keeping the caches: every ``rg`` layer's state
+  after the last step is finite, f32, and h is not zero; and the tokens
+  against the first run's."""
+  from repro_torch.launch import steps
+
+  cfg, model, prompts = res["cfg"], res["model"], res["prompts"]
+  s = prompts.shape[1]
+  decode = steps.make_decode_step(cfg)
+  with torch.inference_mode():
+    logits, caches = steps.make_prefill_step(cfg, s + SERVE_GEN)(
+        model, {"tokens": prompts})
+    tokens = [serve.greedy(logits)]
+    for i in range(SERVE_GEN - 1):
+      logits, caches = decode(model, caches, tokens[-1], s + i)
+      tokens.append(serve.greedy(logits))
+  states = [c for c, kind in zip(caches, cfg.layer_kinds()) if kind == "rg"]
+  check(all(c["h"].dtype == c["conv"].dtype == torch.float32
+            and bool(torch.isfinite(c["h"]).all())
+            and bool(torch.isfinite(c["conv"]).all())
+            and bool((c["h"] != 0).any()) for c in states),
+        "an rg layer's state after decode is not finite f32")
+  same = int((torch.stack(tokens, 1) == res["tokens"]).all(-1).sum())
+  h_max = max(float(c["h"].abs().max()) for c in states)
+  return (f"serve: {cfg.name} after prefill and {SERVE_GEN - 1} decode "
+          f"steps every one of the {len(states)} rg layers' states (h "
+          f"{tuple(states[0]['h'].shape)}, conv "
+          f"{tuple(states[0]['conv'].shape)}, f32) is finite, h non-zero "
+          f"(max |h| {h_max:.3e}); the run again generated the first run's "
+          f"tokens in {same} of {prompts.shape[0]} rows")
+
+
+def full_serve_path(dev, serve, ops, st, fa, arch: str):
+  """A serve run of ``FULL_SERVE_RUNS`` once through ``serve.main`` (the
+  command a user runs; random weights from seed 0, 8 prompts, 32
   generated) with every counter from 0, then its checks: the config as the
-  reference has it; every prefill launches flash_attention once a layer
-  (48: 40 ``local`` layers with window 1024, 8 ``global`` with none, in the
-  cycle's order), a decode step none (decode attention is plain ops, as in
-  the reference), no gate and no PAV kernel; every layer's cache full
-  length; the parameter count; finite logits; the kernel held to its error
-  model on every layer's inputs as it ran; the same prefill on the plain
+  reference has it; a prefill launches flash_attention once an attention
+  layer, in the layers' order, with the window of each (gemma: 48, 40 of
+  them ``local`` under its window of 1024; stablelm: 32, none windowed;
+  recurrentgemma: its 8 ``local`` layers under the window of 2048, its
+  ``rg`` layers none), a decode step none (decode attention is plain ops,
+  as in the reference), no gate and no PAV kernel; every attention layer's
+  cache full length and every rg state its (B, L) and (B, W - 1, L); the
+  parameter count, the head tied or not; finite logits; the kernel held to
+  its error model on every attention layer's inputs as it ran (the worst
+  by window); every rg state after decode; the same prefill on the plain
   versions.  Returns (serve result, launches, recorder, the kernel's worst
   error)."""
+  run = FULL_SERVE_RUNS[arch]
   held = torch.cuda.memory_allocated(dev)
-  check(held < 2**30, f"{held / 2**30:.2f} GiB allocated before {GEMMA_ARCH}"
-        "'s weights are built (at most 1 GiB)")
+  check(held < 2**30, f"{held / 2**30:.2f} GiB allocated before {arch}'s "
+        "weights are built (at most 1 GiB)")
   ops.reset_all_launches()
   t0 = time.perf_counter()
   with HeldRecorder(st, fa) as rec:
-    res = serve.main(GEMMA_ARGV)
+    res = serve.main(["--arch", arch, "--batch", str(SERVE_BATCH),
+                      "--prompt-len", str(run["prompt"]), "--gen",
+                      str(SERVE_GEN)])
   torch.cuda.synchronize()
   launches = ops.all_launches()
   cfg = res["cfg"]
-  n_layers = cfg.num_layers
-  check((n_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+  check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
          cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.window_size,
-         cfg.mlp_variant, cfg.tie_embeddings) == GEMMA_SHAPE,
-        f"{GEMMA_ARCH} config {cfg}")
-  windows = [cfg.window_size if kind == "local" else 0
-             for kind in cfg.layer_kinds()]
+         cfg.mlp_variant, cfg.norm, cfg.tie_embeddings) == run["shape"],
+        f"{arch} config {cfg}")
+  kinds = cfg.layer_kinds()
+  windows = [cfg.window_size if kind == "local" else 0 for kind in kinds
+             if kind != "rg"]
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": n_layers}
+          "flash_attention": len(windows)}
   check(launches == want and [w for w, _, _ in rec.held] == windows
         and not rec.gates,
-        f"{GEMMA_ARCH} serve launches {launches}, windows "
+        f"{arch} serve launches {launches}, windows "
         f"{[w for w, _, _ in rec.held]}; counted from the code {want}, "
         f"windows {windows}")
-  n_local = sum(1 for w in windows if w)
-  say(f"serve: {GEMMA_ARCH} launches {launches} for 1 prefill and "
-      f"{SERVE_GEN - 1} decode steps of {n_layers} layers in "
+  n_rg, n_local = kinds.count("rg"), kinds.count("local")
+  counted = [f"{len(windows) - n_local} without a window"]
+  if n_local:
+    counted.insert(0, f"{n_local} under the window of {cfg.window_size}")
+  if n_rg:
+    counted.append(f"none in the {n_rg} rg layers")
+  say(f"serve: {arch} launches {launches} for 1 prefill and "
+      f"{SERVE_GEN - 1} decode steps of {cfg.num_layers} layers in "
       f"{time.perf_counter() - t0:.1f} s with the init and the held checks "
-      f"(counted from the code: flash_attention once a layer a prefill, "
-      f"{n_local} with window {cfg.window_size} and {n_layers - n_local} "
-      "without; nothing else)")
+      f"(counted from the code: flash_attention once an attention layer a "
+      f"prefill, {', '.join(counted)}; nothing else)")
   from repro_torch.models import transformer as T
 
   params = T.count_params(res["model"])
-  check(params == GEMMA_PARAMS, f"{params} parameters, not {GEMMA_PARAMS}")
-  check(not hasattr(res["model"], "lm_head"), "a tied model has an lm_head")
+  check(params == run["params"], f"{params} parameters, not {run['params']}")
+  check(hasattr(res["model"], "lm_head") != cfg.tie_embeddings,
+        "the head does not match tie_embeddings")
   for name in ("prefill_logits", "logits"):
     logits = res[name]
     check(tuple(logits.shape) == (SERVE_BATCH, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), f"{name}: not finite")
-  for window, (q, kx, v, _, _) in rec.kept.items():
-    check(tuple(q.shape) == (SERVE_BATCH, GEMMA_PROMPT, cfg.num_heads,
+  prompt = run["prompt"]
+  for q, kx, v, _, _ in rec.kept.values():
+    check(tuple(q.shape) == (SERVE_BATCH, prompt, cfg.num_heads,
                              cfg.head_dim)
           and tuple(kx.shape) == tuple(v.shape)
-          == (SERVE_BATCH, GEMMA_PROMPT, cfg.num_kv_heads, cfg.head_dim),
+          == (SERVE_BATCH, prompt, cfg.num_kv_heads, cfg.head_dim),
           f"captured attention shapes {q.shape}, {kx.shape}, {v.shape}")
-  caches = T.init_cache(cfg, SERVE_BATCH, GEMMA_PROMPT + SERVE_GEN, "meta")
-  check(all(t.shape == (SERVE_BATCH, GEMMA_PROMPT + SERVE_GEN,
-                        cfg.num_kv_heads, cfg.head_dim)
-            for c in caches for t in c.values()),
-        "a layer's cache is not full length")
+  caches = T.init_cache(cfg, SERVE_BATCH, prompt + SERVE_GEN, "meta")
+  width, conv = cfg.lru_width or cfg.d_model, cfg.conv_width - 1
+  check(all({k: tuple(t.shape) for k, t in c.items()} == (
+      {"h": (SERVE_BATCH, width), "conv": (SERVE_BATCH, conv, width)}
+      if kind == "rg" else dict.fromkeys(("k", "v"), (
+          SERVE_BATCH, prompt + SERVE_GEN, cfg.num_kv_heads, cfg.head_dim)))
+            for c, kind in zip(caches, kinds)),
+        "a layer's cache is not full length, or an rg state not its shape")
   cache_bytes = sum(t.numel() * t.element_size() for c in caches
                     for t in c.values())
   gib = 2**30
-  say(f"serve: {GEMMA_ARCH} {params:,} parameters (the tied table once), "
-      f"all {n_layers} layers at full width; weights "
-      f"{res['weights_bytes'] / gib:.3f} GiB; caches {len(caches)} layers "
-      f"x k and v of {tuple(caches[0]['k'].shape)}, every layer full "
-      f"length, {cache_bytes / gib:.3f} GiB; peak "
+  head = "the tied table once" if cfg.tie_embeddings else "an untied head"
+  say(f"serve: {arch} {params:,} parameters ({head}), all {cfg.num_layers} "
+      f"layers at full width; weights {res['weights_bytes'] / gib:.3f} GiB; "
+      f"caches {cache_bytes / gib:.3f} GiB (every attention layer's full "
+      f"length, {prompt + SERVE_GEN} positions); peak "
       f"{res['init_peak_bytes'] / gib:.3f} GiB while building the weights, "
       f"{res['serve_peak_bytes'] / gib:.3f} GiB while serving with the held "
       f"checks ({held / gib:.3f} GiB held before); logits finite")
-  worst = {}
-  for name, calls in (("global", [c for c in rec.held if not c[0]]),
-                      (f"local (window {cfg.window_size})",
-                       [c for c in rec.held if c[0]])):
-    worst_attn, worst_bf16 = worst_of(calls)
-    worst[name] = worst_attn["max_abs_err"]
-    say(f"serve: {GEMMA_ARCH} flash_attention at (256, 256), G 2, on all "
-        f"{len(calls)} {name} layers' inputs, worst layer by each measure "
-        f"(median |ref|: the smallest layer's), {attn_text(worst_attn, fa)};"
-        f" max |kernel - plain in bf16| {worst_bf16:.3e} (the reference's "
-        "rounding, no tolerance)")
+  worst = 0.0
+  for window in sorted(set(windows)):
+    worst_attn, worst_bf16 = worst_of([c for c in rec.held
+                                       if c[0] == window])
+    worst = max(worst, worst_attn["max_abs_err"])
+    say(f"serve: {arch} flash_attention at ({cfg.head_dim}, "
+        f"{cfg.head_dim}), G {cfg.num_heads // cfg.num_kv_heads}, on all "
+        f"{windows.count(window)} layers' inputs "
+        + (f"under the window of {window}" if window else "without a window")
+        + ", worst layer by each measure (median |ref|: the smallest "
+        f"layer's), {attn_text(worst_attn, fa)}; max |kernel - plain in "
+        f"bf16| {worst_bf16:.3e} (the reference's rounding, no tolerance)")
+  if n_rg:
+    say(rg_states_after_decode(res, serve))
   say(plain_prefill_text(res, rec, serve, st, fa))
-  return res, launches, rec, {"flash_attention 256x256": max(worst.values())}
+  return res, launches, rec, {run["err_key"]: worst}
 
 
-def gemma_serve_times(res, rec, serve, fa, dev, name_limit):
-  """gemma3-12b's times: the attention kernel at the global and the local
-  layers' captured prefill inputs (SDPA ``is_causal`` with ``enable_gqa``
-  at the global, with a boolean band mask at the local), then the server's
-  prefill ms, decode rate, peak memory over those runs and profiled
-  steps.  Returns the global row with the local one under ``local``."""
-  lines = []
-  rows = {}
+def full_serve_times(res, rec, serve, fa, dev, name_limit):
+  """A ``full_serve_path`` run's times: the attention kernel at the first
+  captured prefill inputs of each window (SDPA ``is_causal``, with
+  ``enable_gqa`` where G > 1, or with a boolean band mask under a window),
+  then the server's prefill ms, decode rate, peak memory over those runs
+  and profiled steps.  Returns the row of the smallest window (gemma's
+  global layers, stablelm's only, recurrentgemma's local), and where a
+  model has two the windowed one under ``local``."""
+  lines, rows = [], {}
   for window, (q, kx, v, causal, _) in sorted(rec.kept.items()):
     rows[window], line = attn_times(q, kx, v, causal, fa, name_limit, window)
     lines.append(line)
-  glob, local = rows[0], rows[res["cfg"].window_size]
-  if glob["device_ms"] and local["device_ms"]:
-    lines.append(f"times: flash_attention at (256, 256): the local layers' "
-                 f"window takes {local['device_ms'] / glob['device_ms']:.1%}"
-                 f" of the global layers' device time, for "
-                 f"{local['bound_ms'] / glob['bound_ms']:.1%} of the bound "
-                 f"[{name_limit}]")
+  first, *windowed = sorted(rows)
+  row = rows[first]
+  if windowed:
+    local = rows[windowed[0]]
+    if row["device_ms"] and local["device_ms"]:
+      lines.append(f"times: flash_attention at {tuple(row['width'])}: the "
+                   f"window of {windowed[0]} takes "
+                   f"{local['device_ms'] / row['device_ms']:.1%} of the "
+                   f"unwindowed layers' device time, for "
+                   f"{local['bound_ms'] / row['bound_ms']:.1%} of the bound "
+                   f"[{name_limit}]")
+    row = {**row, "local": local,
+           "windowed_launches": sum(1 for w, _, _ in rec.held if w)}
   rec.kept.clear()
   gc.collect()
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats(dev)
   lines += generate_times(res, serve, name_limit)
   peak = torch.cuda.max_memory_allocated(dev) / 2**30
-  lines.append(f"times: serve {GEMMA_ARCH} peak memory over the timed runs "
-               f"and profiles {peak:.3f} GiB [{name_limit}]")
-  windowed = sum(1 for window, _, _ in rec.held if window)
-  return {**glob, "windowed_launches": windowed, "local": local}, lines
+  lines.append(f"times: serve {res['cfg'].name} peak memory over the timed "
+               f"runs and profiles {peak:.3f} GiB [{name_limit}]")
+  return row, lines
 
 
 # ---------------------------------------------------------------------------
@@ -2035,39 +2172,61 @@ def gemma_serve_times(res, rec, serve, fa, dev, name_limit):
 # local, 1 global): 2.35e9 parameters, about 38 GB of state at 16 bytes a
 # parameter (48 layers would be 188 GB), the config's grad_accum 8
 # (microbatches of 1 x 2048) and remat "full"; its first attention call is
-# a local layer's, under the window.
+# a local layer's, under the window.  stablelm-3b runs whole: 2.23e9
+# parameters, about 36 GB of state, the config's grad_accum 8 and remat
+# "full".  recurrentgemma-2b runs its checks only, at full width and one
+# block cycle (rg, rg, local): 0.91e9 parameters, about 15 GB of state, 2
+# steps, its attention call (the local layer's) under the window of 2048,
+# which at 2048 positions keeps every key; no times.
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 4
+RG_TRAIN_STEPS = 2
 TRAIN_COMMON = ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-                "--trim-frac", "0.1", "--corrupt", "0.1",
-                "--steps", str(TRAIN_STEPS)]
+                "--trim-frac", "0.1", "--corrupt", "0.1"]
+STEPS = ["--steps", str(TRAIN_STEPS)]
 EXPERT_LEAF = "layers.0.params.ffn.we_in"     # (64, 2048, 1408) bf16
 # What each train run is: its command line, the config it must give
 # (layers, d_model, grad_accum, remat, dtype), the leaf whose AdamW update
 # is checked card against CPU, the attention shapes one microbatch gives
-# the kernel (q, v) and its first call's window (0 where absent), and its
-# depth as printed.
+# the kernel (q, v) and its first call's window (0 where absent), its
+# depth as printed, and, where they differ from the rule, its steps and
+# whether it is timed.
 TRAIN_RUNS = {
     ARCH: {
         "args": ["--arch", ARCH, "--set", f"num_layers={TRAIN_LAYERS}",
-                 *TRAIN_COMMON],
+                 *TRAIN_COMMON, *STEPS],
         "config": (TRAIN_LAYERS, 2048, 8, "full", "bfloat16"),
         "leaf": EXPERT_LEAF,
         "attn": ((1, TRAIN_SEQ, 16, 192), (1, TRAIN_SEQ, 16, 128)),
         "depth": f"{TRAIN_LAYERS} of 27 layers"},
     DENSE_ARCH: {
-        "args": ["--arch", DENSE_ARCH, *TRAIN_COMMON],
+        "args": ["--arch", DENSE_ARCH, *TRAIN_COMMON, *STEPS],
         "config": (16, 2048, 4, "full", "bfloat16"),
         "leaf": "layers.0.params.ffn.w_in",      # (2048, 8192) bf16
         "attn": ((2, TRAIN_SEQ, 32, 64), (2, TRAIN_SEQ, 8, 64)),
         "depth": "all 16 layers"},
     GEMMA_ARCH: {
         "args": ["--arch", GEMMA_ARCH, "--set", "num_layers=6",
-                 *TRAIN_COMMON],
+                 *TRAIN_COMMON, *STEPS],
         "config": (6, 3840, 8, "full", "bfloat16"),
         "leaf": "layers.0.params.ffn.w_in",      # (3840, 15360) bf16
         "attn": ((1, TRAIN_SEQ, 16, 256), (1, TRAIN_SEQ, 8, 256)),
         "window": 1024,
         "depth": "6 of 48 layers (one 5:1 cycle)"},
+    STABLELM_ARCH: {
+        "args": ["--arch", STABLELM_ARCH, *TRAIN_COMMON, *STEPS],
+        "config": (32, 2560, 8, "full", "bfloat16"),
+        "leaf": "layers.0.params.ffn.w_in",      # (2560, 6912) bf16
+        "attn": ((1, TRAIN_SEQ, 32, 80), (1, TRAIN_SEQ, 32, 80)),
+        "depth": "all 32 layers"},
+    RG_ARCH: {
+        "args": ["--arch", RG_ARCH, "--set", "num_layers=3", *TRAIN_COMMON,
+                 "--steps", str(RG_TRAIN_STEPS)],
+        "config": (3, 2560, 8, "full", "bfloat16"),
+        "leaf": "layers.0.params.rg.w_x",        # (2560, 2560) bf16
+        "attn": ((1, TRAIN_SEQ, 10, 256), (1, TRAIN_SEQ, 1, 256)),
+        "window": 2048,
+        "depth": "3 of 26 layers (one rg, rg, local cycle)",
+        "steps": RG_TRAIN_STEPS, "timed": False},
 }
 TRAIN_RANGES = ("repro_forward_train", "repro_soft_lts_loss",
                 "repro_optimizer_update")
@@ -2096,14 +2255,16 @@ def train_launches_per_step(cfg) -> dict[str, int]:
   over the microbatch's tokens, one row each, fewer than 65535); a dense
   layer launches no PAV kernel.  The soft-LTS loss sorts each
   microbatch's tokens as one row in one more ``pav_l2`` launch.  The fused
-  gates and ``pav_kl`` do not run under autograd."""
+  gates and ``pav_kl`` do not run under autograd; an ``rg`` layer launches
+  no kernel."""
   passes = cfg.grad_accum * (2 if cfg.remat == "full" else 1)
   kinds = cfg.layer_kinds()
+  n_attn = sum(kind != "rg" for kind in kinds)
   routed = (sum(kind == "mla_moe" for kind in kinds)
             if cfg.router == "soft_topk" else 0)
   trim = cfg.grad_accum if cfg.loss_trim_fraction > 0 else 0
   return {"pav_l2": passes * routed + trim, "pav_kl": 0,
-          "soft_topk_gates": 0, "flash_attention": passes * len(kinds)}
+          "soft_topk_gates": 0, "flash_attention": passes * n_attn}
 
 
 class TrainRecorder:
@@ -2192,6 +2353,7 @@ def train_path(dev, fa, arch: str):
   from repro_torch.optim import adamw
 
   run = TRAIN_RUNS[arch]
+  n_steps = run.get("steps", TRAIN_STEPS)
   ops.reset_all_launches()
   with TrainRecorder(ops, steps, adamw, fa, moe, run["leaf"]) as rec:
     res = train.main(run["args"])
@@ -2200,7 +2362,7 @@ def train_path(dev, fa, arch: str):
   cfg, state = res["cfg"], res["state"]
   check((cfg.num_layers, cfg.d_model, cfg.grad_accum, cfg.remat,
          cfg.dtype) == run["config"], f"train config {cfg}")
-  check(state.step == TRAIN_STEPS == len(rec.step_launches),
+  check(state.step == n_steps == len(rec.step_launches),
         f"{state.step} steps taken, {len(rec.step_launches)} updates")
   per_step = train_launches_per_step(cfg)
   prev = dict.fromkeys(per_step, 0)
@@ -2209,14 +2371,16 @@ def train_path(dev, fa, arch: str):
     check(got == per_step, f"train step {i}: launches {got}, counted from "
           f"the code {per_step}")
     prev = counts
-  check(launches == {k: TRAIN_STEPS * n for k, n in per_step.items()},
+  check(launches == {k: n_steps * n for k, n in per_step.items()},
         f"train launches {launches}")
-  say(f"train: {arch} launches {launches} in {TRAIN_STEPS} steps, "
+  n_attn = sum(kind != "rg" for kind in cfg.layer_kinds())
+  say(f"train: {arch} launches {launches} in {n_steps} steps, "
       f"{per_step} a step as counted from the code ({cfg.grad_accum} "
-      f"microbatches x {cfg.num_layers} {'/'.join(sorted(set(cfg.layer_kinds())))}"
-      f" layers x 2 passes under remat, + {cfg.grad_accum} soft-LTS sorts)")
+      f"microbatches x {n_attn} attention layers of {cfg.num_layers} "
+      f"{'/'.join(sorted(set(cfg.layer_kinds())))} x 2 passes under remat, "
+      f"+ {cfg.grad_accum} soft-LTS sorts)")
   res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-  n_micro = TRAIN_STEPS * cfg.grad_accum
+  n_micro = n_steps * cfg.grad_accum
   check(len(rec.losses) == n_micro
         and all(math.isfinite(x) for x in rec.losses),
         f"train microbatch losses {rec.losses}")
@@ -2230,10 +2394,13 @@ def train_path(dev, fa, arch: str):
   accum = cfg.grad_accum
   say(f"train: {arch} step losses " + ", ".join(
       f"{statistics.fmean(rec.losses[i * accum:(i + 1) * accum]):.4f}"
-      for i in range(TRAIN_STEPS)) + "; grad norms " + ", ".join(
+      for i in range(n_steps)) + "; grad norms " + ", ".join(
       f"{m['grad_norm']:.3f}" for m in rec.step_metrics) + " (all finite);"
       f" after step 1 all {n_params} parameter leaves had a finite, "
-      "non-zero gradient")
+      "non-zero gradient" + (
+          f", the {sum('.rg.' in n for n, _ in state.model.named_parameters())}"
+          " leaves of the rg layers among them" if "rg" in cfg.layer_kinds()
+          else ""))
   return res, rec, launches
 
 
@@ -2322,7 +2489,7 @@ def train_checks(rec, cfg, fa, dev, arch: str) -> tuple[list[str], dict]:
         f"{arch}: router {cfg.router} on layers {set(cfg.layer_kinds())}, "
         f"but {'no' if rec.logits is None else 'a'} router call recorded")
   if not routed:
-    lines.append(f"train: {arch} called no router (dense layers)")
+    lines.append(f"train: {arch} called no router (no MoE layers)")
     lines.append("train: " + adamw_card_vs_cpu(rec, dev))
     return lines, {"qkv": (q, k, v), "out": out, "do": do,
                    "window": window}
@@ -2526,7 +2693,7 @@ def train_times(res, rec, captured, fa, name_limit,
 
 def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     serve_rows, dense_row, grok_row, grok_gate_rows,
-                    gemma_row, train_launches, train_rows, engine_runs,
+                    full_rows, train_launches, train_rows, engine_runs,
                     engine_rows) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
@@ -2536,9 +2703,11 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   width at the deepseek prefill, as in earlier lines; ``widths`` gives
   each built width's row (MLA, the dense width at the llama prefill, grok's
   at its prefill, gemma's at its global layers' prefill with the local
-  layers' windowed one under ``local``) with its own launches, error and
-  training shape's times (none for grok, which is not trained; gemma's at
-  its first, windowed, layer).  The gates' top-level numbers stay
+  layers' windowed one under ``local``, stablelm's (80, 80) at its prefill,
+  recurrentgemma's (256, 256) at G = 10 at its local layers' windowed
+  prefill) with its own launches, error and training shape's times (none
+  for grok, which is not trained, nor for recurrentgemma, whose train run
+  is checks only; gemma's at its first, windowed, layer).  The gates' top-level numbers stay
   deepseek's (4096, 64); ``shapes`` adds grok's (4096, 8) and (8, 8)."""
 
   def by_arch(counts: dict, kname: str) -> dict[str, int]:
@@ -2586,12 +2755,14 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
        "launches": serve_counts[GROK_ARCH]["flash_attention"],
        "train_launches": None,
        "max_abs_err": max_err["flash_attention 128x128"],
-       "train_shape": None},
-      {**gemma_row, "arch": GEMMA_ARCH,
-       "launches": serve_counts[GEMMA_ARCH]["flash_attention"],
-       "train_launches": train_launches[GEMMA_ARCH]["flash_attention"],
-       "max_abs_err": max_err["flash_attention 256x256"],
-       "train_shape": train_rows[GEMMA_ARCH]}]
+       "train_shape": None}]
+  for arch, run in FULL_SERVE_RUNS.items():
+    widths.append({
+        **full_rows[arch], "arch": arch,
+        "launches": serve_counts[arch]["flash_attention"],
+        "train_launches": train_launches[arch]["flash_attention"],
+        "max_abs_err": max_err[run["err_key"]],
+        "train_shape": train_rows.get(arch)})
   kernels.append({
       "name": "flash_attention", "route": "cuda",
       "source": SOURCES["flash_attention"],
@@ -2652,7 +2823,9 @@ def main() -> int:
   max_err = {"pav_l2": 0.0, "pav_l2 vs stack": 0.0, "pav_kl": 0.0,
              "pav_kl vs stack": 0.0, "soft_topk_gates": 0.0,
              "flash_attention": 0.0, "flash_attention 64x64": 0.0,
-             "flash_attention 128x128": 0.0, "flash_attention 256x256": 0.0}
+             "flash_attention 128x128": 0.0, "flash_attention 256x256": 0.0,
+             "flash_attention 256x256 G10": 0.0,
+             "flash_attention 80x80": 0.0}
 
   def record(kname, out, ref):
     err = close(out, ref)
@@ -2879,19 +3052,22 @@ def main() -> int:
     say(line)
   del grok_res, grok_rec
 
-  # serve, gemma ------------------------------------------------------------
-  # Full width and depth (21.9 GiB of weights, 6.1 GiB of caches).
-  gc.collect()
-  torch.cuda.empty_cache()
-  gemma_res, gemma_launches, gemma_rec, gemma_err = gemma_serve_path(
-      dev, serve, kops, st, fa)
-  for kname, err in gemma_err.items():
-    max_err[kname] = max(max_err[kname], err)
-  gemma_row, gemma_lines = gemma_serve_times(gemma_res, gemma_rec, serve, fa,
-                                             dev, name_limit)
-  for line in gemma_lines:
-    say(line)
-  del gemma_res, gemma_rec
+  # serve, gemma, stablelm and recurrentgemma -------------------------------
+  # Each at full width and depth (gemma 21.9 GiB of weights and 6.1 GiB of
+  # caches), each model freed before the next.
+  full_launches, full_rows = {}, {}
+  for arch in FULL_SERVE_RUNS:
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, full_launches[arch], rec, err = full_serve_path(dev, serve, kops,
+                                                         st, fa, arch)
+    for kname, e in err.items():
+      max_err[kname] = max(max_err[kname], e)
+    full_rows[arch], full_lines = full_serve_times(res, rec, serve, fa, dev,
+                                                   name_limit)
+    for line in full_lines:
+      say(line)
+    del res, rec
 
   # 6. train ------------------------------------------------------------------
   # Each trainer's model and state go before the next one's.
@@ -2906,19 +3082,20 @@ def main() -> int:
                                          arch)
     for line in train_lines:
       say(line)
-    time_lines, train_rows[arch] = train_times(
-        train_res, train_rec, captured, fa, name_limit, arch)
-    for line in time_lines:
-      say(line)
+    if TRAIN_RUNS[arch].get("timed", True):
+      time_lines, train_rows[arch] = train_times(
+          train_res, train_rec, captured, fa, name_limit, arch)
+      for line in time_lines:
+        say(line)
     del train_res, train_rec, captured
 
   # 7. summary -------------------------------------------------------------
   kernels = kernels_summary(
       launches=launches, max_err=max_err, kernel_rows=kernel_rows,
       serve_counts={ARCH: serve_launches, DENSE_ARCH: dense_launches,
-                    GROK_ARCH: grok_launches, GEMMA_ARCH: gemma_launches},
+                    GROK_ARCH: grok_launches, **full_launches},
       serve_rows=serve_rows, dense_row=dense_row, grok_row=grok_row,
-      grok_gate_rows=grok_gate_rows, gemma_row=gemma_row,
+      grok_gate_rows=grok_gate_rows, full_rows=full_rows,
       train_launches=train_launches, train_rows=train_rows,
       engine_runs=engine_runs, engine_rows=engine_rows)
   say(json.dumps({"kernels": kernels}))

@@ -13,10 +13,12 @@
 // A window W > 0 (causal only) also masks keys at or below query - W: query
 // i sees keys i - W + 1 .. i, the reference's `local` layers' attention.
 //
-// Four widths are built: (D, Dv) = (192, 128), MLA's (deepseek-v2-lite),
+// Five widths are built: (D, Dv) = (192, 128), MLA's (deepseek-v2-lite),
 // (64, 64), the GQA head width of llama3.2-1b and tinyllama-1.1b,
-// (128, 128), grok-1's (48 query heads over 8 kv heads, G = 6), and
-// (256, 256), gemma3-12b's (16 query heads over 8 kv heads, G = 2).
+// (128, 128), grok-1's (48 query heads over 8 kv heads, G = 6),
+// (256, 256), gemma3-12b's (16 query heads over 8 kv heads, G = 2) and
+// recurrentgemma-2b's (10 query heads over 1 kv head, G = 10, under a
+// window of 2048), and (80, 80), stablelm-3b's (32 heads, G = 1).
 //
 // What bounds it on this card: at the MLA serving prefill shape (8 x 512
 // tokens, 16 heads, D 192, Dv 128) the causal work is about 10.7 GFLOP
@@ -29,7 +31,21 @@
 // (35 us), bytes; at gemma3-12b's (8 x 2048, 16 heads over 8 kv heads,
 // D = Dv = 256) 275 GFLOP (278 us) against 403 MB (120 us) in a global
 // layer and, under the window of 1024, 206 GFLOP (209 us) against the same
-// bytes in a local one: operations.  What held the first (mma.sync)
+// bytes in a local one: operations; at recurrentgemma-2b's (8 x 4096, 10
+// heads over 1 kv head of 256, window 2048) 515 GFLOP (521 us) against 369
+// MB (110 us), operations; at stablelm-3b's (8 x 512, 32 heads of 80)
+// 10.7 GFLOP (11 us) against 84 MB (25 us), bytes, and at its training
+// shape (1 x 2048) 21.5 GFLOP (22 us) against 42 MB, operations.
+//
+// A width that is not a multiple of the 64-column swizzle box (80) is
+// padded up to one (128) inside the kernel: the tensor maps keep the real
+// width, so TMA fills a box's columns past it with zeros (each box still
+// delivers, and the barrier still counts, its whole bytes); shared memory,
+// the wgmma k-steps of S = Q K^T and the n of O += P V run at the padded
+// width, where the zero columns add nothing to the scores and give zero
+// output columns; the store writes the real width's columns only.  At 80
+// that is 1.6x the products the real width needs: simple and right first.
+// What held the first (mma.sync)
 // version at 7.6x that bound, and what this design does about each:
 //   * synchronous K/V loads between two barriers, nothing in flight during
 //     the products -> a producer warpgroup streams K and V tiles with TMA
@@ -419,18 +435,24 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-// The shared-memory plan of a width: kQBufs Q buffers of kRows rows and a
-// ring of kStages K/V stages.  Two Q buffers and 3 stages up to D = 192;
-// at D = 256 a Q tile is 64 KB and a K + V stage 64 KB, so one Q buffer
-// and 2 stages (192 KB of buffers; the plan of the narrower widths would
-// need 320).
+// A width rounded up to whole 64-column swizzle boxes: what shared memory
+// and the products run at (80 -> 128).
+__host__ __device__ constexpr int padded(int width) { return (width + kBox - 1) / kBox * kBox; }
+
+// The shared-memory plan of a width (padded): kQBufs Q buffers of kRows
+// rows and a ring of kStages K/V stages.  Two Q buffers and 3 stages up to
+// D = 192; at D = 256 a Q tile is 64 KB and a K + V stage 64 KB, so one Q
+// buffer and 2 stages (192 KB of buffers; the plan of the narrower widths
+// would need 320).
 template <int D, int DV>
 struct Smem {
-  static constexpr int kQBufs = D > 192 ? 1 : 2;
-  static constexpr int kStages = D > 192 ? 2 : 3;
-  static constexpr int kQBytes = kRows * D * 2;          // D / 64 boxes
-  static constexpr int kKBytes = kKv * D * 2;
-  static constexpr int kVBytes = kKv * DV * 2;
+  static constexpr int kD = padded(D);
+  static constexpr int kDV = padded(DV);
+  static constexpr int kQBufs = kD > 192 ? 1 : 2;
+  static constexpr int kStages = kD > 192 ? 2 : 3;
+  static constexpr int kQBytes = kRows * kD * 2;         // kD / 64 boxes
+  static constexpr int kKBytes = kKv * kD * 2;
+  static constexpr int kVBytes = kKv * kDV * 2;
   static constexpr int kStageBytes = kKBytes + kVBytes;
   static constexpr int kKvOffset = kQBufs * kQBytes;
   static constexpr int kBarOffset = kKvOffset + kStages * kStageBytes;
@@ -448,11 +470,17 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_v,
              __nv_bfloat16* __restrict__ out, int batch, int sq, int skv,
              int h, int hkv, int causal, int window, float scale_log2) {
-  static_assert(D % kBox == 0 && DV % kBox == 0, "whole swizzle boxes");
-  static_assert(kKv == 64 && (DV == 64 || DV == 128 || DV == 256),
+  using S = Smem<D, DV>;
+  // D and DV are the tensors' widths; kD and kDV, whole boxes, the widths
+  // shared memory and the products run at (columns past D or DV arrive as
+  // zeros).
+  constexpr int kD = S::kD;
+  constexpr int kDV = S::kDV;
+  static_assert(D % 8 == 0 && DV % 8 == 0,
+                "16-byte rows for TMA and 8-column groups for the store");
+  static_assert(kKv == 64 && (kDV == 64 || kDV == 128 || kDV == 256),
                 "the wgmma wrappers are n64 (scores) and n64, n128 or n256 "
                 "(output)");
-  using S = Smem<D, DV>;
   constexpr int kQBufs = S::kQBufs;
   constexpr int kStages = S::kStages;
   constexpr int kBoxBytes = kBox * 2;                    // 128-byte rows
@@ -521,8 +549,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (ic >= kQBufs)
           mbar_wait(&q_empty[qb], ((ic / kQBufs) - 1) & 1);
         // The boxes' bytes, which are the buffer's only where G divides 128.
-        mbar_expect_tx(&q_full[qb], q_rows * D * 2);
-        for (int c = 0; c < D / kBox; ++c)
+        mbar_expect_tx(&q_full[qb], q_rows * kD * 2);
+        for (int c = 0; c < kD / kBox; ++c)
           tma_load_4d(q_s + qb * S::kQBytes + c * kRows * kBoxBytes, &tm_q,
                       &q_full[qb], c * kBox, it.kvh * g_count, it.q0, it.b);
         for (int j = it.first; j < it.last; ++j, ++tc) {
@@ -531,10 +559,10 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
           unsigned char* k_s = smem + S::kKvOffset + s * S::kStageBytes;
           unsigned char* v_s = k_s + S::kKBytes;
           mbar_expect_tx(&full[s], S::kStageBytes);
-          for (int c = 0; c < D / kBox; ++c)
+          for (int c = 0; c < kD / kBox; ++c)
             tma_load_4d(k_s + c * kKv * kBoxBytes, &tm_k, &full[s],
                         c * kBox, it.kvh, j * kKv, it.b);
-          for (int c = 0; c < DV / kBox; ++c)
+          for (int c = 0; c < kDV / kBox; ++c)
             tma_load_4d(v_s + c * kKv * kBoxBytes, &tm_v, &full[s],
                         c * kBox, it.kvh, j * kKv, it.b);
         }
@@ -589,12 +617,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto k_addr = [&](int j) {
       return smem_addr(smem + S::kKvOffset + stage_of(j) * S::kStageBytes);
     };
-    // S = Q K^T for tile j into sc: D / 16 k-steps, committed, not waited.
+    // S = Q K^T for tile j into sc: kD / 16 k-steps, committed, not waited.
     auto issue_scores = [&](float (&sc)[kKv / 2], int j) {
       const uint32_t k_base = k_addr(j);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < D / kBox; ++c) {
+      for (int c = 0; c < kD / kBox; ++c) {
 #pragma unroll
         for (int kk = 0; kk < kBox / 16; ++kk) {
           wgmma_ss(sc,
@@ -618,9 +646,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {kNeg, kNeg};
     float l[2] = {0.f, 0.f};
     float alpha[2];
-    float o[DV / 2];   // the m64nDV accumulator: DV / 2 f32 a thread
+    float o[kDV / 2];   // the m64nkDV accumulator: kDV / 2 f32 a thread
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kDV / 2; ++i) o[i] = 0.f;
     float sc[kKv / 2];
     uint32_t pa[kKv / 16][4];
 
@@ -644,7 +672,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     // overlaps the other warpgroup's products).
     for (int j = w0; j < nw; ++j) {
 #pragma unroll
-      for (int nt = 0; nt < DV / 8; ++nt) {
+      for (int nt = 0; nt < kDV / 8; ++nt) {
         o[nt * 4 + 0] *= alpha[0];
         o[nt * 4 + 1] *= alpha[0];
         o[nt * 4 + 2] *= alpha[1];
@@ -655,7 +683,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
         wait_tile(j + 1);
         issue_scores(sc, j + 1);
       }
-      // O += P V, V transposed from shared memory (at DV 64 one swizzle
+      // O += P V, V transposed from shared memory (at kDV 64 one swizzle
       // box, so the leading byte offset to the next box is not read).
       const uint32_t v_base = k_addr(j) + S::kKBytes;
       wgmma_fence();
@@ -682,6 +710,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     tc += it.last - it.first;
 
+    // The real width's DV / 8 column groups of each row (the padded
+    // columns past DV hold zeros and are not written).
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= q_rows || qpos[i] >= sq) continue;
@@ -787,11 +817,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // Plain C entry point, loaded with ctypes.  q (b, sq, h, d), k (b, skv, hkv,
 // d), v (b, skv, hkv, dv), out (b, sq, h, dv): bf16, C-contiguous, 16-byte
 // aligned, on the current device; hkv divides h and h / hkv <= 128.
-// (d, dv) is (192, 128), the MLA widths, or (64, 64), (128, 128) or
-// (256, 256), the dense GQA widths; another width is one more
-// instantiation of the template (whole 64-column boxes, a wgmma wrapper of
-// n = dv, a shared-memory plan that fits), and until then returns
-// cudaErrorInvalidValue.  window > 0 (causal only) keeps the keys of
+// (d, dv) is (192, 128), the MLA widths, or (64, 64), (128, 128),
+// (256, 256) or (80, 80), the dense GQA widths; another width is one more
+// instantiation of the template (multiples of 8, padded to whole 64-column
+// boxes, a wgmma wrapper of n = the padded dv, a shared-memory plan that
+// fits), and until then returns cudaErrorInvalidValue.  window > 0 (causal only) keeps the keys of
 // positions query - window + 1 .. query; 0 keeps all.  Returns the
 // launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -816,5 +846,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (d == 256 && dv == 256)
     return launch<256, 256>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
                             scale, stream);
+  if (d == 80 && dv == 80)
+    return launch<80, 80>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
+                          scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -46,9 +46,10 @@ from repro_torch.kernels import _build
 # Launch count of the kernel; only the wrapper below increments it.
 LAUNCHES = {"flash_attention": 0}
 # (D, Dv) built: the MLA widths (deepseek), the dense GQA head widths of
-# llama3.2-1b and tinyllama-1.1b (64), of grok-1 (128) and of gemma3-12b
-# (256).  Any other width raises on the card.
-KERNEL_WIDTHS = ((192, 128), (64, 64), (128, 128), (256, 256))
+# llama3.2-1b and tinyllama-1.1b (64), of grok-1 (128), of gemma3-12b and
+# recurrentgemma-2b (256) and of stablelm-3b (80, run padded to 128 inside
+# the kernel).  Any other width raises on the card.
+KERNEL_WIDTHS = ((192, 128), (64, 64), (128, 128), (256, 256), (80, 80))
 # Query rows of one block's tile: a work item takes 128 // G query positions
 # of G heads each (at G = 6, 21 positions, 126 rows), so G is at most 128.
 ROWS_PER_BLOCK = 128

@@ -1,12 +1,14 @@
-"""Shared model layers: RMSNorm, RoPE, SwiGLU and GeGLU MLPs, GQA
-attention with an optional sliding window, embedding, LM head, loss.
+"""Shared model layers: RMSNorm and LayerNorm, RoPE, the SwiGLU, GeGLU and
+GELU MLPs, GQA attention with an optional sliding window, embedding, LM
+head, loss.
 
 Counterpart of ``repro.models.layers``, for the layers the port's layer
 kinds run: the ``mla_moe`` kind (deepseek-v2-lite) uses the norm, RoPE,
 the shared experts' MLP and the head; the ``dense`` kind (llama3.2-1b,
 tinyllama-1.1b) adds GQA attention (``attn_*``, ``decode_attention``) and
 the SwiGLU MLP; the ``local`` and ``global`` kinds (gemma3-12b) the GeGLU
-MLP and, for ``local``, the sliding window.  Sequence attention is
+MLP and, for ``local``, the sliding window; stablelm-3b's ``dense`` layers
+LayerNorm and the non-gated GELU MLP.  Sequence attention is
 ``repro_torch.kernels.flash_attention``, which dispatches by device itself.
 Parameters are plain dicts of tensors in the JAX layouts (``w_in`` (d, f),
 ``wq`` (d, h, dh), ``table`` (V, d), ...), so the same pytree maps one to
@@ -47,14 +49,36 @@ def normal(gen: torch.Generator, shape, scale: float, dtype,
 # ---------------------------------------------------------------------------
 
 
+NORMS = ("rmsnorm", "layernorm")
+
+
+def norm_init(d: int, kind: str, device=None) -> Params:
+  """A norm's f32 leaves: the scale (ones) and, for LayerNorm, the bias
+  (zeros)."""
+  if kind not in NORMS:
+    raise ValueError(f"unknown norm {kind!r}; the norms are {NORMS}")
+  p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+  if kind == "layernorm":
+    p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+  return p
+
+
 def norm_apply(p: Params, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-  """RMSNorm in f32, returned in the input's dtype."""
-  if kind != "rmsnorm":
-    raise not_ported(f"norm {kind!r}", "other layer kinds")
+  """RMSNorm or LayerNorm in f32, returned in the input's dtype.  The
+  LayerNorm's variance is the population one (``jnp.var``'s, divided by
+  n), not PyTorch's default n - 1."""
+  if kind not in NORMS:
+    raise ValueError(f"unknown norm {kind!r}; the norms are {NORMS}")
   xf = x.to(torch.float32)
-  ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-  return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+  if kind == "layernorm":
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+  else:
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(ms + eps) * p["scale"]
+  return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -88,31 +112,45 @@ def rope(x: torch.Tensor, positions: torch.Tensor | int,
 # ---------------------------------------------------------------------------
 
 
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+  """The tanh-approximated gelu (the reference's ``approximate=True``)."""
+  return F.gelu(x, approximate="tanh")
+
+
 # The gated MLP variants: the same three weights, the gate's activation.
-GATED = {"swiglu": F.silu,
-         "geglu": lambda g: F.gelu(g, approximate="tanh")}
+GATED = {"swiglu": F.silu, "geglu": _gelu}
+MLPS = (*GATED, "gelu")
 
 
 def mlp_init(gen: torch.Generator, d: int, f: int, variant: str, dtype,
              device) -> Params:
-  """SwiGLU or GeGLU weights with the reference's scales: 1/sqrt(d) in,
-  1/sqrt(f) out."""
-  if variant not in GATED:
-    raise not_ported(f"MLP variant {variant!r}", "other layer kinds")
+  """The MLP's weights with the reference's scales, 1/sqrt(d) in and
+  1/sqrt(f) out, drawn w_in, w_out, then w_gate for a gated variant (the
+  non-gated GELU has none)."""
+  if variant not in MLPS:
+    raise ValueError(f"unknown MLP variant {variant!r}; the variants are "
+                     f"{MLPS}")
   si, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-  return {"w_in": normal(gen, (d, f), si, dtype, device),
-          "w_out": normal(gen, (f, d), so, dtype, device),
-          "w_gate": normal(gen, (d, f), si, dtype, device)}
+  p = {"w_in": normal(gen, (d, f), si, dtype, device),
+       "w_out": normal(gen, (f, d), so, dtype, device)}
+  if variant in GATED:
+    p["w_gate"] = normal(gen, (d, f), si, dtype, device)
+  return p
 
 
 def mlp_apply(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
-  """Gated MLP: (act(x w_gate) * x w_in) w_out, act silu (SwiGLU) or the
-  tanh-approximated gelu (GeGLU, the reference's ``approximate=True``)."""
-  if variant not in GATED:
-    raise not_ported(f"MLP variant {variant!r}", "other layer kinds")
+  """Gated MLP (act(x w_gate) * x w_in) w_out, act silu (SwiGLU) or the
+  tanh-approximated gelu (GeGLU); or the GELU MLP gelu(x w_in) w_out."""
+  if variant not in MLPS:
+    raise ValueError(f"unknown MLP variant {variant!r}; the variants are "
+                     f"{MLPS}")
   h = torch.einsum("...d,df->...f", x, p["w_in"])
-  g = torch.einsum("...d,df->...f", x, p["w_gate"])
-  return torch.einsum("...f,fd->...d", GATED[variant](g) * h, p["w_out"])
+  if variant in GATED:
+    g = torch.einsum("...d,df->...f", x, p["w_gate"])
+    h = GATED[variant](g) * h
+  else:
+    h = _gelu(h)
+  return torch.einsum("...f,fd->...d", h, p["w_out"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,17 @@
 """Model assembly: the layer stack by kind, training pass, prefill, decode.
 
-Counterpart of ``repro.models.transformer`` for five layer kinds, each a
+Counterpart of ``repro.models.transformer`` for six layer kinds, each a
 mixer and an FFN (``MIXERS``, ``MOE_KINDS``; the dense FFN is the MLP of
-the config's ``mlp_variant``, SwiGLU or GeGLU):
+the config's ``mlp_variant``, SwiGLU, GeGLU or GELU), under the config's
+norm (RMSNorm, or LayerNorm with a bias leaf):
 
-  dense     GQA attention + MLP (llama3.2-1b, tinyllama-1.1b)
+  dense     GQA attention + MLP (llama3.2-1b, tinyllama-1.1b, stablelm-3b)
   global    GQA attention + MLP (gemma3-12b's full-attention layers)
   local     GQA attention over the last ``window_size`` positions + MLP
-            (gemma3-12b's sliding-window layers, ``_window``)
+            (gemma3-12b's and recurrentgemma-2b's sliding-window layers,
+            ``_window``)
+  rg        the RG-LRU recurrent block + MLP (recurrentgemma-2b,
+            ``repro_torch.models.recurrent``)
   moe       GQA attention + MoE FFN with the soft top-k router (grok-1)
   mla_moe   MLA attention + MoE FFN with shared experts (deepseek-v2-lite)
 
@@ -25,9 +29,9 @@ keeps its activations.  Other layer kinds, frontends and remat ``"dots"``
 raise ``NotImplementedError``.
 
 ``init_params`` builds random weights with the reference's distributions
-and scales (``attn_init`` or ``mla_init``, ``mlp_init`` or ``moe_init``,
-the embedding, the LM head) directly on the target device and in the
-config's dtype, from a seeded ``torch.Generator``;
+and scales (``attn_init``, ``mla_init`` or ``rg_init``, ``mlp_init`` or
+``moe_init``, the embedding, the LM head) directly on the target device
+and in the config's dtype, from a seeded ``torch.Generator``;
 ``repro_torch.models.convert.from_jax_params`` builds the same modules from
 the reference's parameters instead.
 """
@@ -43,10 +47,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import recurrent as RG
 
-# Each layer kind's mixer, by its parameter group: GQA attention or MLA.
+# Each layer kind's mixer, by its parameter group: GQA attention, MLA or
+# the RG-LRU block.
 MIXERS = {"dense": "attn", "global": "attn", "local": "attn", "moe": "attn",
-          "mla_moe": "mla"}
+          "mla_moe": "mla", "rg": "rg"}
 # The kinds whose FFN is the MoE FFN; the others' is the config's MLP.
 MOE_KINDS = ("moe", "mla_moe")
 KINDS = tuple(MIXERS)
@@ -94,8 +100,8 @@ class ParamTree(nn.Module):
 
 class Layer(nn.Module):
   """One block of kind ``kind``: the pre-norm mixer (GQA attention, over
-  the kind's window, or MLA, ``MIXERS``), then the pre-norm FFN (the MoE
-  FFN for ``MOE_KINDS``, else the config's MLP)."""
+  the kind's window, MLA or the RG-LRU block, ``MIXERS``), then the
+  pre-norm FFN (the MoE FFN for ``MOE_KINDS``, else the config's MLP)."""
 
   def __init__(self, cfg, params: dict, kind: str):
     super().__init__()
@@ -105,7 +111,12 @@ class Layer(nn.Module):
     self.params = ParamTree(params)
 
   def _mix_seq(self, p, h, positions, collect_cache: bool):
-    """(mixed, cache or None) of the attention over the whole sequence."""
+    """(mixed, cache or None) of the mixer over the whole sequence (the
+    RG-LRU block's cache: its state after the last position)."""
+    if self.mixer == "rg":
+      if not collect_cache:
+        return RG.rg_apply_seq(p["rg"], h, self.cfg), None
+      return RG.rg_apply_seq(p["rg"], h, self.cfg, return_state=True)
     if self.mixer == "attn":
       if not collect_cache:
         return L.attn_apply_seq(p["attn"], h, positions, self.cfg,
@@ -120,6 +131,8 @@ class Layer(nn.Module):
 
   def _mix_decode(self, p, h, cache, pos: int):
     """(mixed, cache) of one token, the cache updated in place."""
+    if self.mixer == "rg":
+      return RG.rg_apply_decode(p["rg"], h, cache, self.cfg)
     if self.mixer == "attn":
       return L.attn_apply_decode(p["attn"], h, cache, pos, self.cfg,
                                  window=self.window)
@@ -204,6 +217,8 @@ def _layer_init(cfg, kind, gen, dtype, device) -> dict:
   def init_mixer():
     if mixer == "attn":
       return L.attn_init(cfg, gen, dtype, device)
+    if mixer == "rg":
+      return RG.rg_init(cfg, gen, dtype, device)
     return MLA.mla_init(cfg, gen, dtype, device)
 
   def init_ffn():
@@ -218,17 +233,18 @@ def _layer_init(cfg, kind, gen, dtype, device) -> dict:
   else:
     mixed = init_mixer()
     ffn = init_ffn()
-  norm = lambda: {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
-                                      device=device)}
-  return {"norm1": norm(), "norm2": norm(), mixer: mixed, "ffn": ffn}
+  return {"norm1": L.norm_init(cfg.d_model, cfg.norm, device),
+          "norm2": L.norm_init(cfg.d_model, cfg.norm, device),
+          mixer: mixed, "ffn": ffn}
 
 
 def init_params(cfg, seed: int = 0, device="cpu") -> Transformer:
   """Random weights from ``seed``, built on ``device`` in the config's
-  dtype (the router and norm scales in f32, as in the reference); no LM
-  head when the embeddings are tied.  On the ``meta`` device it builds the
-  shapes alone, as the reference's ``jax.eval_shape`` of its init does (a
-  full-depth grok-1 has 590 GiB of weights)."""
+  dtype (the router, the norms' leaves and the RG-LRU's ``a_param`` in
+  f32, as in the reference); no LM head when the embeddings are tied.  On
+  the ``meta`` device it builds the shapes alone, as the reference's
+  ``jax.eval_shape`` of its init does (a full-depth grok-1 has 590 GiB of
+  weights)."""
   check_supported(cfg)
   device = torch.device(device)
   dtype = dtype_of(cfg)
@@ -239,8 +255,7 @@ def init_params(cfg, seed: int = 0, device="cpu") -> Transformer:
   if not cfg.tie_embeddings:
     params["lm_head"] = {"w": L.normal(gen, (d, v), 1.0 / math.sqrt(d),
                                        dtype, device)}
-  params["final_norm"] = {"scale": torch.ones((d,), dtype=torch.float32,
-                                              device=device)}
+  params["final_norm"] = L.norm_init(d, cfg.norm, device)
   params["layers"] = [_layer_init(cfg, kind, gen, dtype, device)
                       for kind in cfg.layer_kinds()]
   return Transformer(cfg, params)
@@ -294,13 +309,19 @@ def init_cache(cfg, batch: int, max_len: int, device="cpu") -> list[dict]:
   """One zeroed cache per layer, full length: for a GQA layer (``dense``,
   ``global``, ``local``, ``moe``) k and v (B, max_len, Hkv, dh), for
   ``mla_moe`` the latents c_kv (B, max_len, r) and k_rope (B, max_len,
-  rd).  A ``local`` layer's cache is full length too, as the reference
-  keeps it: decode masks the positions below its window."""
+  rd), for ``rg`` the RG-LRU state h (B, L) and conv (B, W - 1, L) in f32,
+  whatever ``max_len``.  A ``local`` layer's cache is full length too, as
+  the reference keeps it: decode masks the positions below its window."""
   dtype = dtype_of(cfg)
-  return [L.attn_init_cache(cfg, batch, max_len, dtype, device)
-          if MIXERS[kind] == "attn" else
-          MLA.mla_init_cache(cfg, batch, max_len, dtype, device)
-          for kind in cfg.layer_kinds()]
+
+  def one(mixer):
+    if mixer == "attn":
+      return L.attn_init_cache(cfg, batch, max_len, dtype, device)
+    if mixer == "rg":
+      return RG.rg_init_state(cfg, batch, device)
+    return MLA.mla_init_cache(cfg, batch, max_len, dtype, device)
+
+  return [one(MIXERS[kind]) for kind in cfg.layer_kinds()]
 
 
 def _head(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -312,7 +333,8 @@ def forward_prefill(cfg, model: Transformer, batch: dict, max_len: int):
   """Prefill: returns (last-position logits (B, V) f32, caches).
 
   The caches hold the k / v (or latents) of positions [0, S), padded with
-  zeros to ``max_len`` so decode continues in place.
+  zeros to ``max_len`` so decode continues in place; an ``rg`` layer's
+  holds its state after position S - 1 (not per position: copied whole).
   """
   tokens = batch["tokens"]
   x = L.embed_apply(model.embed.tree(), tokens, scale=cfg.tie_embeddings)
@@ -324,7 +346,10 @@ def forward_prefill(cfg, model: Transformer, batch: dict, max_len: int):
   for layer, cache in zip(model.layers, caches):
     x, _, got = layer.apply_seq(x, positions, collect_cache=True)
     for name, latent in got.items():
-      cache[name][:, :s] = latent.to(cache[name].dtype)
+      if layer.mixer == "rg":
+        cache[name].copy_(latent)
+      else:
+        cache[name][:, :s] = latent.to(cache[name].dtype)
   return _head(cfg, model, x[:, -1]), caches
 
 

@@ -140,7 +140,7 @@ def test_transformer_refuses_a_head_that_does_not_match_the_config(smoke):
 
 def test_unported_kinds_still_raise():
   cfg = dataclasses.replace(smoke_config("llama3.2-1b"),
-                            block_cycle=("rg", "dense"))
+                            block_cycle=("mlstm", "dense"))
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     T.init_params(cfg, 0)
 

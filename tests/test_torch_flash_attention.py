@@ -8,7 +8,8 @@ widths (D = 24, Dv = 16), the kernel's dense widths D = Dv = 64 at G = 4
 (llama3.2-1b) and G = 8 (tinyllama-1.1b) with a ragged S and D = Dv = 128
 at G = 6 (grok-1, a G that does not divide the kernel's 128-row tile),
 D = Dv = 256 at G = 2 (gemma3-12b) with and without its sliding window,
-chunks that do not divide S, and the sliding window, soft-cap and query offset the
+D = Dv = 256 at G = 10 (recurrentgemma-2b's MQA) under a window, D = Dv =
+80 (stablelm-3b), chunks that do not divide S, and the sliding window, soft-cap and query offset the
 reference also has.  Tolerance 1e-5 * (1 + max|input|)
 (``test_torch_common``).  A width the kernel is not built for raises in
 ``_check``, before any launch.  The backward
@@ -62,6 +63,10 @@ CASES = {
     "window_gemma_width_g2_ragged": (1, 45, 45, 4, 2, 256, 256,
                                      dict(window=16, q_chunk=8,
                                           kv_chunk=8)),
+    "window_rg_width_g10_ragged": (1, 45, 45, 10, 1, 256, 256,
+                                   dict(window=16, q_chunk=12, kv_chunk=8)),
+    "causal_stablelm_width_80_ragged": (2, 37, 37, 4, 4, 80, 80,
+                                        dict(q_chunk=16, kv_chunk=16)),
 }
 
 
@@ -138,11 +143,12 @@ def test_scale_uses_the_qk_width():
 
 
 @pytest.mark.parametrize("d, g", [(64, 4), (64, 8), (64, 3), (128, 6),
-                                  (128, 3), (128, 128)])
+                                  (128, 3), (128, 128), (80, 1), (256, 10)])
 def test_check_takes_the_dense_width(d, g):
-  """``_check`` on bf16 tensors accepts D = Dv = 64 at G = 4 and 8 and
-  D = Dv = 128 at G = 6 (grok-1), and G = 3 and 128 too: every G up to the
-  128-row tile, whether it divides 128 or not."""
+  """``_check`` on bf16 tensors accepts D = Dv = 64 at G = 4 and 8,
+  D = Dv = 128 at G = 6 (grok-1), D = Dv = 80 at G = 1 (stablelm-3b),
+  D = Dv = 256 at G = 10 (recurrentgemma-2b), and G = 3 and 128 too: every
+  G up to the 128-row tile, whether it divides 128 or not."""
   q = torch.zeros((1, 5, 8 * g, d), dtype=torch.bfloat16)
   kv = torch.zeros((1, 5, 8, d), dtype=torch.bfloat16)
   fa._check(q, kv, kv)
@@ -157,9 +163,9 @@ def test_check_refuses_more_query_heads_a_kv_head_than_rows():
 
 
 def test_check_refuses_an_unbuilt_width():
-  """D = Dv = 80 (stablelm-3b's) is not built: ``_check`` raises before
-  any launch, so the card never falls back to the plain version."""
-  x = torch.zeros((1, 5, 4, 80), dtype=torch.bfloat16)
+  """D = Dv = 96 is not built: ``_check`` raises before any launch, so the
+  card never falls back to the plain version."""
+  x = torch.zeros((1, 5, 4, 96), dtype=torch.bfloat16)
   with pytest.raises(ValueError, match="not built"):
     fa._check(x, x, x)
 
@@ -180,14 +186,21 @@ def test_check_refuses_an_unbuilt_width():
                                    (2, 512, 512, 16, 8, 256, 256, True),
                                    (3, 333, 333, 16, 8, 256, 256, True),
                                    (1, 77, 130, 16, 8, 256, 256, False),
-                                   (1, 200, 200, 48, 8, 256, 256, True)])
+                                   (1, 200, 200, 48, 8, 256, 256, True),
+                                   (8, 512, 512, 32, 32, 80, 80, True),
+                                   (1, 2048, 2048, 32, 32, 80, 80, True),
+                                   (3, 333, 333, 32, 32, 80, 80, True),
+                                   (2, 300, 450, 32, 32, 80, 80, True),
+                                   (1, 77, 130, 32, 32, 80, 80, False),
+                                   (2, 301, 301, 10, 1, 256, 256, True)])
 def test_cuda_kernel_matches_plain_version(shape, cuda_device):
   """On the card: the kernel (bf16 in and out, f32 softmax state) against
   the plain version in f32 on the same bf16 inputs, by the kernel's error
   model (``compare_with_plain``): every element within 2 * 2**-8 * (|ref|
   + A), A the attention over |v|, and the relative Frobenius error within
-  ``REL_FROB_LIMIT`` (2**-7).  G = 3, 6 and 96 do not divide the 128-row
-  tile: 2, 2 and 32 rows of each tile are never loaded nor written."""
+  ``REL_FROB_LIMIT`` (2**-7).  G = 3, 6, 10 and 96 do not divide the
+  128-row tile: 2, 2, 8 and 32 rows of each tile are never loaded nor
+  written.  D = Dv = 80 runs padded to 128 columns inside the kernel."""
   b, sq, skv, h, hkv, d, dv, causal = shape
   q, k, v = (as_torch(x, torch.bfloat16).to(cuda_device)
              for x in _inputs(b, sq, skv, h, hkv, d, dv))
@@ -246,7 +259,7 @@ def test_wrapper_on_cpu_takes_every_option():
 
 @pytest.mark.requires_cuda
 def test_cuda_wrapper_refuses_an_unbuilt_width(cuda_device):
-  x = torch.zeros((1, 8, 4, 80), dtype=torch.bfloat16, device=cuda_device)
+  x = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16, device=cuda_device)
   before = fa.LAUNCHES["flash_attention"]
   with pytest.raises(ValueError, match="not built"):
     fa.flash_attention(x, x, x)
@@ -328,7 +341,10 @@ def test_error_model_holds_rounding_and_catches_a_window_edge_error():
 # (B, Sq, Skv, H, Hkv, D, Dv, window): every built width under a window
 # that binds, gemma's (256, 256) at G = 2 with windows not a multiple of
 # the kernel's 64-key tile (100), of one key, of exactly a tile, and past
-# Skv (where the result must be the causal one), ragged S at G = 6.
+# Skv (where the result must be the causal one), ragged S at G = 6;
+# recurrentgemma's (256, 256) at G = 10 (12 positions, 120 rows a tile)
+# at its window of 2048 over 4096 positions, a window of one key, past
+# Skv, and an Sq that is no multiple of 12 (301).
 WINDOW_CUDA_SHAPES = [(2, 512, 512, 16, 8, 256, 256, 100),
                       (1, 2048, 2048, 16, 8, 256, 256, 1024),
                       (3, 333, 333, 16, 8, 256, 256, 1),
@@ -336,7 +352,12 @@ WINDOW_CUDA_SHAPES = [(2, 512, 512, 16, 8, 256, 256, 100),
                       (2, 300, 300, 16, 8, 256, 256, 4096),
                       (2, 333, 333, 32, 8, 64, 64, 100),
                       (2, 333, 333, 48, 8, 128, 128, 77),
-                      (2, 333, 333, 16, 16, 192, 128, 130)]
+                      (2, 333, 333, 16, 16, 192, 128, 130),
+                      (2, 333, 333, 32, 32, 80, 80, 100),
+                      (1, 4096, 4096, 10, 1, 256, 256, 2048),
+                      (2, 301, 301, 10, 1, 256, 256, 100),
+                      (2, 301, 301, 10, 1, 256, 256, 1),
+                      (2, 301, 301, 10, 1, 256, 256, 4096)]
 
 
 @pytest.mark.requires_cuda
@@ -362,7 +383,8 @@ def test_cuda_kernel_takes_the_window(shape, cuda_device):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape", [(1, 300, 300, 16, 8, 256, 256, 100),
-                                   (2, 200, 200, 32, 8, 64, 64, 33)])
+                                   (2, 200, 200, 32, 8, 64, 64, 33),
+                                   (1, 301, 301, 10, 1, 256, 256, 100)])
 def test_cuda_windowed_gradients(shape, cuda_device):
   """The windowed forward on the card under autograd: q, k and v get
   finite, non-zero gradients within the backward's error model of the
@@ -556,7 +578,8 @@ def test_autograd_function_saves_and_differentiates(monkeypatch):
 @pytest.mark.parametrize("shape", [(1, 256, 256, 16, 16, 192, 128, True),
                                    (2, 100, 100, 8, 2, 192, 128, True),
                                    (1, 77, 130, 4, 4, 192, 128, False),
-                                   (2, 200, 200, 32, 8, 64, 64, True)])
+                                   (2, 200, 200, 32, 8, 64, 64, True),
+                                   (1, 300, 300, 32, 32, 80, 80, True)])
 def test_cuda_gradients_reach_q_k_and_v(shape, cuda_device):
   """On the card the kernel's output carries a grad_fn: q, k and v each
   get a finite, non-zero gradient, within the backward's error model of

@@ -46,6 +46,8 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import repro_torch.kernels.soft_topk, repro_torch.kernels.flash_attention\n"
       "import repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.smoke\n"
       "import repro_torch.configs.llama3_2_1b, repro_torch.configs.tinyllama_1_1b\n"
+      "import repro_torch.configs.stablelm_3b, repro_torch.models.recurrent\n"
+      "import repro_torch.configs.recurrentgemma_2b\n"
       "import repro_torch.data.pipeline, repro_torch.models.convert\n"
       "import repro_torch.launch.serve, repro_torch.launch.steps\n"
       "import repro_torch.launch.train, repro_torch.optim.adamw\n"

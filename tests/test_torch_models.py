@@ -136,12 +136,14 @@ def test_rope_norm_mlp_embed_match_reference(smoke):
 
 @pytest.mark.parametrize("what", ["norm", "mlp"])
 def test_unported_variants_raise(what):
+  """Every norm and MLP variant of the reference's configs is ported; a
+  name none of them has raises rather than falling back to another."""
   x = torch.zeros(2, 4)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  with pytest.raises(ValueError, match="unknown"):
     if what == "norm":
-      layers.norm_apply({"scale": torch.ones(4)}, x, "layernorm")
+      layers.norm_apply({"scale": torch.ones(4)}, x, "groupnorm")
     else:
-      layers.mlp_apply({}, x, "gelu")
+      layers.mlp_apply({}, x, "relu")
 
 
 def test_mla_prefill_matches_reference(smoke):

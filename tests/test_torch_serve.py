@@ -107,7 +107,7 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("argv, exc", [
     (["--arch", ARCH, "--device", "cpu"], ValueError),   # full size on CPU
-    (["--arch", "stablelm-3b", "--smoke", "--device", "cpu"],
+    (["--arch", "xlstm-350m", "--smoke", "--device", "cpu"],
      NotImplementedError),
 ])
 def test_what_is_not_served_raises(argv, exc):
