@@ -22,8 +22,14 @@ width 256 with G = 2, 40 of its 48 layers under the sliding window of
 the kernel at head width 80) and recurrentgemma-2b (the ``rg`` kind beside
 MQA at G = 10 under a window of 2048), both at full width and depth, with
 the trainer of stablelm-3b whole and a check of recurrentgemma-2b's at one
-block cycle.  Phases, each printing its own lines;
-any failure raises and the script exits non-zero:
+block cycle, and the last three families, each at full width and depth:
+xlstm-350m (the ``mlstm`` / ``slstm`` kinds, no kernel) served and trained,
+llava-next-mistral-7b (the vision frontend: 576 patch embeddings before
+the tokens, the kernel at head width 128 with G = 4) served, with a check
+of its trainer at 4 of 32 layers, and musicgen-large (the audio frontend:
+frame embeddings in, four codebook heads out, the kernel at head width 64
+with G = 1) served at the steps' level and trained.  Phases, each printing
+its own lines; any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit.
 2. build    build ``src/repro_torch/kernels/csrc/*.cu`` with nvcc, one
@@ -67,8 +73,12 @@ any failure raises and the script exits non-zero:
             Sq that is no multiple of 12 positions a tile, not causal) and
             (80, 80) at G 1, run padded to 128 columns
             (``STABLELM_ATTN_CASES``: stablelm's prefill and training
-            shapes, not causal, Sq != Skv, a ragged S); a width not built,
-            (96, 96), raises with no launch.
+            shapes, not causal, Sq != Skv, a ragged S), (128, 128) at G 4
+            (``LLAVA_ATTN_CASES``: llava's 1088-position prefill and its
+            training shape, a ragged S, Sq != Skv, not causal) and (64, 64)
+            at G 1 (``MUSICGEN_ATTN_CASES``: musicgen's prefill and training
+            shapes, a ragged S, not causal); a width not built, (96, 96),
+            raises with no launch.
 4. main     fwd+bwd of soft_rank / soft_sort (l2, kl) and
             soft_spearman_loss at (128, 1000) and (128, 10000) (eps 0.1),
             and soft_trimmed_token_loss on 2**20 token losses (trim 0.1,
@@ -177,6 +187,35 @@ any failure raises and the script exits non-zero:
             prefill; then the kernel, plain and SDPA times at the first
             attention layer's shape, prefill ms, decode tok/s, the peaks
             and the profiled prefill and decode step.
+   serve xlstm-350m and llava-next-mistral-7b (each freed before the
+            next, the same ``full_serve_path``): xlstm-350m (24 layers in 3
+            cycles of 7 ``mlstm`` and 1 ``slstm``, 332,748,884 bf16
+            parameters, 0.62 GiB) on 8 prompts of 512 tokens: no launch at
+            all (its blocks are PyTorch ops), every mLSTM (C, n, m) and
+            sLSTM (c, n, m, h) state finite f32 after decode, and the
+            prefill again on the CPU (the plain path, bf16) for the first 2
+            prompts: the logit difference and the first token's agreement;
+            its profiled prefill and decode step give the sLSTM scans'
+            share (host, device busy, launches: the ``repro_slstm_scan``
+            range).  llava-next-mistral-7b (32 ``dense`` layers, 32 heads
+            over 8 kv heads of 128, SwiGLU of 14336, untied; 7,241,732,096
+            parameters, 13.49 GiB) on 8 prompts of ``--prompt-len 1088``,
+            576 random patch embeddings from the pipeline and 512 tokens,
+            decoding from position 1088 (the prefill's length, not the
+            reference's 1664: fault R6): 32 flash_attention launches a
+            prefill, none a decode step, the kernel held on every layer's
+            inputs, a plain-path prefill, the kernel, plain and SDPA
+            (``enable_gqa``) times at the prefill shape.
+   serve musicgen-large at the steps' level (``launch/steps.py``'s
+            ``make_prefill_step`` / ``make_decode_step``, as the reference
+            offers audio; its server refuses it): 48 layers, LayerNorm and
+            the GELU MLP, 32 heads over 32 kv heads of 64, four codebook
+            heads, no embedding (2,433,093,632 parameters, 4.53 GiB), seed
+            0; 8 x 512 frame embeddings from the pipeline's audio branch,
+            then 31 decode steps fed its next frames: 48 flash_attention
+            launches a prefill (G 1), none a decode step; (8, 4, 2048)
+            logits finite; the kernel held on every layer's inputs; a
+            plain-path prefill; the same times as the servers above.
 5. times    CUDA-event medians per kernel (on the main path's solver
             inputs and on random rows), plain version, operator fwd and
             fwd+bwd, and torch.sort at the same shape as a yardstick; the
@@ -204,10 +243,18 @@ any failure raises and the script exits non-zero:
             whole (32 layers, ~36 GB of state), the config's grad_accum 8;
             recurrentgemma-2b, checks only, at full width and one block
             cycle (``rg``, ``rg``, ``local``: 3 of 26 layers, ~15 GB of
-            state), 2 steps, its attention call under the window of 2048.
+            state), 2 steps, its attention call under the window of 2048;
+            xlstm-350m whole (~5.3 GB of state), the config's grad_accum 8,
+            2 steps, the second timed (its 3 sLSTM scans run position by
+            position, ~50 s a step: ``XLSTM_TRAIN_STEPS``), its profile one
+            microbatch, with the scans' share; musicgen-large whole (~39 GB of state),
+            grad_accum 8, frames in and the four codebook heads' mean loss;
+            llava-next-mistral-7b, checks only, at full width and 4 of 32
+            layers (~18 GB of state; whole, ~116 GB, needs FSDP), 2 steps,
+            each microbatch 576 patches and 1472 tokens.
             All: random bf16 weights from seed 0, AdamW steps of 8 x 2048
-            tokens with 10% corrupted targets, remat "full", the soft-LTS
-            token loss (trim 0.1).  Every step's launch counts equal the
+            positions with 10% corrupted targets, remat "full", the
+            soft-LTS token loss (trim 0.1).  Every step's launch counts equal the
             counts from the code (``train_launches_per_step``, by layer
             kind); losses and grad norms are finite; after step 1 every
             parameter leaf has a finite, non-zero gradient.  On captured
@@ -226,8 +273,9 @@ any failure raises and the script exits non-zero:
             path; flash_attention's times by width, the top-level ones the
             MLA width's at the deepseek prefill, as before, gemma's
             (256, 256) at its global layers with the local layers' under
-            ``local``; the gates' grok shapes under ``shapes``), then the
-            device line last.
+            ``local``; llava's (128, 128) at G 4 and musicgen's (64, 64) at
+            G 1 at their prefills, with their train launches; the gates'
+            grok shapes under ``shapes``), then the device line last.
 
 Inputs come from numpy with a fixed seed.  Imports nothing of JAX or of the
 JAX package.
@@ -302,6 +350,16 @@ def check(ok: bool, what: str) -> None:
 
 def say(*parts) -> None:
   print(*parts, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def clock(what: str) -> None:
+  """A line with the seconds since the script started, after a phase: the
+  script must end within its time limit, and these lines say where the
+  time went."""
+  say(f"clock: {what} at {time.perf_counter() - T_START:.1f} s")
 
 
 def close(a: torch.Tensor, b: torch.Tensor, rel: float = 1e-5) -> float:
@@ -988,6 +1046,21 @@ STABLELM_ATTN_CASES = (
     (8, 512, 512, 32, 32, True, 0), (1, 2048, 2048, 32, 32, True, 0),
     (2, 512, 512, 32, 32, False, 0), (2, 300, 450, 32, 32, True, 0),
     (3, 333, 333, 32, 32, True, 0), (2, 77, 130, 32, 32, False, 0))
+# llava-next-mistral-7b's layers at (128, 128), G 4 (32 query heads over 8
+# kv heads: 32 positions a tile), same fields: its serving prefill (8 x
+# 1088: 576 patches and 512 tokens) and training microbatch (1 x 2048),
+# causal; a ragged S; Sq != Skv; not causal.
+LLAVA_ATTN_CASES = (
+    (8, 1088, 1088, 32, 8, True, 0), (1, 2048, 2048, 32, 8, True, 0),
+    (3, 333, 333, 32, 8, True, 0), (2, 300, 450, 32, 8, True, 0),
+    (2, 77, 130, 32, 8, False, 0))
+# musicgen-large's layers at (64, 64), G 1 (32 heads over 32 kv heads, a G
+# this width had not run), same fields: its serving prefill (8 x 512) and
+# training microbatch (1 x 2048), causal; a ragged S; not causal.
+MUSICGEN_ATTN_CASES = (
+    (8, 512, 512, 32, 32, True, 0), (1, 2048, 2048, 32, 32, True, 0),
+    (3, 333, 333, 32, 32, True, 0), (2, 512, 512, 32, 32, False, 0),
+    (2, 77, 130, 32, 32, False, 0))
 
 
 def attn_key(q: torch.Tensor, v: torch.Tensor) -> str:
@@ -1065,7 +1138,9 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
   for width, cases, key in (
       (256, GEMMA_ATTN_CASES, "flash_attention 256x256"),
       (256, RG_ATTN_CASES, "flash_attention 256x256 G10"),
-      (80, STABLELM_ATTN_CASES, "flash_attention 80x80")):
+      (80, STABLELM_ATTN_CASES, "flash_attention 80x80"),
+      (128, LLAVA_ATTN_CASES, "flash_attention 128x128 G4"),
+      (64, MUSICGEN_ATTN_CASES, "flash_attention 64x64 G1")):
     for b, sq, skv, h, hkv, causal, window in cases:
       gen = torch.Generator(device=dev).manual_seed(sq + window)
       q = torch.randn((b, sq, h, width), generator=gen, device=dev,
@@ -1298,6 +1373,15 @@ def captured_attn_checks(calls, fa) -> tuple[dict, float]:
                    for q, kx, v, causal, out in calls])
 
 
+def attention_layers(cfg) -> int:
+  """The layers whose mixer runs the attention kernel (GQA or MLA: one
+  launch each a prefill): none of the recurrent kinds (``rg``, ``mlstm``,
+  ``slstm``)."""
+  from repro_torch.models import transformer as T
+
+  return sum(T.MIXERS[kind] in ("attn", "mla") for kind in cfg.layer_kinds())
+
+
 def plain_prefill_text(res, rec, serve, st, fa) -> str:
   """The served prompts' prefill again on the plain versions (both kernels'
   wrappers routed to them), against the kernel path's (``rec``: its first
@@ -1306,9 +1390,9 @@ def plain_prefill_text(res, rec, serve, st, fa) -> str:
   last-position logits; the first greedy token's agreement."""
   cfg = res["cfg"]
   n_layers, b = cfg.num_layers, res["prompts"].shape[0]
-  n_attn = sum(kind != "rg" for kind in cfg.layer_kinds())
+  n_attn = attention_layers(cfg)
   with Recorder(st, fa, plain=True, tensors=False) as plain_rec:
-    plain_res = serve.generate(cfg, res["model"], res["prompts"], 1)
+    plain_res = serve.generate(cfg, res["model"], res["batch"], 1)
   check(len(plain_rec.attn) == n_attn
         and len(plain_rec.gates) == (n_layers if rec.gates else 0),
         "the plain prefill did not pass every attention layer")
@@ -1450,17 +1534,62 @@ def attn_bound(q, k, v, causal: bool, window: int = 0) -> tuple[float, str]:
 PROFILER_TRIES = 3
 
 
+def read_profile(prof, ranges=()) -> tuple[dict, dict]:
+  """(every kernel by name: [device ms, launches]; for each name in
+  ``ranges`` [host ms, device span ms, the device ms of the kernels
+  launched inside it, their count], summed over its occurrences), in one
+  pass over the profiler's raw events: torch's own ``events()`` and
+  ``key_averages()`` take minutes over a train step's 10^5-10^6 launches.
+  A kernel belongs to the PyTorch op whose correlation id is its linked
+  one (as torch's own reading pairs them), and to a range when that op
+  started inside the range on the range's thread.  The ranges (all named
+  repro_...) also show as CUDA events spanning their kernels: not kernels
+  themselves."""
+  from torch.autograd import DeviceType
+
+  kernels: dict[str, list] = {}
+  spans = {name: [0.0, 0.0, 0.0, 0] for name in ranges}
+  ops, windows, launched = {}, [], []
+  for e in prof.profiler.kineto_results.events():
+    name = e.name()
+    if e.device_type() == DeviceType.CUDA:
+      ms = e.duration_ns() / 1e6
+      if name.startswith("repro_"):
+        if name in spans:
+          spans[name][1] += ms
+        continue
+      k = kernels.setdefault(name, [0.0, 0])
+      k[0] += ms
+      k[1] += 1
+      if ranges:
+        launched.append((e.linked_correlation_id(), ms))
+    elif ranges and e.linked_correlation_id() == 0:
+      if name in spans:
+        spans[name][0] += e.duration_ns() / 1e6
+        windows.append((e.start_thread_id(), e.start_ns(),
+                        e.start_ns() + e.duration_ns(), name))
+      else:
+        ops[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+  for corr, ms in launched:
+    op = ops.get(corr)
+    for tid, lo, hi, name in windows if op else ():
+      if op[0] == tid and lo <= op[1] <= hi:
+        spans[name][2] += ms
+        spans[name][3] += 1
+        break
+  return kernels, spans
+
+
 def profile(fn, ranges=()) -> tuple[float, float | None,
                                     list[tuple[str, float, int]], dict]:
   """One call of ``fn`` under torch.profiler: (wall ms, device busy ms or
   None if no session recorded device time, every kernel with its device
   ms and launch count, the most device time first, and for each name in
-  ``ranges`` (a
-  ``record_function`` range) its host ms and its device span, from its
-  first kernel's start to its last kernel's end, summed over its
-  occurrences).  Busy time is the sum
-  of the kernels' own device times (one stream: they do not overlap)."""
-  from torch.autograd import DeviceType
+  ``ranges`` (a ``record_function`` range) [its host ms, its device span
+  from its first kernel's start to its last kernel's end, the device ms
+  of the kernels launched inside it and their count], each summed over
+  its occurrences).  Busy time is the sum of the kernels' own device times
+  (one stream: they do not overlap)."""
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as torch_profile
 
@@ -1472,22 +1601,17 @@ def profile(fn, ranges=()) -> tuple[float, float | None,
       fn()
       torch.cuda.synchronize()
       wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # The ranges (all named repro_...) also show as CUDA events spanning
-    # their kernels: not kernels themselves.
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("repro_")]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+      t1 = time.perf_counter()
+    t2 = time.perf_counter()
+    kernels, spans = read_profile(prof, ranges)
+    busy = sum(ms for ms, _ in kernels.values())
+    say(f"clock: profiled {wall / 1e3:.1f} s of work; the profiler's own "
+        f"stop {t2 - t1:.1f} s, reading its events "
+        f"{time.perf_counter() - t2:.1f} s")
     if busy > 0:
-      top = sorted(kernels, key=lambda e: -e.self_device_time_total)
-      spans = {name: [0.0, 0.0] for name in ranges}
-      for e in events:
-        if e.key in spans:
-          cuda = e.device_type == DeviceType.CUDA
-          spans[e.key][cuda] += (e.self_device_time_total if cuda
-                                 else e.cpu_time_total) / 1e3
-      return wall, busy, [(e.key, e.self_device_time_total / 1e3, e.count)
-                          for e in top], spans
+      top = sorted(((name, ms, n) for name, (ms, n) in kernels.items()),
+                   key=lambda t: -t[1])
+      return wall, busy, top, spans
   return wall, None, [], {}
 
 
@@ -1613,6 +1737,48 @@ def attn_times(q, kx, v, causal: bool, fa, name_limit,
   return row, line
 
 
+# The sLSTM scan's ranges (``models/xlstm.py``): the forward, which remat
+# runs again inside the backward, and the hand-written backward.
+SLSTM_RANGES = ("repro_slstm_scan", "repro_slstm_scan_bwd")
+
+
+def range_share_text(wall, busy, top, spans, names) -> str:
+  """The share of a profiled call that the ranges ``names`` take: host ms
+  of the wall, device ms of their kernels of the busy time, their launches
+  of all launches."""
+  if busy is None or any(n not in spans for n in names):
+    return "not measured (no profiler session recorded device time)"
+  launches = sum(n for _, _, n in top)
+  host = sum(spans[n][0] for n in names)
+  dev = sum(spans[n][2] for n in names)
+  count = sum(spans[n][3] for n in names)
+  if not count:
+    return "not measured (no kernel under the ranges)"
+  return (f"host {host:.1f} ms of the {wall:.1f} ms wall "
+          f"({host / wall:.1%}); device {dev:.2f} ms of the {busy:.2f} ms "
+          f"busy ({dev / busy:.1%}); {count} of {launches} launches "
+          f"({count / max(launches, 1):.1%}); device span "
+          + " + ".join(f"{spans[n][1]:.1f}" for n in names) + " ms")
+
+
+def profile_line(cfg, name, fn, name_limit) -> str:
+  """One profiled call of ``fn``: wall, busy and idle, launches, the top
+  kernels and, for a model with ``slstm`` layers, the sLSTM scan's share."""
+  slstm = "slstm" in cfg.layer_kinds()
+  wall, busy, top, spans = profile(fn, SLSTM_RANGES if slstm else ())
+  kernels = "; ".join(f"{key[:60]} {ms:.2f}" for key, ms, _ in top[:5])
+  busy_text = ("not measured (no profiler session recorded device time)"
+               if busy is None else
+               f"{busy:.2f} ms ({100 * (1 - busy / wall):.0f}% idle) in "
+               f"{sum(n for _, _, n in top)} launches")
+  share = (f"; the {cfg.layer_kinds().count('slstm')} slstm layers' scans "
+           + range_share_text(wall, busy, top, spans, SLSTM_RANGES[:1])
+           if slstm else "")
+  return (f"times: profile of one {cfg.name} {name}: wall {wall:.2f} ms, "
+          f"device busy {busy_text}; most device time (ms): {kernels}"
+          f"{share} [{name_limit}]")
+
+
 def generate_times(res, serve, name_limit) -> list[str]:
   """The server's prefill ms and decode rate over 3 more runs (each
   checked to give the first run's tokens), and one profiled prefill and
@@ -1620,7 +1786,7 @@ def generate_times(res, serve, name_limit) -> list[str]:
   cfg, lines = res["cfg"], []
   prefill, decode, same = [], [], 0
   for _ in range(3):
-    again = serve.generate(cfg, res["model"], res["prompts"], SERVE_GEN)
+    again = serve.generate(cfg, res["model"], res["batch"], SERVE_GEN)
     same += int(torch.equal(again["tokens"], res["tokens"]))
     prefill.append(again["prefill_s"] * 1e3)
     decode.append((SERVE_GEN - 1) * SERVE_BATCH / again["decode_s"])
@@ -1628,14 +1794,14 @@ def generate_times(res, serve, name_limit) -> list[str]:
                "the first run's tokens")
   from repro_torch.launch import steps
 
-  prompts, model = res["prompts"], res["model"]
-  s = prompts.shape[1]
+  batch, model = res["batch"], res["model"]
+  s = steps.prefill_length(cfg, batch)
   state = {}
 
   def prefill_once():
     with torch.inference_mode():
       state["logits"], state["caches"] = steps.make_prefill_step(
-          cfg, s + 2)(model, {"tokens": prompts})
+          cfg, s + 2)(model, batch)
 
   def decode_once():
     with torch.inference_mode():
@@ -1643,14 +1809,7 @@ def generate_times(res, serve, name_limit) -> list[str]:
                                   serve.greedy(state["logits"]), s)
 
   for name, fn in (("prefill", prefill_once), ("decode step", decode_once)):
-    wall, busy, top, _ = profile(fn)
-    kernels = "; ".join(f"{key[:60]} {ms:.2f}" for key, ms, _ in top[:5])
-    busy_text = ("not measured (no profiler session recorded device time)"
-                 if busy is None else
-                 f"{busy:.2f} ms ({100 * (1 - busy / wall):.0f}% idle)")
-    lines.append(f"times: profile of one {cfg.name} {name}: wall "
-                 f"{wall:.2f} ms, device busy {busy_text}; most device time "
-                 f"(ms): {kernels} [{name_limit}]")
+    lines.append(profile_line(cfg, name, fn, name_limit))
   lines.append(f"times: serve {cfg.name} prefill {SERVE_BATCH}x{s}"
                f" {statistics.median(prefill):.2f} ms (runs "
                f"{', '.join(f'{t:.2f}' for t in prefill)}), decode "
@@ -1930,12 +2089,18 @@ def grok_serve_times(res, rec, serve, st, fa, name_limit):
 GEMMA_ARCH = "gemma3-12b"
 STABLELM_ARCH = "stablelm-3b"
 RG_ARCH = "recurrentgemma-2b"
+XLSTM_ARCH = "xlstm-350m"
+LLAVA_ARCH = "llava-next-mistral-7b"
+MUSICGEN_ARCH = "musicgen-large"
+LLAVA_PROMPT = 576 + SERVE_PROMPT   # --prompt-len counts the patches
 # What each serve run is (``serve.main`` with --arch, the prompt length,
 # --batch 8 and --gen 32): its prompt length, the config it must give ((layers, d_model, heads, kv heads, head width, FFN width,
 # vocabulary, window, MLP, norm, tied): the reference's, nothing cut), its
-# parameter count and its attention kernel's error key.
+# parameter count and its attention kernel's error key (none for xlstm,
+# which has no attention layer).
 # gemma's prompts are 2048 tokens and recurrentgemma's 4096: at 512 neither
-# window (1024, 2048) would bind.  Counted from the configs, and the
+# window (1024, 2048) would bind; llava's 1088 positions are 576 patch
+# embeddings and 512 tokens.  Counted from the configs, and the
 # reference's eval_shape gives the same: gemma3-12b 48 layers of
 # 219,454,720 (attention 62,914,560, GeGLU 176,947,200, two norm scales),
 # the tied 262144 x 3840 table once, the final norm; stablelm-3b 32 layers
@@ -1944,7 +2109,14 @@ RG_ARCH = "recurrentgemma-2b"
 # 2560 each, the final LayerNorm; recurrentgemma-2b 18 ``rg`` layers of
 # 91,768,320 (the RG-LRU block 32,780,800, GeGLU 58,982,400, two norm
 # scales) and 8 ``local`` of 73,405,440 (MQA 14,417,920), the tied 256000
-# x 2560 table once, the final norm.
+# x 2560 table once, the final norm; xlstm-350m 21 ``mlstm`` layers of
+# 9,449,476 (the block's q, k, v, o and out 5,242,880 and f32 gates 8,196,
+# the GELU MLP of 2048 4,194,304, two LayerNorms) and 3 ``slstm`` of
+# 10,428,416 (w 4,194,304, r 1,048,576, b 4,096, w_out 1,048,576, GeGLU of
+# 1344 4,128,768, two LayerNorms), the table and the untied head of 50304
+# x 1024 each, the final LayerNorm; llava-next-mistral-7b 32 layers of
+# 218,112,000 (attention 41,943,040, SwiGLU 176,160,768, two norm scales),
+# the table and the untied head of 32000 x 4096 each, the final norm.
 FULL_SERVE_RUNS = {
     GEMMA_ARCH: {
         "prompt": 2048,
@@ -1961,7 +2133,21 @@ FULL_SERVE_RUNS = {
         "shape": (26, 2560, 10, 1, 256, 7680, 256000, 2048, "geglu",
                   "rmsnorm", True),
         "params": 2_894_435_840, "err_key": "flash_attention 256x256 G10"},
+    XLSTM_ARCH: {
+        "prompt": SERVE_PROMPT,
+        "shape": (24, 1024, 4, 4, 256, 0, 50304, 0, "swiglu", "layernorm",
+                  False),
+        "params": 332_748_884, "err_key": None},
+    LLAVA_ARCH: {
+        "prompt": LLAVA_PROMPT,
+        "shape": (32, 4096, 32, 8, 128, 14336, 32000, 0, "swiglu", "rmsnorm",
+                  False),
+        "params": 7_241_732_096, "err_key": "flash_attention 128x128 G4"},
 }
+# The xlstm server's prefill again on the CPU (the port's plain path, in
+# bf16) for these first prompts of the batch: a whole batch would take the
+# CPU tens of seconds.
+XLSTM_CPU_ROWS = 2
 
 
 class HeldRecorder(Recorder):
@@ -1980,37 +2166,145 @@ class HeldRecorder(Recorder):
     self.kept.setdefault(window, (q, k, v, causal, out))
 
 
-def rg_states_after_decode(res, serve) -> str:
+# The recurrent kinds' states, by kind: the leaf that must not stay zero
+# after decode (the state that carries the sequence).
+RECURRENT_LIVE = {"rg": "h", "mlstm": "c", "slstm": "h"}
+
+
+def recurrent_states_after_decode(res, serve) -> str:
   """The prompts served again as ``generate`` serves them (prefill, then
-  31 greedy decode steps), keeping the caches: every ``rg`` layer's state
-  after the last step is finite, f32, and h is not zero; and the tokens
+  31 greedy decode steps), keeping the caches: every recurrent layer's
+  state after the last step (rg h and conv; mlstm C, n and m; slstm c, n,
+  m and h) is finite and f32, its live leaf not zero; and the tokens
   against the first run's."""
   from repro_torch.launch import steps
 
-  cfg, model, prompts = res["cfg"], res["model"], res["prompts"]
-  s = prompts.shape[1]
+  cfg, model, batch = res["cfg"], res["model"], res["batch"]
+  s = steps.prefill_length(cfg, batch)
   decode = steps.make_decode_step(cfg)
   with torch.inference_mode():
-    logits, caches = steps.make_prefill_step(cfg, s + SERVE_GEN)(
-        model, {"tokens": prompts})
+    logits, caches = steps.make_prefill_step(cfg, s + SERVE_GEN)(model,
+                                                                 batch)
     tokens = [serve.greedy(logits)]
     for i in range(SERVE_GEN - 1):
       logits, caches = decode(model, caches, tokens[-1], s + i)
       tokens.append(serve.greedy(logits))
-  states = [c for c, kind in zip(caches, cfg.layer_kinds()) if kind == "rg"]
-  check(all(c["h"].dtype == c["conv"].dtype == torch.float32
-            and bool(torch.isfinite(c["h"]).all())
-            and bool(torch.isfinite(c["conv"]).all())
-            and bool((c["h"] != 0).any()) for c in states),
-        "an rg layer's state after decode is not finite f32")
+  parts = []
+  for kind, live in RECURRENT_LIVE.items():
+    states = [c for c, k in zip(caches, cfg.layer_kinds()) if k == kind]
+    if not states:
+      continue
+    check(all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+              for c in states for t in c.values())
+          and all(bool((c[live] != 0).any()) for c in states),
+          f"a {kind} layer's state after decode is not finite f32")
+    top = max(float(c[live].abs().max()) for c in states)
+    shapes = ", ".join(f"{k} {tuple(t.shape)}" for k, t in states[0].items())
+    parts.append(f"the {len(states)} {kind} layers' ({shapes}) finite f32, "
+                 f"{live} non-zero (max |{live}| {top:.3e})")
   same = int((torch.stack(tokens, 1) == res["tokens"]).all(-1).sum())
-  h_max = max(float(c["h"].abs().max()) for c in states)
   return (f"serve: {cfg.name} after prefill and {SERVE_GEN - 1} decode "
-          f"steps every one of the {len(states)} rg layers' states (h "
-          f"{tuple(states[0]['h'].shape)}, conv "
-          f"{tuple(states[0]['conv'].shape)}, f32) is finite, h non-zero "
-          f"(max |h| {h_max:.3e}); the run again generated the first run's "
-          f"tokens in {same} of {prompts.shape[0]} rows")
+          f"steps every recurrent state is checked: {'; '.join(parts)}; "
+          f"the run again generated the first run's tokens in {same} of "
+          f"{res['prompts'].shape[0]} rows")
+
+
+def rel_frob(a: torch.Tensor, b: torch.Tensor) -> float:
+  """||a - b||_F / ||b||_F in f64."""
+  a, b = a.double(), b.double()
+  return float(torch.linalg.vector_norm(a - b)
+               / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+# The limit on the relative Frobenius error of one xLSTM layer's output
+# and state on the CPU against the card's, from the same input: bf16 holds
+# 2^-9 relative; an mLSTM layer's normalization by sums of signed terms
+# amplifies a rounding some tens of times (the port's tests measured up to
+# ~28x at smoke size), so 2^-4 passes rounding and fails a wrong layer.
+XLSTM_LAYER_LIMIT = 2.0**-4
+
+
+def cpu_layers_text(res) -> str:
+  """The xlstm server's prefill checked against the CPU (the port's plain
+  path, in the same dtype) for the first ``XLSTM_CPU_ROWS`` prompts.
+  With random weights this model amplifies one bf16 rounding into O(1)
+  logits end to end: the card's own prefill with its embedding table
+  perturbed by one rounding (a relative 2^-8 of random sign) shows the
+  spread.  So the CPU is held to the card layer by layer, each layer on a
+  CPU copy from the card's input to it: its output and its state
+  (relative Frobenius error, limit ``XLSTM_LAYER_LIMIT``).  End to end,
+  the whole prefill again on the CPU: the logit difference and the first
+  token's agreement, beside that spread."""
+  import copy
+
+  from repro_torch.launch import steps
+  from repro_torch.models import transformer as T
+
+  cfg, model = res["cfg"], res["model"]
+  rows = {k: v[:XLSTM_CPU_ROWS] for k, v in res["batch"].items()}
+  s = steps.prefill_length(cfg, rows)
+  t0 = time.perf_counter()
+  worst_out, worst_state = 0.0, 0.0
+  with torch.inference_mode():
+    x = T.embed_inputs(cfg, model, rows)
+    for layer in model.layers:
+      out, _, st = layer.apply_seq(x, torch.arange(s, device=x.device),
+                                   collect_cache=True)
+      host = copy.deepcopy(layer).cpu()
+      out_c, _, st_c = host.apply_seq(x.cpu(), torch.arange(s),
+                                      collect_cache=True)
+      worst_out = max(worst_out, rel_frob(out.cpu(), out_c))
+      worst_state = max(worst_state, max(rel_frob(st[k].cpu(), st_c[k])
+                                         for k in st))
+      x = out
+    check(worst_out <= XLSTM_LAYER_LIMIT and worst_state <= XLSTM_LAYER_LIMIT,
+          f"xlstm layer on the CPU vs the card: output {worst_out:.3e}, "
+          f"state {worst_state:.3e} (limit {XLSTM_LAYER_LIMIT:.3e})")
+    host = copy.deepcopy(model).cpu()
+    logits, _ = steps.make_prefill_step(cfg)(
+        host, {k: v.cpu() for k, v in rows.items()})
+    del host
+    card = res["prefill_logits"][:XLSTM_CPU_ROWS].cpu()
+    table = model.embed.table
+    saved = table.clone()
+    gen = torch.Generator(device=table.device).manual_seed(SEED)
+    sign = torch.randint(0, 2, table.shape, generator=gen,
+                         device=table.device).to(table.dtype) * 2 - 1
+    table.mul_(1 + 2.0**-8 * sign)
+    spread, _ = steps.make_prefill_step(cfg)(model, rows)
+    table.copy_(saved)
+    del saved, sign
+  seconds = time.perf_counter() - t0
+  check(bool(torch.isfinite(logits).all()), "CPU prefill logits not finite")
+  dl = float((card - logits).abs().max())
+  ds = float((card - spread.cpu()).abs().max())
+  agree = int((card.argmax(-1) == logits.argmax(-1)).sum())
+  return (f"serve: {cfg.name} card vs CPU (plain path, {cfg.dtype}) on the "
+          f"first {XLSTM_CPU_ROWS} prompts: every one of the "
+          f"{cfg.num_layers} layers from the card's input to it, relative "
+          f"Frobenius error of the output at most {worst_out:.3e}, of the "
+          f"state {worst_state:.3e} (limit {XLSTM_LAYER_LIMIT:.3e}); end to "
+          f"end the last-position logits differ by at most {dl:.3e} (max "
+          f"|logit| {float(logits.abs().max()):.3e}), the first greedy "
+          f"token agrees in {agree} of {XLSTM_CPU_ROWS} rows, while one "
+          f"rounding of the embedding table moves the card's own logits by "
+          f"{ds:.3e}; {seconds:.1f} s")
+
+
+def cache_shapes(cfg, kind: str, batch: int, max_len: int) -> dict:
+  """The cache a layer of ``kind`` must hold: k / v full length for
+  attention, the recurrent kinds' states whatever ``max_len``."""
+  width, dh = cfg.lru_width or cfg.d_model, cfg.d_model // cfg.num_heads
+  h = cfg.num_heads
+  if kind == "rg":
+    return {"h": (batch, width), "conv": (batch, cfg.conv_width - 1, width)}
+  if kind == "mlstm":
+    return {"c": (batch, h, cfg.head_dim, cfg.head_dim),
+            "n": (batch, h, cfg.head_dim), "m": (batch, h)}
+  if kind == "slstm":
+    return dict.fromkeys("cnmh", (batch, h, dh))
+  return dict.fromkeys(("k", "v"), (batch, max_len, cfg.num_kv_heads,
+                                    cfg.head_dim))
 
 
 def full_serve_path(dev, serve, ops, st, fa, arch: str):
@@ -2021,14 +2315,18 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
   layer, in the layers' order, with the window of each (gemma: 48, 40 of
   them ``local`` under its window of 1024; stablelm: 32, none windowed;
   recurrentgemma: its 8 ``local`` layers under the window of 2048, its
-  ``rg`` layers none), a decode step none (decode attention is plain ops,
-  as in the reference), no gate and no PAV kernel; every attention layer's
-  cache full length and every rg state its (B, L) and (B, W - 1, L); the
-  parameter count, the head tied or not; finite logits; the kernel held to
-  its error model on every attention layer's inputs as it ran (the worst
-  by window); every rg state after decode; the same prefill on the plain
-  versions.  Returns (serve result, launches, recorder, the kernel's worst
-  error)."""
+  ``rg`` layers none; xlstm: none, its ``mlstm`` and ``slstm`` layers are
+  PyTorch ops; llava: 32 over its 576 patches and 512 tokens), a decode
+  step none (decode attention is plain ops, as in the reference), no gate
+  and no PAV kernel; every attention layer's cache full length and every
+  recurrent state its shape; the parameter count, the head tied or not;
+  finite logits; the kernel held to its error model on every attention
+  layer's inputs as it ran (the worst by window); every recurrent state
+  after decode; the same prefill on the plain versions (for xlstm, which
+  has no kernel, on the CPU).  Returns (serve result, launches, recorder,
+  the kernel's worst error by key)."""
+  from repro_torch.models import transformer as T
+
   run = FULL_SERVE_RUNS[arch]
   held = torch.cuda.memory_allocated(dev)
   check(held < 2**30, f"{held / 2**30:.2f} GiB allocated before {arch}'s "
@@ -2048,7 +2346,7 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
         f"{arch} config {cfg}")
   kinds = cfg.layer_kinds()
   windows = [cfg.window_size if kind == "local" else 0 for kind in kinds
-             if kind != "rg"]
+             if T.MIXERS[kind] == "attn"]
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
           "flash_attention": len(windows)}
   check(launches == want and [w for w, _, _ in rec.held] == windows
@@ -2056,18 +2354,18 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
         f"{arch} serve launches {launches}, windows "
         f"{[w for w, _, _ in rec.held]}; counted from the code {want}, "
         f"windows {windows}")
-  n_rg, n_local = kinds.count("rg"), kinds.count("local")
-  counted = [f"{len(windows) - n_local} without a window"]
+  n_local = kinds.count("local")
+  counted = [f"{len(windows) - n_local} without a window"] if windows else []
   if n_local:
     counted.insert(0, f"{n_local} under the window of {cfg.window_size}")
-  if n_rg:
-    counted.append(f"none in the {n_rg} rg layers")
+  for kind in T.RECURRENT:
+    if kind in kinds:
+      counted.append(f"none in the {kinds.count(kind)} {kind} layers")
   say(f"serve: {arch} launches {launches} for 1 prefill and "
       f"{SERVE_GEN - 1} decode steps of {cfg.num_layers} layers in "
       f"{time.perf_counter() - t0:.1f} s with the init and the held checks "
       f"(counted from the code: flash_attention once an attention layer a "
       f"prefill, {', '.join(counted)}; nothing else)")
-  from repro_torch.models import transformer as T
 
   params = T.count_params(res["model"])
   check(params == run["params"], f"{params} parameters, not {run['params']}")
@@ -2085,21 +2383,22 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
           == (SERVE_BATCH, prompt, cfg.num_kv_heads, cfg.head_dim),
           f"captured attention shapes {q.shape}, {kx.shape}, {v.shape}")
   caches = T.init_cache(cfg, SERVE_BATCH, prompt + SERVE_GEN, "meta")
-  width, conv = cfg.lru_width or cfg.d_model, cfg.conv_width - 1
-  check(all({k: tuple(t.shape) for k, t in c.items()} == (
-      {"h": (SERVE_BATCH, width), "conv": (SERVE_BATCH, conv, width)}
-      if kind == "rg" else dict.fromkeys(("k", "v"), (
-          SERVE_BATCH, prompt + SERVE_GEN, cfg.num_kv_heads, cfg.head_dim)))
+  check(all({k: tuple(t.shape) for k, t in c.items()} == cache_shapes(
+      cfg, kind, SERVE_BATCH, prompt + SERVE_GEN)
             for c, kind in zip(caches, kinds)),
-        "a layer's cache is not full length, or an rg state not its shape")
+        "a layer's cache is not full length, or a state not its shape")
   cache_bytes = sum(t.numel() * t.element_size() for c in caches
                     for t in c.values())
   gib = 2**30
   head = "the tied table once" if cfg.tie_embeddings else "an untied head"
+  prompt_text = (f"{prompt} positions: {cfg.num_patches} patches and "
+                 f"{prompt - cfg.num_patches} tokens"
+                 if cfg.frontend == "vision" else f"{prompt} tokens")
   say(f"serve: {arch} {params:,} parameters ({head}), all {cfg.num_layers} "
-      f"layers at full width; weights {res['weights_bytes'] / gib:.3f} GiB; "
-      f"caches {cache_bytes / gib:.3f} GiB (every attention layer's full "
-      f"length, {prompt + SERVE_GEN} positions); peak "
+      f"layers at full width; prompts of {prompt_text}; weights "
+      f"{res['weights_bytes'] / gib:.3f} GiB; caches {cache_bytes / gib:.3f}"
+      f" GiB (every attention layer's full length, {prompt + SERVE_GEN} "
+      f"positions, and the recurrent states); peak "
       f"{res['init_peak_bytes'] / gib:.3f} GiB while building the weights, "
       f"{res['serve_peak_bytes'] / gib:.3f} GiB while serving with the held "
       f"checks ({held / gib:.3f} GiB held before); logits finite")
@@ -2115,10 +2414,14 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
         + ", worst layer by each measure (median |ref|: the smallest "
         f"layer's), {attn_text(worst_attn, fa)}; max |kernel - plain in "
         f"bf16| {worst_bf16:.3e} (the reference's rounding, no tolerance)")
-  if n_rg:
-    say(rg_states_after_decode(res, serve))
-  say(plain_prefill_text(res, rec, serve, st, fa))
-  return res, launches, rec, {run["err_key"]: worst}
+  if any(kind in T.RECURRENT for kind in kinds):
+    say(recurrent_states_after_decode(res, serve))
+  if windows:
+    say(plain_prefill_text(res, rec, serve, st, fa))
+  else:
+    say(cpu_layers_text(res))
+  return res, launches, rec, ({run["err_key"]: worst} if run["err_key"]
+                              else {})
 
 
 def full_serve_times(res, rec, serve, fa, dev, name_limit):
@@ -2126,26 +2429,29 @@ def full_serve_times(res, rec, serve, fa, dev, name_limit):
   captured prefill inputs of each window (SDPA ``is_causal``, with
   ``enable_gqa`` where G > 1, or with a boolean band mask under a window),
   then the server's prefill ms, decode rate, peak memory over those runs
-  and profiled steps.  Returns the row of the smallest window (gemma's
-  global layers, stablelm's only, recurrentgemma's local), and where a
-  model has two the windowed one under ``local``."""
+  and profiled steps (with the sLSTM scan's share for xlstm).  Returns the
+  row of the smallest window (gemma's global layers, stablelm's and
+  llava's only, recurrentgemma's local; none for xlstm), and where a model
+  has two the windowed one under ``local``."""
   lines, rows = [], {}
   for window, (q, kx, v, causal, _) in sorted(rec.kept.items()):
     rows[window], line = attn_times(q, kx, v, causal, fa, name_limit, window)
     lines.append(line)
-  first, *windowed = sorted(rows)
-  row = rows[first]
-  if windowed:
-    local = rows[windowed[0]]
-    if row["device_ms"] and local["device_ms"]:
-      lines.append(f"times: flash_attention at {tuple(row['width'])}: the "
-                   f"window of {windowed[0]} takes "
-                   f"{local['device_ms'] / row['device_ms']:.1%} of the "
-                   f"unwindowed layers' device time, for "
-                   f"{local['bound_ms'] / row['bound_ms']:.1%} of the bound "
-                   f"[{name_limit}]")
-    row = {**row, "local": local,
-           "windowed_launches": sum(1 for w, _, _ in rec.held if w)}
+  row = None
+  if rows:
+    first, *windowed = sorted(rows)
+    row = rows[first]
+    if windowed:
+      local = rows[windowed[0]]
+      if row["device_ms"] and local["device_ms"]:
+        lines.append(f"times: flash_attention at {tuple(row['width'])}: "
+                     f"the window of {windowed[0]} takes "
+                     f"{local['device_ms'] / row['device_ms']:.1%} of the "
+                     f"unwindowed layers' device time, for "
+                     f"{local['bound_ms'] / row['bound_ms']:.1%} of the "
+                     f"bound [{name_limit}]")
+      row = {**row, "local": local,
+             "windowed_launches": sum(1 for w, _, _ in rec.held if w)}
   rec.kept.clear()
   gc.collect()
   torch.cuda.empty_cache()
@@ -2154,6 +2460,186 @@ def full_serve_times(res, rec, serve, fa, dev, name_limit):
   peak = torch.cuda.max_memory_allocated(dev) / 2**30
   lines.append(f"times: serve {res['cfg'].name} peak memory over the timed "
                f"runs and profiles {peak:.3f} GiB [{name_limit}]")
+  return row, lines
+
+
+# musicgen-large, served at the steps' level (the reference's server
+# refuses audio: its decode takes frame embeddings): the pipeline's audio
+# branch gives 8 x (512 + 31) frame embeddings; the first 512 of each row
+# are the prompt, the rest feed the 31 decode steps.  Counted from the
+# config: 48 layers of 50,339,840 (attention 16,777,216, the GELU MLP
+# 33,554,432, two LayerNorms of scale and bias), four 2048 x 2048 codebook
+# heads, the final LayerNorm, no embedding: 2,433,093,632.
+MUSICGEN_SHAPE = (48, 2048, 32, 32, 64, 8192, 2048, "gelu", "layernorm", 4)
+MUSICGEN_PARAMS = 2_433_093_632
+
+
+def audio_generate(cfg, model, frames: torch.Tensor, prompt: int) -> dict:
+  """Prefill ``frames[:, :prompt]`` (B, S, d), then decode one step a
+  further frame, ``frames[:, prompt + i]`` at position ``prompt + i``,
+  through ``launch/steps.py``'s step builders (the device synchronised
+  around each phase).  Returns the prefill logits (B, 4, V), the last
+  step's, each step's greedy codes (B, steps + 1, 4) and the wall times."""
+  from repro_torch.launch import steps
+
+  gen = frames.shape[1] - prompt + 1
+  prefill = steps.make_prefill_step(cfg, prompt + gen)
+  decode = steps.make_decode_step(cfg)
+  with torch.inference_mode():
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_logits, caches = prefill(model, {"embeds": frames[:, :prompt]})
+    codes = [prefill_logits.argmax(-1)]
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    logits = prefill_logits
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+      logits, caches = decode(model, caches, frames[:, prompt + i],
+                              prompt + i)
+      codes.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+  return {"prefill_logits": prefill_logits, "logits": logits,
+          "codes": torch.stack(codes, 1), "prefill_s": t_prefill,
+          "decode_s": t_decode}
+
+
+def audio_serve_path(dev, ops, st, fa):
+  """musicgen-large whole at the steps' level: ``T.init_params`` on the
+  card from seed 0 (4.53 GiB), the pipeline's frames, then
+  ``audio_generate`` with every counter from 0.  Checks: the config; a
+  prefill launches flash_attention once a layer (48, at (64, 64), G 1), a
+  decode step none, nothing else; finite (8, 4, 2048) logits; the kernel
+  held to its error model on every layer's inputs as it ran; the
+  parameter count with no embedding and four codebook heads; the same
+  prefill on the plain versions.  Returns (result, launches, recorder,
+  the kernel's worst error)."""
+  from repro_torch.configs.base import get_config
+  from repro_torch.data.pipeline import pipeline_for_arch
+  from repro_torch.models import transformer as T
+
+  held = torch.cuda.memory_allocated(dev)
+  check(held < 2**30, f"{held / 2**30:.2f} GiB allocated before "
+        f"{MUSICGEN_ARCH}'s weights are built (at most 1 GiB)")
+  cfg = get_config(MUSICGEN_ARCH)
+  check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+         cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.mlp_variant, cfg.norm,
+         cfg.num_codebooks) == MUSICGEN_SHAPE, f"{MUSICGEN_ARCH} {cfg}")
+  torch.cuda.reset_peak_memory_stats(dev)
+  t0 = time.perf_counter()
+  model = T.init_params(cfg, SEED, dev)
+  torch.cuda.synchronize()
+  init_peak = torch.cuda.max_memory_allocated(dev)
+  weights = sum(p.numel() * p.element_size() for p in model.parameters())
+  pipe = pipeline_for_arch(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN - 1,
+                           seed=SEED)
+  frames = torch.from_numpy(pipe.batch_at(0)["embeds"]).to(dev)
+  say(f"serve: {MUSICGEN_ARCH} initialised on the card in "
+      f"{time.perf_counter() - t0:.1f} s; frames {tuple(frames.shape)} "
+      "from the pipeline's audio branch")
+  torch.cuda.reset_peak_memory_stats(dev)
+  ops.reset_all_launches()
+  with HeldRecorder(st, fa) as rec:
+    res = audio_generate(cfg, model, frames, SERVE_PROMPT)
+  torch.cuda.synchronize()
+  launches = ops.all_launches()
+  serve_peak = torch.cuda.max_memory_allocated(dev)
+  want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
+          "flash_attention": cfg.num_layers}
+  check(launches == want and len(rec.held) == cfg.num_layers
+        and not rec.gates, f"{MUSICGEN_ARCH} launches {launches}, counted "
+        f"from the code {want}")
+  say(f"serve: {MUSICGEN_ARCH} launches {launches} for 1 prefill of "
+      f"{SERVE_PROMPT} frames and {SERVE_GEN - 1} decode steps of "
+      f"{cfg.num_layers} layers (counted from the code: flash_attention "
+      "once a layer a prefill, nothing else)")
+  params = T.count_params(model)
+  check(params == MUSICGEN_PARAMS and not hasattr(model, "embed")
+        and len(model.codebook_heads()) == 4,
+        f"{params} parameters, not {MUSICGEN_PARAMS}")
+  for name in ("prefill_logits", "logits"):
+    logits = res[name]
+    check(tuple(logits.shape) == (SERVE_BATCH, 4, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{name}: not finite")
+  q, kx, v, _, _ = rec.kept[0]
+  check(tuple(q.shape) == tuple(kx.shape) == tuple(v.shape)
+        == (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.head_dim),
+        f"captured attention shapes {q.shape}, {kx.shape}, {v.shape}")
+  gib = 2**30
+  say(f"serve: {MUSICGEN_ARCH} {params:,} parameters (no embedding, four "
+      f"codebook heads), all {cfg.num_layers} layers at full width; weights "
+      f"{weights / gib:.3f} GiB; peak {init_peak / gib:.3f} GiB while "
+      f"building them, {serve_peak / gib:.3f} GiB while serving with the "
+      f"held checks; logits {tuple(res['logits'].shape)} finite")
+  worst_attn, worst_bf16 = worst_of(rec.held)
+  say(f"serve: {MUSICGEN_ARCH} flash_attention at (64, 64), G 1, on all "
+      f"{cfg.num_layers} layers' inputs, worst layer by each measure "
+      f"(median |ref|: the smallest layer's), {attn_text(worst_attn, fa)}; "
+      f"max |kernel - plain in bf16| {worst_bf16:.3e} (the reference's "
+      "rounding, no tolerance)")
+  with Recorder(st, fa, plain=True, tensors=False) as plain_rec:
+    plain = audio_generate(cfg, model, frames[:, :SERVE_PROMPT + 1],
+                           SERVE_PROMPT)
+  check(len(plain_rec.attn) == cfg.num_layers,
+        "the plain prefill did not pass every layer")
+  dl = float((res["prefill_logits"] - plain["prefill_logits"]).abs().max())
+  agree = float((res["codes"][:, 0] == plain["codes"][:, 0]).float().mean())
+  say(f"serve: {MUSICGEN_ARCH} kernel-path vs plain-path prefill: "
+      f"last-position logits differ by at most {dl:.3e} (max |logit| "
+      f"{float(plain['prefill_logits'].abs().max()):.3e}); the first "
+      f"greedy code agrees in {agree:.1%} of the {SERVE_BATCH} x 4 rows and "
+      "codebooks")
+  res.update(cfg=cfg, model=model, frames=frames, weights_bytes=weights,
+             init_peak_bytes=init_peak, serve_peak_bytes=serve_peak)
+  return res, launches, rec, {"flash_attention 64x64 G1":
+                              worst_attn["max_abs_err"]}
+
+
+def audio_serve_times(res, rec, fa, dev, name_limit):
+  """musicgen's times: the attention kernel at the prefill's inputs (SDPA
+  ``is_causal``, G 1), then the prefill ms and decode frames/s over 3
+  more runs (each giving the first run's codes), the peak over them, and
+  a profiled prefill and decode step."""
+  from repro_torch.launch import steps
+
+  q, kx, v, causal, _ = rec.kept[0]
+  row, line = attn_times(q, kx, v, causal, fa, name_limit)
+  lines = [line]
+  rec.kept.clear()
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats(dev)
+  cfg, model, frames = res["cfg"], res["model"], res["frames"]
+  prefill, decode, same = [], [], 0
+  for _ in range(3):
+    again = audio_generate(cfg, model, frames, SERVE_PROMPT)
+    same += int(torch.equal(again["codes"], res["codes"]))
+    prefill.append(again["prefill_s"] * 1e3)
+    decode.append((SERVE_GEN - 1) * SERVE_BATCH / again["decode_s"])
+  state = {}
+
+  def prefill_once():
+    with torch.inference_mode():
+      state["logits"], state["caches"] = steps.make_prefill_step(
+          cfg, SERVE_PROMPT + 2)(model, {"embeds": frames[:, :SERVE_PROMPT]})
+
+  def decode_once():
+    with torch.inference_mode():
+      steps.make_decode_step(cfg)(model, state["caches"],
+                                  frames[:, SERVE_PROMPT], SERVE_PROMPT)
+
+  for name, fn in (("prefill", prefill_once), ("decode step", decode_once)):
+    lines.append(profile_line(cfg, name, fn, name_limit))
+  peak = torch.cuda.max_memory_allocated(dev) / 2**30
+  lines.append(f"times: serve {cfg.name}: {same} of 3 timed runs gave the "
+               f"first run's codes; prefill {SERVE_BATCH}x{SERVE_PROMPT} "
+               f"frames {statistics.median(prefill):.2f} ms (runs "
+               f"{', '.join(f'{t:.2f}' for t in prefill)}), decode "
+               f"{statistics.median(decode):.1f} frames/s at batch "
+               f"{SERVE_BATCH}, 4 codes each (runs "
+               f"{', '.join(f'{t:.1f}' for t in decode)}); peak memory over "
+               f"the timed runs and profiles {peak:.3f} GiB [{name_limit}]")
   return row, lines
 
 
@@ -2180,6 +2666,11 @@ def full_serve_times(res, rec, serve, fa, dev, name_limit):
 # which at 2048 positions keeps every key; no times.
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 4
 RG_TRAIN_STEPS = 2
+# xlstm-350m's step runs its 3 sLSTM scans position by position, about
+# 2.7 x 10^6 eager launches and ~40 s a step on the card (``PERF.md`` §5):
+# 2 steps, the second timed (no more steps), and its profile one
+# microbatch of the 8.
+XLSTM_TRAIN_STEPS = 2
 TRAIN_COMMON = ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
                 "--trim-frac", "0.1", "--corrupt", "0.1"]
 STEPS = ["--steps", str(TRAIN_STEPS)]
@@ -2227,6 +2718,29 @@ TRAIN_RUNS = {
         "window": 2048,
         "depth": "3 of 26 layers (one rg, rg, local cycle)",
         "steps": RG_TRAIN_STEPS, "timed": False},
+    XLSTM_ARCH: {
+        "args": ["--arch", XLSTM_ARCH, *TRAIN_COMMON, "--steps",
+                 str(XLSTM_TRAIN_STEPS)],
+        "config": (24, 1024, 8, "full", "bfloat16"),
+        "leaf": "layers.7.params.slstm.r",       # (4, 256, 4, 256) bf16
+        "attn": None,
+        "depth": "all 24 layers",
+        "steps": XLSTM_TRAIN_STEPS, "timed_steps": 0,
+        "profile": "microbatch"},
+    MUSICGEN_ARCH: {
+        "args": ["--arch", MUSICGEN_ARCH, *TRAIN_COMMON, *STEPS],
+        "config": (48, 2048, 8, "full", "bfloat16"),
+        "leaf": "codebook_head_0.w",             # (2048, 2048) bf16
+        "attn": ((1, TRAIN_SEQ, 32, 64), (1, TRAIN_SEQ, 32, 64)),
+        "depth": "all 48 layers"},
+    LLAVA_ARCH: {
+        "args": ["--arch", LLAVA_ARCH, "--set", "num_layers=4",
+                 *TRAIN_COMMON, "--steps", str(RG_TRAIN_STEPS)],
+        "config": (4, 4096, 8, "full", "bfloat16"),
+        "leaf": "layers.0.params.ffn.w_in",      # (4096, 14336) bf16
+        "attn": ((1, TRAIN_SEQ, 32, 128), (1, TRAIN_SEQ, 8, 128)),
+        "depth": "4 of 32 layers",
+        "steps": RG_TRAIN_STEPS, "timed": False},
 }
 TRAIN_RANGES = ("repro_forward_train", "repro_soft_lts_loss",
                 "repro_optimizer_update")
@@ -2255,11 +2769,11 @@ def train_launches_per_step(cfg) -> dict[str, int]:
   over the microbatch's tokens, one row each, fewer than 65535); a dense
   layer launches no PAV kernel.  The soft-LTS loss sorts each
   microbatch's tokens as one row in one more ``pav_l2`` launch.  The fused
-  gates and ``pav_kl`` do not run under autograd; an ``rg`` layer launches
-  no kernel."""
+  gates and ``pav_kl`` do not run under autograd; a recurrent layer
+  (``rg``, ``mlstm``, ``slstm``) launches no kernel."""
   passes = cfg.grad_accum * (2 if cfg.remat == "full" else 1)
   kinds = cfg.layer_kinds()
-  n_attn = sum(kind != "rg" for kind in kinds)
+  n_attn = attention_layers(cfg)
   routed = (sum(kind == "mla_moe" for kind in kinds)
             if cfg.router == "soft_topk" else 0)
   trim = cfg.grad_accum if cfg.loss_trim_fraction > 0 else 0
@@ -2373,7 +2887,7 @@ def train_path(dev, fa, arch: str):
     prev = counts
   check(launches == {k: n_steps * n for k, n in per_step.items()},
         f"train launches {launches}")
-  n_attn = sum(kind != "rg" for kind in cfg.layer_kinds())
+  n_attn = attention_layers(cfg)
   say(f"train: {arch} launches {launches} in {n_steps} steps, "
       f"{per_step} a step as counted from the code ({cfg.grad_accum} "
       f"microbatches x {n_attn} attention layers of {cfg.num_layers} "
@@ -2392,15 +2906,22 @@ def train_path(dev, fa, arch: str):
         f"first step's gradients: {rec.n_leaves} leaves of {n_params}, "
         f"zero or not finite: {rec.grad_faults}")
   accum = cfg.grad_accum
+  names = [n for n, _ in state.model.named_parameters()]
+  among = [f"the {sum(f'.{kind}.' in n for n in names)} leaves of the "
+           f"{kind} layers" for kind in ("rg", "mlstm", "slstm")
+           if kind in cfg.layer_kinds()]
+  if "slstm" in cfg.layer_kinds():
+    among.append(f"the r of each of the {cfg.layer_kinds().count('slstm')} "
+                 "slstm layers")
+  if cfg.num_codebooks:
+    among.append(f"the {cfg.num_codebooks} codebook heads")
   say(f"train: {arch} step losses " + ", ".join(
       f"{statistics.fmean(rec.losses[i * accum:(i + 1) * accum]):.4f}"
       for i in range(n_steps)) + "; grad norms " + ", ".join(
       f"{m['grad_norm']:.3f}" for m in rec.step_metrics) + " (all finite);"
       f" after step 1 all {n_params} parameter leaves had a finite, "
-      "non-zero gradient" + (
-          f", the {sum('.rg.' in n for n, _ in state.model.named_parameters())}"
-          " leaves of the rg layers among them" if "rg" in cfg.layer_kinds()
-          else ""))
+      "non-zero gradient" + (f", {', '.join(among)} among them" if among
+                             else ""))
   return res, rec, launches
 
 
@@ -2460,6 +2981,14 @@ def train_checks(rec, cfg, fa, dev, arch: str) -> tuple[list[str], dict]:
   Returns the lines and the tensors the times reuse."""
   import repro_torch as rt
 
+  if TRAIN_RUNS[arch]["attn"] is None:
+    check(rec.attn is None and not attention_layers(cfg)
+          and rec.logits is None,
+          f"{arch}: an attention or router call recorded")
+    return [f"train: {arch} called no attention kernel and no router (its "
+            f"{cfg.num_layers} layers are "
+            f"{'/'.join(sorted(set(cfg.layer_kinds())))})",
+            "train: " + adamw_card_vs_cpu(rec, dev)], {"qkv": None}
   q, k, v, causal, window = rec.attn
   q_shape, v_shape = TRAIN_RUNS[arch]["attn"]
   check(tuple(q.shape) == q_shape and tuple(v.shape) == v_shape
@@ -2584,35 +3113,106 @@ def optimizer_times(trainer, state, name_limit, leaf: str) -> str:
 
 def train_times(res, rec, captured, fa, name_limit,
                 arch: str) -> tuple[list[str], dict]:
-  """Step ms (median of 3 steps after the recorded run), tokens/s, peak
-  memory; the attention forward (with its plain version) and backward at
-  the training shape beside SDPA's; one more step under the profiler; the
+  """Step ms (median of 3 steps after the recorded run, or of the run's
+  ``timed_steps``; with 0, the recorded run's last step), positions/s,
+  peak memory; the attention forward (with
+  its plain version) and backward at the training shape beside SDPA's
+  (none without attention layers); one more step under the profiler, or
+  one microbatch's forward and backward for a run whose ``profile`` says
+  so (with the sLSTM scan's share where there are slstm layers); the
   optimizer by square root.  Returns the lines and the attention kernel's
-  row at the training shape."""
+  row at the training shape (None without attention layers)."""
+  from repro_torch.launch import steps, train
+
   lines = []
+  run = TRAIN_RUNS[arch]
   trainer, state = res["trainer"], res["state"]
   dev = trainer.device
   cfg = res["cfg"]
   recorded = trainer.step_times
+  n_rec = len(recorded)
   rec.leaf = {}     # the recorder's copies of the checked leaf
   torch.cuda.reset_peak_memory_stats(dev)
-  times = timed_steps(trainer, state, 3)
-  peak = torch.cuda.max_memory_allocated(dev) / 2**30
+  n_timed = run.get("timed_steps", 3)
+  if n_timed:
+    times = timed_steps(trainer, state, n_timed)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    which = (f"median of {n_timed} steps after the recorded run, no "
+             "recorder")
+  else:   # the recorded run's last step is the timing
+    times, peak = recorded[-1:], res["peak_gib"]
+    which = f"the recorded run's step {n_rec}, with the recorder"
   med = statistics.median(times) * 1e3
-  tokens = TRAIN_BATCH * TRAIN_SEQ
+  tokens = trainer.positions_per_step
   lines.append(
-      f"times: train {arch} {TRAIN_RUNS[arch]['depth']}, batch "
-      f"{TRAIN_BATCH} x {TRAIN_SEQ}, grad_accum {cfg.grad_accum}, remat "
-      f"{cfg.remat}: step "
-      f"{med:.1f} ms (median of 3 steps after the recorded run, no "
-      f"recorder: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
-      f"{tokens / med * 1e3:.0f} tokens/s; the recorded run's steps 1-"
-      f"{TRAIN_STEPS}, with the recorder's syncs and clones: "
+      f"times: train {arch} {run['depth']}, batch "
+      f"{TRAIN_BATCH} x {TRAIN_SEQ} {train.positions_trained(cfg)}, "
+      f"grad_accum {cfg.grad_accum}, remat {cfg.remat}: step "
+      f"{med:.1f} ms ({which}: "
+      f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+      f"{tokens / med * 1e3:.0f} positions/s; the recorded run's steps 1-"
+      f"{n_rec}, with the recorder's syncs and clones: "
       f"{', '.join(f'{t * 1e3:.1f}' for t in recorded)} (median of steps "
-      f"2-{TRAIN_STEPS} {statistics.median(recorded[1:]) * 1e3:.1f}, "
-      f"{tokens / statistics.median(recorded[1:]):.0f} tokens/s); peak memory "
-      f"{peak:.2f} GiB ({res['peak_gib']:.2f} in the recorded run) "
+      f"2-{n_rec} {statistics.median(recorded[1:]) * 1e3:.1f}, "
+      f"{tokens / statistics.median(recorded[1:]):.0f} positions/s); peak "
+      f"memory {peak:.2f} GiB ({res['peak_gib']:.2f} in the recorded run) "
       f"[{name_limit}]")
+  row = None
+  if captured["qkv"] is not None:
+    row, line = train_attn_times(captured, fa, name_limit, arch)
+    lines.append(line)
+
+  batch = trainer.batch_at(state.step)
+  slstm = "slstm" in cfg.layer_kinds()
+  ranges = TRAIN_RANGES + (SLSTM_RANGES if slstm else ())
+  if run.get("profile") == "microbatch":
+    mb = TRAIN_BATCH // cfg.grad_accum
+    micro = {k: t[:mb] for k, t in batch.items()}
+    params = [p for p in state.model.parameters()]
+    what = (f"microbatch ({mb} x {TRAIN_SEQ}: the loss and its gradients, "
+            f"1/{cfg.grad_accum} of a step without the optimizer)")
+
+    def fn():
+      total, _ = steps.loss_from_batch(cfg, state.model, micro)
+      torch.autograd.grad(total, params)
+  else:
+    what = "train step"
+
+    def fn():
+      trainer.train_step(state.model, state.opt_state, batch)
+
+  wall, busy, top, spans = profile(fn, ranges)
+  kernels = "; ".join(f"{key[:60]} {ms:.1f}" for key, ms, _ in top[:5])
+  groups = dict.fromkeys(KERNEL_GROUPS, 0.0)
+  for key, ms, _ in top:
+    groups[next((g for g, pats in KERNEL_GROUPS.items()
+                 if any(p in key for p in pats)), "other")] += ms
+  group_text = ", ".join(f"{g} {ms:.1f}" for g, ms in groups.items())
+  launches = sum(n for _, _, n in top)
+  busy_text = ("not measured (no profiler session recorded device time)"
+               if busy is None else
+               f"{busy:.1f} ms ({100 * (1 - busy / wall):.0f}% idle) in "
+               f"{launches} kernel launches; by kind (ms): {group_text}")
+  span_text = "; ".join(f"{name} host {cpu:.1f} ms, device span "
+                        f"{dev_ms:.1f} ms" for name, (cpu, dev_ms, _, _) in
+                        spans.items() if name in TRAIN_RANGES)
+  share = ""
+  if slstm:
+    share = (f"; the {cfg.layer_kinds().count('slstm')} slstm layers' "
+             "scans (forward, its recompute under remat, and backward) "
+             + range_share_text(wall, busy, top, spans, SLSTM_RANGES))
+  lines.append(f"times: profile of one {arch} {what}: wall {wall:.1f} "
+               f"ms, device busy {busy_text}; ranges (summed over the "
+               f"microbatches): {span_text}; most device time (ms): "
+               f"{kernels}{share} [{name_limit}]")
+  lines.append(optimizer_times(trainer, state, name_limit, run["leaf"]))
+  return lines, row
+
+
+def train_attn_times(captured, fa, name_limit, arch: str):
+  """The attention forward (with its plain version) and backward at the
+  training shape on the captured call, beside SDPA's forward and forward +
+  backward.  Returns (row, line)."""
   q, k, v = captured["qkv"]
   out, do, window = captured["out"], captured["do"], captured["window"]
   fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v, True,
@@ -2651,7 +3251,7 @@ def train_times(res, rec, captured, fa, name_limit,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_fwd,
          "shape": list(q.shape), "width": [q.shape[-1], v.shape[-1]],
          "window": window, "bwd_ms": bwd_ms, "library_fwd_bwd_ms": lib_fb}
-  lines.append(
+  return row, (
       f"times: train {arch} attention q {tuple(q.shape)} k "
       f"{tuple(k.shape)} v {tuple(v.shape)} "
       + (f"window {window} (SDPA: a boolean band mask)" if window
@@ -2664,37 +3264,11 @@ def train_times(res, rec, captured, fa, name_limit,
       f"{ms_text(lib_fb_dev)}), so its backward about "
       f"{lib_fb - lib_fwd:.4f} ms [{name_limit}]")
 
-  batch = trainer.batch_at(state.step)
-  wall, busy, top, spans = profile(
-      lambda: trainer.train_step(state.model, state.opt_state, batch),
-      TRAIN_RANGES)
-  kernels = "; ".join(f"{key[:60]} {ms:.1f}" for key, ms, _ in top[:5])
-  groups = dict.fromkeys(KERNEL_GROUPS, 0.0)
-  for key, ms, _ in top:
-    groups[next((g for g, pats in KERNEL_GROUPS.items()
-                 if any(p in key for p in pats)), "other")] += ms
-  group_text = ", ".join(f"{g} {ms:.1f}" for g, ms in groups.items())
-  launches = sum(n for _, _, n in top)
-  busy_text = ("not measured (no profiler session recorded device time)"
-               if busy is None else
-               f"{busy:.1f} ms ({100 * (1 - busy / wall):.0f}% idle) in "
-               f"{launches} kernel launches; by kind (ms): {group_text}")
-  span_text = "; ".join(f"{name} host {cpu:.1f} ms, device span "
-                        f"{dev_ms:.1f} ms" for name, (cpu, dev_ms) in
-                        spans.items())
-  lines.append(f"times: profile of one {arch} train step: wall {wall:.1f} "
-               f"ms, device busy {busy_text}; ranges (summed over the "
-               f"microbatches): {span_text}; most device time (ms): "
-               f"{kernels} [{name_limit}]")
-  lines.append(optimizer_times(trainer, state, name_limit,
-                               TRAIN_RUNS[arch]["leaf"]))
-  return lines, row
-
 
 def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     serve_rows, dense_row, grok_row, grok_gate_rows,
-                    full_rows, train_launches, train_rows, engine_runs,
-                    engine_rows) -> list[dict]:
+                    full_rows, audio_row, train_launches, train_rows,
+                    engine_runs, engine_rows) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
   ``train_launches`` by model).  ``launches`` is each kernel's main path:
@@ -2705,9 +3279,11 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   at its prefill, gemma's at its global layers' prefill with the local
   layers' windowed one under ``local``, stablelm's (80, 80) at its prefill,
   recurrentgemma's (256, 256) at G = 10 at its local layers' windowed
-  prefill) with its own launches, error and training shape's times (none
-  for grok, which is not trained, nor for recurrentgemma, whose train run
-  is checks only; gemma's at its first, windowed, layer).  The gates' top-level numbers stay
+  prefill, llava's (128, 128) at G = 4 at its 1088-position prefill,
+  musicgen's (64, 64) at G = 1 at its prefill; xlstm has no attention)
+  with its own launches, error and training shape's times (none for grok,
+  which is not trained, nor for recurrentgemma and llava, whose train runs
+  are checks only; gemma's at its first, windowed, layer).  The gates' top-level numbers stay
   deepseek's (4096, 64); ``shapes`` adds grok's (4096, 8) and (8, 8)."""
 
   def by_arch(counts: dict, kname: str) -> dict[str, int]:
@@ -2757,12 +3333,20 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
        "max_abs_err": max_err["flash_attention 128x128"],
        "train_shape": None}]
   for arch, run in FULL_SERVE_RUNS.items():
+    if full_rows[arch] is None:
+      continue
     widths.append({
         **full_rows[arch], "arch": arch,
         "launches": serve_counts[arch]["flash_attention"],
         "train_launches": train_launches[arch]["flash_attention"],
         "max_abs_err": max_err[run["err_key"]],
         "train_shape": train_rows.get(arch)})
+  widths.append({
+      **audio_row, "arch": MUSICGEN_ARCH,
+      "launches": serve_counts[MUSICGEN_ARCH]["flash_attention"],
+      "train_launches": train_launches[MUSICGEN_ARCH]["flash_attention"],
+      "max_abs_err": max_err["flash_attention 64x64 G1"],
+      "train_shape": train_rows.get(MUSICGEN_ARCH)})
   kernels.append({
       "name": "flash_attention", "route": "cuda",
       "source": SOURCES["flash_attention"],
@@ -2808,6 +3392,7 @@ def main() -> int:
       if "registers" in line or "spill" in line:
         say("build:", line.strip())
 
+  clock("build")
   # 3. kernels against their plain versions ------------------------------
   rng = np.random.default_rng(SEED)
   # The main path's inputs (phase 4).
@@ -2825,7 +3410,8 @@ def main() -> int:
              "flash_attention": 0.0, "flash_attention 64x64": 0.0,
              "flash_attention 128x128": 0.0, "flash_attention 256x256": 0.0,
              "flash_attention 256x256 G10": 0.0,
-             "flash_attention 80x80": 0.0}
+             "flash_attention 80x80": 0.0, "flash_attention 128x128 G4": 0.0,
+             "flash_attention 64x64 G1": 0.0}
 
   def record(kname, out, ref):
     err = close(out, ref)
@@ -2883,6 +3469,7 @@ def main() -> int:
         f" and the token loss on the CPU handed to {CPU_WORKERS} CPU worker "
         "processes")
 
+    clock("phase 3 on the card")
     # 4. main path ------------------------------------------------------------
     launches, token_run = main_path(rt, pav, dev, theta_np, target_np,
                                     cot_np, tokens_np)
@@ -2899,6 +3486,7 @@ def main() -> int:
     for kname, err in serve_err.items():
       max_err[kname] = max(max_err[kname], err)
 
+    clock("phase 4, the engine and the deepseek server")
     t0 = time.perf_counter()
     for (kname, what, shape, out, fn_name, _), future in zip(jobs, futures):
       ref, seconds = future.result()
@@ -2930,6 +3518,7 @@ def main() -> int:
   finally:
     pool.shutdown(wait=True, cancel_futures=True)
 
+  clock("the CPU workers")
   # 5. times -------------------------------------------------------------------
   lines = []
   kernel_rows = {}
@@ -3020,6 +3609,7 @@ def main() -> int:
   for line in lines + serve_lines + engine_lines + backward_lines:
     say(line)
 
+  clock("phase 5")
   # serve, dense ------------------------------------------------------------
   # The deepseek server's 27-layer model (30.2 GiB) goes first, so that the
   # dense server's peak memory is its own.
@@ -3038,6 +3628,7 @@ def main() -> int:
     say(line)
   del dense_res, dense_rec
 
+  clock(f"serve {DENSE_ARCH}")
   # serve, grok ---------------------------------------------------------------
   # Full width, 6 of 64 layers (58 GiB of weights): the card must be empty.
   gc.collect()
@@ -3052,7 +3643,8 @@ def main() -> int:
     say(line)
   del grok_res, grok_rec
 
-  # serve, gemma, stablelm and recurrentgemma -------------------------------
+  clock(f"serve {GROK_ARCH}")
+  # serve, gemma, stablelm, recurrentgemma, xlstm and llava ---------------
   # Each at full width and depth (gemma 21.9 GiB of weights and 6.1 GiB of
   # caches), each model freed before the next.
   full_launches, full_rows = {}, {}
@@ -3068,6 +3660,19 @@ def main() -> int:
     for line in full_lines:
       say(line)
     del res, rec
+    clock(f"serve {arch}")
+
+  # serve, musicgen at the steps' level -------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  res, audio_launches, rec, err = audio_serve_path(dev, kops, st, fa)
+  for kname, e in err.items():
+    max_err[kname] = max(max_err[kname], e)
+  audio_row, audio_lines = audio_serve_times(res, rec, fa, dev, name_limit)
+  for line in audio_lines:
+    say(line)
+  del res, rec
+  clock(f"serve {MUSICGEN_ARCH}")
 
   # 6. train ------------------------------------------------------------------
   # Each trainer's model and state go before the next one's.
@@ -3088,14 +3693,17 @@ def main() -> int:
       for line in time_lines:
         say(line)
     del train_res, train_rec, captured
+    clock(f"train {arch}")
 
   # 7. summary -------------------------------------------------------------
   kernels = kernels_summary(
       launches=launches, max_err=max_err, kernel_rows=kernel_rows,
       serve_counts={ARCH: serve_launches, DENSE_ARCH: dense_launches,
-                    GROK_ARCH: grok_launches, **full_launches},
+                    GROK_ARCH: grok_launches, **full_launches,
+                    MUSICGEN_ARCH: audio_launches},
       serve_rows=serve_rows, dense_row=dense_row, grok_row=grok_row,
       grok_gate_rows=grok_gate_rows, full_rows=full_rows,
+      audio_row=audio_row,
       train_launches=train_launches, train_rows=train_rows,
       engine_runs=engine_runs, engine_rows=engine_rows)
   say(json.dumps({"kernels": kernels}))

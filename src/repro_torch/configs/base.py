@@ -5,7 +5,8 @@ defaults, kept as the port's own copy (the port imports nothing of the JAX
 package).  ``layer_kinds()`` expands the block-pattern cycle into a
 per-layer kind list; ``plan_segments()`` groups it into the segments whose
 stacked parameters ``repro_torch.models.convert`` splits into layers.
-Only the configurations the port serves are registered here.
+Every configuration the reference registers has its module here
+(``ASSIGNED``).
 """
 
 from __future__ import annotations
@@ -125,11 +126,18 @@ def get_config(name: str) -> ArchConfig:
     try:
       importlib.import_module(f"repro_torch.configs.{mod}")
     except ModuleNotFoundError as err:
-      raise NotImplementedError(
-          f"config {name!r} is unknown or not ported yet (ROADMAP.md, queue "
-          "1: other layer kinds)") from err
+      raise ValueError(f"unknown config {name!r}: the port has every "
+                       f"config of the reference ({', '.join(ASSIGNED)})"
+                       ) from err
   return _REGISTRY[name]
 
 
 def registered() -> list[str]:
   return sorted(_REGISTRY)
+
+
+# The reference's assigned architectures (``repro.configs.base.
+# all_assigned``), every one of them ported.
+ASSIGNED = ("gemma3-12b", "stablelm-3b", "llama3.2-1b", "tinyllama-1.1b",
+            "deepseek-v2-lite-16b", "grok-1-314b", "llava-next-mistral-7b",
+            "recurrentgemma-2b", "xlstm-350m", "musicgen-large")

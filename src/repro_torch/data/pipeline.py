@@ -1,10 +1,14 @@
-"""Deterministic synthetic token pipeline (token branch).
+"""Deterministic synthetic token pipeline.
 
 Counterpart of ``repro.data.pipeline``: ``batch_at(step)`` is a pure
 function of (seed, step, host slice), drawn with numpy's counter-based
-Philox generator, so the port's server gets the very tokens the JAX
-server gets.  Only the token branch is ported; the audio and vision
-frontends raise.
+Philox generator in the reference's order, so the port gets the very
+arrays the JAX package gets, for each frontend: tokens and targets (the
+token branch); for ``vision`` ``seq_len - num_patches`` text tokens, the
+patch embeddings (B, num_patches, d) and the text targets; for ``audio``
+frame embeddings (B, seq_len, d) and targets (B, seq_len, num_codebooks).
+``corrupt_fraction`` replaces that share of the targets with noise (the
+outliers of the soft-LTS loss, paper §6.4).
 """
 
 from __future__ import annotations
@@ -36,10 +40,9 @@ class TokenPipeline:
     if cfg.global_batch % cfg.num_hosts:
       raise ValueError(f"global_batch {cfg.global_batch} does not split "
                        f"over {cfg.num_hosts} hosts")
-    if cfg.frontend != "none":
-      raise NotImplementedError(
-          f"the {cfg.frontend} frontend is not ported (ROADMAP.md, queue 1: "
-          "other layer kinds and frontends)")
+    if cfg.frontend == "vision" and cfg.seq_len < cfg.num_patches:
+      raise ValueError(f"seq_len {cfg.seq_len} is shorter than the "
+                       f"{cfg.num_patches} patches it counts")
     self.cfg = cfg
     self.local_batch = cfg.global_batch // cfg.num_hosts
 
@@ -52,12 +55,26 @@ class TokenPipeline:
     c = self.cfg
     b, s = self.local_batch, c.seq_len
     rng = self._rng(step, 0)
-    # Markov-ish stream: correlated tokens so the loss actually decreases.
-    base = rng.integers(0, c.vocab_size, (b, s + 1), dtype=np.int32)
-    drift = rng.integers(0, 7, (b, s + 1), dtype=np.int32)
-    tokens = (np.cumsum(drift, axis=1) + base // 7) % c.vocab_size
-    out = {"tokens": tokens[:, :-1].astype(np.int32),
-           "targets": tokens[:, 1:].astype(np.int32).copy()}
+    out: dict[str, np.ndarray] = {}
+    if c.frontend == "audio":
+      out["embeds"] = rng.standard_normal((b, s, c.d_model),
+                                          dtype=np.float32)
+      out["targets"] = rng.integers(0, c.vocab_size,
+                                    (b, s, c.num_codebooks), dtype=np.int32)
+    elif c.frontend == "vision":
+      tokens = rng.integers(0, c.vocab_size, (b, s - c.num_patches + 1),
+                            dtype=np.int32)
+      out["tokens"] = tokens[:, :-1]
+      out["image_embeds"] = rng.standard_normal(
+          (b, c.num_patches, c.d_model), dtype=np.float32)
+      out["targets"] = tokens[:, 1:].copy()
+    else:
+      # Markov-ish stream: correlated tokens so the loss actually decreases.
+      base = rng.integers(0, c.vocab_size, (b, s + 1), dtype=np.int32)
+      drift = rng.integers(0, 7, (b, s + 1), dtype=np.int32)
+      tokens = (np.cumsum(drift, axis=1) + base // 7) % c.vocab_size
+      out["tokens"] = tokens[:, :-1].astype(np.int32)
+      out["targets"] = tokens[:, 1:].astype(np.int32).copy()
 
     if c.corrupt_fraction > 0:
       rng2 = self._rng(step, 1)

@@ -23,9 +23,18 @@ Counterpart of ``repro.launch.serve``.  Two modes share this entry point:
   of its 64 layers on one card), takes the prompts from the port's
   ``TokenPipeline`` (the tokens the JAX server gets), prefills them once
   and decodes ``--gen - 1`` more tokens greedily with one position counter
-  for the batch.  It prints the layer and parameter counts, the prefill
-  time, the decode rate, the weights' bytes and the peak device memory
-  (while building the weights, and while serving).
+  for the batch.  For the vision frontend (llava-next-mistral-7b) a
+  prompt is the pipeline's patch embeddings and then its tokens, and
+  ``--prompt-len`` counts both, as the pipeline's ``seq_len`` does (1088 is
+  576 patches and 512 tokens; it must exceed the patches); decode starts
+  at the prefill's length, not at the reference's ``prompt_len +
+  num_patches``, which counts the patches twice (fault R6, ROADMAP.md §3).
+  The audio frontend (musicgen-large) decodes frame embeddings, not
+  tokens: as in the reference, this loop refuses it, and its steps are
+  ``repro_torch.launch.steps.make_prefill_step`` / ``make_decode_step``.
+  It prints the layer and parameter counts, the prefill time, the decode
+  rate, the weights' bytes and the peak device memory (while building the
+  weights, and while serving).
 
 Both modes run on the card (``--device cuda``, the default, which raises
 where there is none).  ``--device cpu`` runs the kernels' plain versions:
@@ -101,20 +110,27 @@ def resolve_device(name: str, smoke: bool,
 
 
 @torch.inference_mode()
-def generate(cfg, model, tokens: torch.Tensor, gen: int) -> dict:
-  """Prefill ``tokens`` (B, S), then decode ``gen - 1`` steps greedily.
+def generate(cfg, model, prompts, gen: int) -> dict:
+  """Prefill ``prompts`` (token ids (B, S), or a batch dict: tokens and,
+  for vision, ``image_embeds``), then decode ``gen - 1`` steps greedily
+  from the prefill's length on (for vision, patches and tokens).
 
   Returns the generated tokens (B, gen), the prefill logits (B, V), the
   last step's logits, and the prefill and decode wall times in seconds
   (the device synchronised around each).
   """
-  b, s = tokens.shape
+  batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+  if cfg.frontend == "audio":
+    raise ValueError("generate decodes token ids; the audio frontend "
+                     "decodes frame embeddings (launch.steps' "
+                     "make_decode_step)")
+  s = ST.prefill_length(cfg, batch)
   prefill = ST.make_prefill_step(cfg, s + gen)
   decode = ST.make_decode_step(cfg)
-  device = tokens.device
+  device = batch["tokens"].device
   _sync(device)
   t0 = time.perf_counter()
-  prefill_logits, caches = prefill(model, {"tokens": tokens})
+  prefill_logits, caches = prefill(model, batch)
   tok = greedy(prefill_logits)
   _sync(device)
   t_prefill = time.perf_counter() - t0
@@ -223,6 +239,17 @@ def run_lm(args, model=None) -> dict:
   over = parse_overrides(args.overrides)
   if over:
     cfg = dataclasses.replace(cfg, **over)
+  if cfg.frontend == "audio":
+    raise SystemExit(
+        "audio decode takes frame embeddings, not tokens: serve musicgen "
+        "through repro_torch.launch.steps.make_prefill_step / "
+        "make_decode_step (models.transformer.forward_prefill / "
+        "forward_decode)")
+  if cfg.frontend == "vision" and args.prompt_len <= cfg.num_patches:
+    raise ValueError(
+        f"--prompt-len {args.prompt_len} counts the {cfg.num_patches} "
+        f"patches of {cfg.name}'s prompts: it must exceed them (e.g. "
+        f"{cfg.num_patches + 512} for 512 tokens)")
   device = resolve_device(args.device, args.smoke)
   init_peak = None
   if model is None:
@@ -235,14 +262,21 @@ def run_lm(args, model=None) -> dict:
       torch.cuda.reset_peak_memory_stats(device)
   weights = sum(p.numel() * p.element_size() for p in model.parameters())
   pipe = pipeline_for_arch(cfg, args.batch, args.prompt_len, seed=args.seed)
-  tokens = torch.from_numpy(pipe.batch_at(0)["tokens"]).to(
-      device=device, dtype=torch.int64)
-  res = generate(cfg, model, tokens, args.gen)
+  arrays = pipe.batch_at(0)
+  batch = {"tokens": torch.from_numpy(arrays["tokens"]).to(
+      device=device, dtype=torch.int64)}
+  if cfg.frontend == "vision":
+    batch["image_embeds"] = torch.from_numpy(arrays["image_embeds"]).to(
+        device)
+  res = generate(cfg, model, batch, args.gen)
   steps = args.gen - 1
   rate = steps * args.batch / max(res["decode_s"], 1e-9)
   print(f"[serve] {cfg.name} on {device}: {cfg.num_layers} layers, "
         f"{T.count_params(model):,} parameters in {cfg.dtype}")
-  print(f"[serve] prefill {args.batch}x{args.prompt_len} in "
+  parts = (f" ({cfg.num_patches} patches + "
+           f"{args.prompt_len - cfg.num_patches} tokens)"
+           if cfg.frontend == "vision" else "")
+  print(f"[serve] prefill {args.batch}x{args.prompt_len}{parts} in "
         f"{res['prefill_s'] * 1e3:.1f} ms; {steps} decode steps in "
         f"{res['decode_s'] * 1e3:.1f} ms ({rate:.1f} tok/s)")
   print(f"[serve] weights {weights / 2**30:.2f} GiB" + (
@@ -270,7 +304,8 @@ def run_lm(args, model=None) -> dict:
             smoke=bool(args.smoke), batch=args.batch,
             prompt_len=args.prompt_len, gen=args.gen,
             **repro_plan.plan_provenance()))
-  res.update(cfg=cfg, model=model, prompts=tokens, weights_bytes=weights,
+  res.update(cfg=cfg, model=model, prompts=batch["tokens"], batch=batch,
+             weights_bytes=weights,
              init_peak_bytes=init_peak, serve_peak_bytes=serve_peak)
   return res
 
@@ -282,7 +317,9 @@ def parser() -> argparse.ArgumentParser:
   ap.add_argument("--smoke", action="store_true",
                   help="the reduced same-family config")
   ap.add_argument("--batch", type=int, default=4)
-  ap.add_argument("--prompt-len", type=int, default=32)
+  ap.add_argument("--prompt-len", type=int, default=32,
+                  help="positions a prompt fills: its tokens, and for the "
+                       "vision frontend the patches before them")
   ap.add_argument("--gen", type=int, default=16)
   ap.add_argument("--seed", type=int, default=0,
                   help="seed of the random weights and the prompts")

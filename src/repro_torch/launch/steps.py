@@ -106,16 +106,29 @@ def init_opt_state(cfg, opt_cfg, params: dict, *,
   return state
 
 
+def prefill_length(cfg, batch: dict) -> int:
+  """The positions a prefill of ``batch`` covers: the frames for the audio
+  frontend, the tokens and, for vision, the patches before them."""
+  if cfg.frontend == "audio":
+    return batch["embeds"].shape[1]
+  return batch["tokens"].shape[1] + (
+      cfg.num_patches if cfg.frontend == "vision" else 0)
+
+
 def make_prefill_step(cfg, max_len: int | None = None):
-  """(model, batch) -> (last-position logits (B, V), caches)."""
+  """(model, batch) -> (last-position logits (B, V), or (B, K, V) for the
+  audio frontend; caches), the caches ``max_len`` long (by default the
+  prefill's length, ``prefill_length``)."""
   def prefill(model, batch):
     return T.forward_prefill(cfg, model, batch,
-                             max_len or batch["tokens"].shape[1])
+                             max_len or prefill_length(cfg, batch))
   return prefill
 
 
 def make_decode_step(cfg):
-  """(model, caches, tokens (B,), pos) -> (logits (B, V), caches)."""
+  """(model, caches, inputs, pos) -> (logits, caches): inputs are token
+  ids (B,), or frame embeddings (B, d) for the audio frontend, at position
+  ``pos``."""
   def decode(model, caches, inputs, pos):
     return T.forward_decode(cfg, model, caches, inputs, pos)
   return decode

@@ -16,7 +16,10 @@ error-feedback round trip, ``--set key=value`` any config field (so
 asynchronously every ``--ckpt-every`` steps and synchronously at the end
 (also on SIGTERM or SIGINT), and resumes from the latest checkpoint on
 start.  Steps slower than twice the rolling median are flagged as
-stragglers.  The model runs on the card (``--device cuda``, the default,
+stragglers.  Each step line gives the positions trained a second: batch x
+seq, where ``--seq`` counts the tokens, for the vision frontend the 576
+patches and the text tokens after them (the loss covers the text), and
+for the audio frontend the frames (``positions_trained``).  The model runs on the card (``--device cuda``, the default,
 which raises where there is none); ``--device cpu`` runs the kernels'
 plain versions and is for ``--smoke`` configs only.  ``--plan FILE``
 installs an execution plan (``repro_torch.plan`` JSON) for every dispatch
@@ -60,6 +63,12 @@ class TrainerState:
 def _sync(device: torch.device) -> None:
   if device.type == "cuda":
     torch.cuda.synchronize(device)
+
+
+def positions_trained(cfg) -> str:
+  """What one position of ``--seq`` is for ``cfg``'s frontend."""
+  return {"vision": f"text tokens and {cfg.num_patches} patches",
+          "audio": "audio frames"}.get(cfg.frontend, "tokens")
 
 
 class Trainer:
@@ -144,9 +153,17 @@ class Trainer:
 
   # -- main loop ----------------------------------------------------------
 
+  @property
+  def positions_per_step(self) -> int:
+    """The positions one step trains: batch x seq (``positions_trained``)."""
+    return self.pipeline.cfg.global_batch * self.pipeline.cfg.seq_len
+
   def batch_at(self, step: int) -> dict[str, torch.Tensor]:
-    """The pipeline's batch of ``step`` on the device, ids as int64."""
-    return {k: torch.from_numpy(v).to(device=self.device, dtype=torch.int64)
+    """The pipeline's batch of ``step`` on the device: ids as int64, the
+    frontends' embeddings as the pipeline's f32 (the model casts them)."""
+    return {k: torch.from_numpy(v).to(
+        device=self.device,
+        dtype=torch.int64 if v.dtype.kind in "iu" else None)
             for k, v in self.pipeline.batch_at(step).items()
             if k != "corrupt_mask"}
 
@@ -168,7 +185,8 @@ class Trainer:
       self.maybe_flag_straggler(dt)
       state.step = step + 1
       print(f"[train] step {step:5d} loss {loss:.4f} "
-            f"gnorm {float(metrics['grad_norm']):.3f} ({dt*1e3:.0f} ms)")
+            f"gnorm {float(metrics['grad_norm']):.3f} ({dt*1e3:.0f} ms, "
+            f"{self.positions_per_step / dt:.0f} positions/s)")
       if self.async_ckpt and state.step % self.ckpt_every == 0:
         self.async_ckpt.save(state.step, self._tree(state),
                              {"step": state.step})
@@ -253,7 +271,8 @@ def main(argv=None) -> dict:
     print(f"[train] {cfg.name} on {device}: "
           f"{T.count_params(state.model):,} parameters in {cfg.dtype}, "
           f"{cfg.num_layers} layers, remat {cfg.remat}, grad_accum "
-          f"{cfg.grad_accum}")
+          f"{cfg.grad_accum}; {trainer.positions_per_step} positions a step "
+          f"({args.batch} x {args.seq} {positions_trained(cfg)})")
     state, metrics = trainer.run(state, args.steps)
   finally:
     for sig, previous in replaced.items():

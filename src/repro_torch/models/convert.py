@@ -9,10 +9,12 @@ into one module per layer, in the order the scan runs them
 (``split_layers``; ``port_tree`` maps any pytree of that layout, such as
 the reference's gradients, onto the port's leaves the same way).  Every
 leaf keeps its JAX layout (``wq`` (d, h, nd+rd), ``w_uk`` (r, h, nd),
-``router`` (d, E) f32, ...).  With tied embeddings the reference has no
-``lm_head`` and neither has the port; the reference's gradient of
-``embed/table`` already sums the gather's and the head's contributions,
-so it maps onto the port's one table as it is.
+``router`` (d, E) f32, ``r`` (h, dh, 4, dh), ...).  With tied embeddings
+the reference has no ``lm_head`` and neither has the port; the reference's
+gradient of ``embed/table`` already sums the gather's and the head's
+contributions, so it maps onto the port's one table as it is.  An audio
+model has no ``embed`` and carries ``codebook_head_<i>`` in place of the
+LM head, in both packages (``transformer.head_names``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import Transformer, check_supported
+from repro_torch.models.transformer import (Transformer, check_supported,
+                                            head_names)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -52,13 +55,12 @@ def split_layers(cfg, params_np: dict) -> list[dict]:
 
 def port_tree(cfg, params_np: dict, device="cpu") -> dict:
   """A pytree in the reference's layout (parameters, or gradients of
-  them) as the port's tree of tensors: ``embed``, ``lm_head`` (untied
-  only), ``final_norm`` and ``layers`` (``split_layers``)."""
+  them) as the port's tree of tensors: ``embed`` (not audio), ``lm_head``
+  (untied only) or ``codebook_head_<i>`` (audio), ``final_norm`` and
+  ``layers`` (``split_layers``)."""
   check_supported(cfg)
-  names = ("embed", "final_norm") if cfg.tie_embeddings else (
-      "embed", "lm_head", "final_norm")
   tree = {name: _map(params_np[name], lambda a: _tensor(a, device))
-          for name in names}
+          for name in head_names(cfg)}
   tree["layers"] = [_map(layer, lambda a: _tensor(a, device))
                     for layer in split_layers(cfg, params_np)]
   return tree

@@ -139,10 +139,22 @@ def test_transformer_refuses_a_head_that_does_not_match_the_config(smoke):
 
 
 def test_unported_kinds_still_raise():
+  """Every kind of the reference is ported (``mlstm`` builds now); a kind
+  that no layer of the reference has either, such as ``local_moe`` of the
+  config schema's comment, raises ``ValueError`` as the reference's
+  ``_mixer_init`` does, and remat "dots" stays unported."""
   cfg = dataclasses.replace(smoke_config("llama3.2-1b"),
                             block_cycle=("mlstm", "dense"))
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  assert [layer.kind for layer in T.init_params(cfg, 0).layers] == [
+      "mlstm", "dense"]
+  cfg = dataclasses.replace(cfg, block_cycle=("local_moe", "dense"))
+  with pytest.raises(ValueError, match="local_moe"):
     T.init_params(cfg, 0)
+  cfg = dataclasses.replace(smoke_config("llama3.2-1b"), remat="dots")
+  with pytest.raises(NotImplementedError, match="ROADMAP"):
+    T.forward_train(cfg, T.init_params(cfg, 0), {
+        "tokens": torch.zeros((1, 4), dtype=torch.int64),
+        "targets": torch.zeros((1, 4), dtype=torch.int64)})
 
 
 def test_attention_layer_matches_reference(smoke):

@@ -48,6 +48,9 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import repro_torch.configs.llama3_2_1b, repro_torch.configs.tinyllama_1_1b\n"
       "import repro_torch.configs.stablelm_3b, repro_torch.models.recurrent\n"
       "import repro_torch.configs.recurrentgemma_2b\n"
+      "import repro_torch.configs.xlstm_350m, repro_torch.models.xlstm\n"
+      "import repro_torch.configs.llava_next_mistral_7b\n"
+      "import repro_torch.configs.musicgen_large\n"
       "import repro_torch.data.pipeline, repro_torch.models.convert\n"
       "import repro_torch.launch.serve, repro_torch.launch.steps\n"
       "import repro_torch.launch.train, repro_torch.optim.adamw\n"

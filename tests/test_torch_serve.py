@@ -6,8 +6,9 @@ from the token pipeline and 4 greedy decode steps, through the reference's
 jitted step functions and the port's ``serve.generate``.  Logits agree
 within 1e-5 * (1 + max|logits|) at every step and the greedy tokens are
 identical.  Also the command line: ``--smoke --device cpu`` runs, the
-default device raises where there is no card, and what is not ported
-(stablelm-3b's config) raises.
+default device raises where there is no card, and what this loop does not
+serve raises: a full-size model on the CPU, and the audio frontend, whose
+decode takes frame embeddings (as in the reference).
 """
 
 from __future__ import annotations
@@ -107,8 +108,8 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("argv, exc", [
     (["--arch", ARCH, "--device", "cpu"], ValueError),   # full size on CPU
-    (["--arch", "xlstm-350m", "--smoke", "--device", "cpu"],
-     NotImplementedError),
+    (["--arch", "musicgen-large", "--smoke", "--device", "cpu"],
+     SystemExit),                                          # audio decode
 ])
 def test_what_is_not_served_raises(argv, exc):
   with pytest.raises(exc):
