@@ -77,8 +77,13 @@ its own lines; any failure raises and the script exits non-zero:
             (``LLAVA_ATTN_CASES``: llava's 1088-position prefill and its
             training shape, a ragged S, Sq != Skv, not causal) and (64, 64)
             at G 1 (``MUSICGEN_ATTN_CASES``: musicgen's prefill and training
-            shapes, a ragged S, not causal); a width not built, (96, 96),
-            raises with no launch.
+            shapes, a ragged S, not causal); at (64, 64), (128, 128) and
+            (256, 256) the options no model path uses
+            (``OPTION_ATTN_CASES``: a soft-cap of 30 with q scaled by 10 so
+            that it binds, a query offset with Sq < Skv, a window without
+            ``causal``, all three with a ragged Sq), forward and backward
+            under autograd by the two error models; a width not built,
+            (96, 96), raises with no launch.
 4. main     fwd+bwd of soft_rank / soft_sort (l2, kl) and
             soft_spearman_loss at (128, 1000) and (128, 10000) (eps 0.1),
             and soft_trimmed_token_loss on 2**20 token losses (trim 0.1,
@@ -230,7 +235,21 @@ its own lines; any failure raises and the script exits non-zero:
             the PAV kernels at its largest cell (32, 4096); the fused
             projection's two Lemma 2 backwards, ``segscan`` and
             ``scatter``, at the train step's and the operators' shapes,
-            against the built-in plan's cuda backward rule.
+            against the built-in plan's cuda backward rule; the attention
+            kernel with each option (soft-cap 30, a query offset, a window
+            without ``causal``) beside the same shape without it, at the
+            llama, grok and gemma prefills.
+   fig4     (the deepseek server's model freed) Figure 4 (right) of the
+            paper: ``soft_rank`` (l2, kl, eps 0.1) against the O(n^2)
+            baselines of ``core/baselines.py``, all-pairs (tau 0.1) and OT
+            / Sinkhorn (eps 1e-2, 50 iterations), forward and forward +
+            backward of sum(r**2), on 128 rows of n = 100 to 10000; a run
+            whose bytes, reckoned from the same method's peak at the
+            largest n that ran times (n / n_ran)^2, would pass 90% of the
+            card's memory is skipped and its reckoning printed.  First
+            each baseline on the card against the CPU at (8, 100), and
+            OT (eps 1e-3, 400 iterations) and all-pairs (tau 1e-3) within
+            0.05 and 1e-3 of the hard ranks.
 6. train    the servers' models freed, ``repro_torch.launch.train``'s
             ``main`` on each of ``TRAIN_RUNS``, one after the other:
             deepseek-v2-lite-16b at full width and 4 of 27 layers (the
@@ -251,9 +270,13 @@ its own lines; any failure raises and the script exits non-zero:
             grad_accum 8, frames in and the four codebook heads' mean loss;
             llava-next-mistral-7b, checks only, at full width and 4 of 32
             layers (~18 GB of state; whole, ~116 GB, needs FSDP), 2 steps,
-            each microbatch 576 patches and 1472 tokens.
+            each microbatch 576 patches and 1472 tokens; and llama3.2-1b
+            whole once more under remat "dots" (``--set remat=dots``): its
+            launches (attention is recomputed, as under "full"), its first
+            step's losses against the "full" run's, step ms and peak.
             All: random bf16 weights from seed 0, AdamW steps of 8 x 2048
-            positions with 10% corrupted targets, remat "full", the
+            positions with 10% corrupted targets, remat "full" (llama's
+            second run "dots"), the
             soft-LTS token loss (trim 0.1).  Every step's launch counts equal the
             counts from the code (``train_launches_per_step``, by layer
             kind); losses and grad norms are finite; after step 1 every
@@ -268,7 +291,7 @@ its own lines; any failure raises and the script exits non-zero:
             plain version) and backward, with the captured call's window,
             beside scaled_dot_product_attention's (with a boolean band mask
             under a window), one profiled step and the optimizer by square
-            root (none for recurrentgemma).
+            root (for recurrentgemma and llava the attention times only).
 7. summary  one ``{"kernels": [...]}`` line (every kernel's launches by
             path; flash_attention's times by width, the top-level ones the
             MLA width's at the deepseek prefill, as before, gemma's
@@ -989,6 +1012,133 @@ def backward_times(pav, dispatch, dev, rng, name_limit):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Figure 4 (right) of the paper on the card: the O(n log n) operators
+# against the O(n^2) baselines of ``core/baselines.py``, with the methods,
+# strengths and row count of benchmarks/bench_runtime.py.
+# ---------------------------------------------------------------------------
+
+FIG4_ROWS = 128
+FIG4_NS = (100, 500, 1000, 2000, 5000, 10000)
+OT_ITERS = 50                  # benchmarks/bench_runtime.py's OT_ITERS
+ALLPAIRS_TAU, OT_EPS = 0.1, 1e-2
+# A run whose reckoned bytes would pass this share of the card's memory is
+# skipped and its reckoning printed (the O(n^2) baselines run out of memory
+# first: the paper's point).
+FIG4_MEMORY_SHARE = 0.9
+# The baselines on the card in f32 against the CPU in f64 at (8, 100),
+# values and the gradient of sum(r**2), within FIG4_CHECK_TOL * (1 +
+# max|CPU|): the CPU's own f32 run is within 3.7e-5 of its f64 (OT's
+# gradient at eps 1e-2, 50 iterations, the worst).
+FIG4_CHECK_SHAPE = (8, 100)
+FIG4_CHECK_TOL = 2e-4
+HARD_RANK_THETA = (0.3, -1.2, 2.0, 0.9)     # tests/test_system.py's
+
+
+def fig4_methods(rt, bl) -> dict:
+  return {"soft_rank_l2": lambda t: rt.soft_rank(t, EPS, "l2"),
+          "soft_rank_kl": lambda t: rt.soft_rank(t, EPS, "kl"),
+          "allpairs": lambda t: bl.allpairs_rank(t, ALLPAIRS_TAU),
+          f"ot_sinkhorn_t{OT_ITERS}": lambda t: bl.ot_rank(t, OT_EPS,
+                                                           OT_ITERS)}
+
+
+def value_and_square_grad(fn, x: torch.Tensor):
+  """(fn(x), the gradient of sum(fn(x)**2)): the benchmark's backward."""
+  x = x.detach().requires_grad_(True)
+  r = fn(x)
+  return r.detach(), torch.autograd.grad(torch.sum(r**2), x)[0]
+
+
+def fig4_checks(rt, dev) -> list[str]:
+  """Each baseline on the card against the CPU (``FIG4_CHECK_TOL``), and
+  the reference's own convergence checks on the card: OT at eps 1e-3 with
+  400 iterations within 0.05 of the hard ranks, all-pairs at tau 1e-3
+  within 1e-3 (tests/test_system.py)."""
+  from repro_torch.core import baselines as bl
+
+  x = np.random.default_rng([SEED, 22]).normal(size=FIG4_CHECK_SHAPE)
+  lines = []
+  for name, fn in (
+      (f"allpairs_rank tau {ALLPAIRS_TAU}",
+       lambda t: bl.allpairs_rank(t, ALLPAIRS_TAU)),
+      (f"ot_rank eps {OT_EPS} {OT_ITERS} iterations",
+       lambda t: bl.ot_rank(t, OT_EPS, OT_ITERS)),
+      (f"ot_sort eps {OT_EPS} {OT_ITERS} iterations",
+       lambda t: bl.ot_sort(t, OT_EPS, OT_ITERS))):
+    got = value_and_square_grad(fn, to_dev(x, dev))
+    want = value_and_square_grad(fn, torch.from_numpy(x))
+    errs = [close(g, w, FIG4_CHECK_TOL) for g, w in zip(got, want)]
+    lines.append(f"fig4: {name} {FIG4_CHECK_SHAPE} on the card (f32) vs the"
+                 f" CPU (f64): values {errs[0]:.3e}, gradients of sum(r**2) "
+                 f"{errs[1]:.3e} (tol {FIG4_CHECK_TOL} * (1 + max|CPU|))")
+  theta = torch.tensor(HARD_RANK_THETA, dtype=torch.float32, device=dev)
+  hard = rt.hard_rank(theta, "DESCENDING")
+  for name, r, tol in (
+      ("ot_rank eps 1e-3 400 iterations",
+       bl.ot_rank(theta, epsilon=1e-3, num_iters=400), 0.05),
+      ("allpairs_rank tau 1e-3", bl.allpairs_rank(theta, 1e-3), 1e-3)):
+    err = float((r - hard).abs().max())
+    check(bool(torch.isfinite(r).all()) and err <= tol,
+          f"{name} is {err:.3e} off the hard ranks")
+    lines.append(f"fig4: {name} on the card reaches the hard ranks "
+                 f"{hard.tolist()} within {err:.3e} (tol {tol})")
+  return lines
+
+
+def fig4_times(rt, dev, name_limit) -> list[str]:
+  """Each method's forward and forward + backward of sum(r**2) on (128, n)
+  f32 rows of N(0, 1) from the seed, CUDA-event medians after a warm-up
+  (3 runs where the warm-up took over 100 ms, else 10), and the run's peak
+  memory above what was allocated before it.  Before a run its bytes are
+  reckoned from the peak of the same method and mode at the largest n that
+  ran, scaled by (n / n_ran)^2; a run reckoned past FIG4_MEMORY_SHARE of
+  the card's memory is skipped with its reckoning.  An out-of-memory error
+  is not caught."""
+  from repro_torch.core import baselines as bl
+
+  rng = np.random.default_rng([SEED, 4])
+  total = torch.cuda.get_device_properties(dev).total_memory
+  methods = fig4_methods(rt, bl)
+  ran: dict[tuple[str, str], tuple[int, int]] = {}
+  lines = []
+  for n in FIG4_NS:
+    x = to_dev(rng.normal(size=(FIG4_ROWS, n)), dev)
+    for name, fn in methods.items():
+      for mode in ("fwd", "fwd+bwd"):
+        if mode == "fwd":
+          def call(fn=fn):
+            with torch.no_grad():
+              fn(x)
+        else:
+          def call(fn=fn):
+            value_and_square_grad(fn, x)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        if (name, mode) in ran:
+          n_ran, peak_ran = ran[(name, mode)]
+          need = peak_ran * (n / n_ran) ** 2
+          if base + need > FIG4_MEMORY_SHARE * total:
+            lines.append(
+                f"fig4: {name} {mode} ({FIG4_ROWS}, {n}): skipped: needs "
+                f"~{need / 2**30:.1f} GiB (peak {peak_ran / 2**30:.3f} GiB at"
+                f" n = {n_ran}, times ({n} / {n_ran})^2), above "
+                f"{FIG4_MEMORY_SHARE:.0%} of the card's "
+                f"{total / 2**30:.1f} GiB [{name_limit}]")
+            continue
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = median_ms(call, 1, warmup=0)
+        reps = 3 if first > 100 else 10
+        ms = median_ms(call, reps, warmup=0)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        ran[(name, mode)] = (n, peak)
+        lines.append(f"fig4: {name} {mode} ({FIG4_ROWS}, {n}): {ms:.4f} ms "
+                     f"(median of {reps} after a warm-up of {first:.2f} ms),"
+                     f" peak {peak / 2**30:.3f} GiB [{name_limit}]")
+  return lines
+
+
 def gates_inputs(rng, rows: int, e: int, kind: str) -> np.ndarray:
   """Router logits: N(0, 1), ties on a grid of 0.5, or constant rows."""
   x = rng.normal(size=(rows, e))
@@ -1061,6 +1211,26 @@ MUSICGEN_ATTN_CASES = (
     (8, 512, 512, 32, 32, True, 0), (1, 2048, 2048, 32, 32, True, 0),
     (3, 333, 333, 32, 32, True, 0), (2, 512, 512, 32, 32, False, 0),
     (2, 77, 130, 32, 32, False, 0))
+
+
+# The options of the reference's attention that no model path of the port
+# uses, at (64, 64) (G 4), (128, 128) (G 6) and (256, 256) (G 2), forward
+# and backward in phase 3: (D = Dv, B, Sq, Skv, H, Hkv, causal, window,
+# softcap, q_offset).  At each width a soft-cap of 30 (grok's logit cap)
+# alone, queries that continue a cache (q_offset = Skv - Sq), a window
+# without ``causal`` (the causal windowed kernel), and all three with a
+# ragged Sq.
+OPTION_ATTN_CASES = tuple(
+    (width, b, sq, skv, h, hkv, causal, window, softcap, q_offset)
+    for width, h, hkv in ((64, 32, 8), (128, 48, 8), (256, 16, 8))
+    for b, sq, skv, causal, window, softcap, q_offset in (
+        (2, 512, 512, True, 0, 30.0, 0),
+        (2, 300, 812, True, 0, 0.0, 512),
+        (2, 512, 512, False, 100, 0.0, 0),
+        (2, 333, 777, False, 200, 30.0, 444)))
+# q's scale under a soft-cap: scores of ~N(0, 10^2), so that 30 * tanh(s /
+# 30) departs from s.
+HOT_Q = 10.0
 
 
 def attn_key(q: torch.Tensor, v: torch.Tensor) -> str:
@@ -1158,6 +1328,7 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
       say(f"kernels: flash_attention q ({b}, {sq}, {h}, {width}) kv ({skv}, "
           f"{hkv}) (G {h // hkv}) causal {causal} window {window}: "
           f"{attn_text(cmp, fa)}{same}")
+  attn_option_checks(dev, fa, max_err)
   # A width that is not built raises before any launch: no plain fallback.
   x = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16, device=dev)
   before = fa.LAUNCHES["flash_attention"]
@@ -1171,6 +1342,52 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
         "flash_attention at (D, Dv) = (96, 96) did not raise")
   say(f"kernels: flash_attention at (D, Dv) = (96, 96) on the card raises "
       f"ValueError with no launch: {refused}")
+
+
+def attn_option_checks(dev, fa, max_err) -> None:
+  """Phase 3: the kernel with a soft-cap, a query offset and a window
+  without ``causal`` (``OPTION_ATTN_CASES``), under autograd: one launch a
+  call, the output against the plain version with the same options by
+  the error model, and ``flash_attention_bwd``'s gradients against the
+  plain version's autograd in f32 by the backward's."""
+  for width, b, sq, skv, h, hkv, causal, window, softcap, q_offset in (
+      OPTION_ATTN_CASES):
+    gen = torch.Generator(device=dev).manual_seed(sq + window + q_offset)
+    q = torch.randn((b, sq, h, width), generator=gen, device=dev,
+                    dtype=torch.bfloat16) * (HOT_Q if softcap else 1.0)
+    k, v = (torch.randn((b, skv, hkv, width), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    opts = dict(window=window, softcap=softcap, q_offset=q_offset)
+    xs = [t.requires_grad_(True) for t in (q, k, v)]
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(*xs, causal, **opts)
+    check(fa.LAUNCHES["flash_attention"] == before + 1,
+          "flash_attention with options: not one launch")
+    do = torch.randn(out.shape, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    grads = torch.autograd.grad(out, xs, do)
+    xs = [t.detach() for t in xs]
+    masked = causal or window > 0
+    cmp = fa.compare_with_plain(out.detach(), *xs, masked, **opts)
+    check(cmp["finite"] and cmp["tol_ratio"] <= 1.0
+          and cmp["rel_frob"] <= fa.REL_FROB_LIMIT,
+          f"attention with {opts}: {attn_text(cmp, fa)}")
+    key = attn_key(q, v)
+    max_err[key] = max(max_err[key], cmp["max_abs_err"])
+    texts = [f"forward: {attn_text(cmp, fa)}"]
+    for name, c in fa.compare_bwd_with_plain(grads, *xs, do, masked,
+                                             **opts).items():
+      text = attn_text(c, fa, f"{name} - {name} of the plain version's "
+                       "autograd in f32")
+      check(c["finite"] and c["tol_ratio"] <= 1.0
+            and c["rel_frob"] <= fa.REL_FROB_LIMIT,
+            f"flash_attention_bwd {name} with {opts}: {text}")
+      texts.append(text)
+    say(f"kernels: flash_attention q ({b}, {sq}, {h}, {width}) kv ({skv}, "
+        f"{hkv}) (G {h // hkv}) causal {causal} window {window} softcap "
+        f"{softcap} q_offset {q_offset}"
+        f"{' (q x ' + str(HOT_Q) + ')' if softcap else ''}, one launch: "
+        + "; ".join(texts))
 
 
 def pav_scan_checks(rng, dev, pav, pav_scan, theta_np, tokens_np, record,
@@ -1512,19 +1729,25 @@ def gates_bound(logits: torch.Tensor, k: int, eps: float,
   return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def attn_bound(q, k, v, causal: bool, window: int = 0) -> tuple[float, str]:
+def attn_bound(q, k, v, causal: bool, window: int = 0, softcap: float = 0.0,
+               q_offset: int = 0) -> tuple[float, str]:
   """Least time for attention: bytes (q, k, v read once, out written once)
   against the tensor-core products (QK^T and PV over the unmasked pairs:
-  under a window, query i's min(i + 1, window) keys) plus the softmax (5
-  f32 ops a score) at the f32 rate."""
+  query i at position p = q_offset + i sees min(p + 1, Skv) keys, under a
+  window those above p - window) plus the softmax (5 f32 ops a score; a
+  soft-cap 2 more, its multiply and its tanh counted as one) at the f32
+  rate."""
   b, sq, h, d = q.shape
   skv, dv = k.shape[1], v.shape[-1]
-  pairs = (sum(min(i + 1, skv) - max(0, i + 1 - window if window else 0)
-               for i in range(sq)) if causal else sq * skv)
+  pairs = (sum(min(p + 1, skv) - max(0, p + 1 - window if window else 0)
+               for p in range(q_offset, q_offset + sq))
+           if causal or window else sq * skv)
   n_bytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * 2
   flops = 2 * b * h * pairs * (d + dv)
+  score_ops = 5 + (2 if softcap > 0 else 0)
   bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-  ops_ms = (flops / BF16_OPS_PER_S + 5 * b * h * pairs / F32_OPS_PER_S) * 1e3
+  ops_ms = (flops / BF16_OPS_PER_S
+            + score_ops * b * h * pairs / F32_OPS_PER_S) * 1e3
   return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -1735,6 +1958,51 @@ def attn_times(q, kx, v, causal: bool, fa, name_limit,
           f"({share(bound_ms, lib_dev_ms)} of its device time) "
           f"[{name_limit}]")
   return row, line
+
+
+# The options' times in phase 5, at each option width's serving prefill
+# (B, S, H, Hkv, D): llama's (64, 64), grok's (128, 128), gemma's (256, 256)
+# global layers.
+OPTION_TIME_SHAPES = ((SERVE_BATCH, SERVE_PROMPT, 32, 8, 64),
+                      (SERVE_BATCH, SERVE_PROMPT, 48, 8, 128),
+                      (SERVE_BATCH, 2048, 16, 8, 256))
+
+
+def attn_option_times(dev, fa, name_limit) -> tuple[list[str], list[dict]]:
+  """The kernel with each option beside the same shape without it, on the
+  same inputs (q scaled by HOT_Q, so that the soft-cap binds): causal;
+  soft-cap 30; the last S / 2 queries over the S keys (q_offset = S / 2);
+  a window of S / 4 without ``causal``, and with it (the same kernel).
+  CUDA-event medians and the profiler's device time, with the bound."""
+  lines, rows = [], []
+  for b, s, h, hkv, d in OPTION_TIME_SHAPES:
+    gen = torch.Generator(device=dev).manual_seed(s + d)
+    q = torch.randn((b, s, h, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16) * HOT_Q
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    half = q[:, s // 2:].contiguous()
+    for what, qx, causal, opts in (
+        ("causal", q, True, {}),
+        ("causal, softcap 30", q, True, dict(softcap=30.0)),
+        (f"causal, last {s // 2} queries, q_offset {s // 2}", half, True,
+         dict(q_offset=s // 2)),
+        (f"window {s // 4}, causal False", q, False, dict(window=s // 4)),
+        (f"window {s // 4}, causal True", q, True, dict(window=s // 4))):
+      call = lambda: fa.flash_attention(qx, k, v, causal, **opts)  # noqa
+      ms = median_ms(call, 20)
+      dev_ms = kernel_device_ms(call, "flash_kernel")
+      bound_ms, bound_by = attn_bound(qx, k, v, causal, **opts)
+      rows.append({"shape": list(qx.shape), "width": [d, d],
+                   "causal": causal, **opts, "ms": ms, "device_ms": dev_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by})
+      lines.append(f"times: flash_attention options q {tuple(qx.shape)} k "
+                   f"{tuple(k.shape)} {what}: kernel {ms:.4f} ms (device "
+                   f"{ms_text(dev_ms)} a launch, profiler), bound "
+                   f"{bound_ms:.5f} ms ({bound_by}), "
+                   f"{share(bound_ms, dev_ms)} of its device time "
+                   f"[{name_limit}]")
+  return lines, rows
 
 
 # The sLSTM scan's ranges (``models/xlstm.py``): the forward, which remat
@@ -2663,7 +2931,9 @@ def audio_serve_times(res, rec, fa, dev, name_limit):
 # "full".  recurrentgemma-2b runs its checks only, at full width and one
 # block cycle (rg, rg, local): 0.91e9 parameters, about 15 GB of state, 2
 # steps, its attention call (the local layer's) under the window of 2048,
-# which at 2048 positions keeps every key; no times.
+# which at 2048 positions keeps every key; no times.  llama3.2-1b runs
+# whole once more under remat "dots" (``DOTS_RUN``): step ms and peak memory
+# only, its first step's microbatch losses held to the "full" run's.
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 4
 RG_TRAIN_STEPS = 2
 # xlstm-350m's step runs its 3 sLSTM scans position by position, about
@@ -2680,7 +2950,10 @@ EXPERT_LEAF = "layers.0.params.ffn.we_in"     # (64, 2048, 1408) bf16
 # is checked card against CPU, the attention shapes one microbatch gives
 # the kernel (q, v) and its first call's window (0 where absent), its
 # depth as printed, and, where they differ from the rule, its steps and
-# whether it is timed.
+# whether it is timed ("steps": the step ms and peak only; False: only the
+# attention at the training shape), or the run whose first step's losses
+# it must give ("same_losses_as").
+DOTS_RUN = f"{DENSE_ARCH} remat=dots"
 TRAIN_RUNS = {
     ARCH: {
         "args": ["--arch", ARCH, "--set", f"num_layers={TRAIN_LAYERS}",
@@ -2695,6 +2968,14 @@ TRAIN_RUNS = {
         "leaf": "layers.0.params.ffn.w_in",      # (2048, 8192) bf16
         "attn": ((2, TRAIN_SEQ, 32, 64), (2, TRAIN_SEQ, 8, 64)),
         "depth": "all 16 layers"},
+    DOTS_RUN: {
+        "args": ["--arch", DENSE_ARCH, "--set", "remat=dots",
+                 *TRAIN_COMMON, *STEPS],
+        "config": (16, 2048, 4, "dots", "bfloat16"),
+        "leaf": "layers.0.params.ffn.w_in",
+        "attn": ((2, TRAIN_SEQ, 32, 64), (2, TRAIN_SEQ, 8, 64)),
+        "depth": "all 16 layers",
+        "timed": "steps", "same_losses_as": DENSE_ARCH},
     GEMMA_ARCH: {
         "args": ["--arch", GEMMA_ARCH, "--set", "num_layers=6",
                  *TRAIN_COMMON, *STEPS],
@@ -2763,15 +3044,16 @@ KERNEL_GROUPS = {
 def train_launches_per_step(cfg) -> dict[str, int]:
   """Kernel launches of one train step, counted from the code, by layer
   kind: each of the ``grad_accum`` microbatches runs every layer's
-  forward twice (remat "full": once, and again in backward), each pass
-  launching attention once a layer, and, in an MoE layer with the soft
+  forward twice (remat "full" and "dots": once, and again in backward;
+  "dots" keeps only the products' outputs, and the attention kernel is
+  not one), each pass launching attention once a layer, and, in an MoE layer with the soft
   top-k router (``mla_moe`` here), ``pav_l2`` once (``soft_topk_mask``
   over the microbatch's tokens, one row each, fewer than 65535); a dense
   layer launches no PAV kernel.  The soft-LTS loss sorts each
   microbatch's tokens as one row in one more ``pav_l2`` launch.  The fused
   gates and ``pav_kl`` do not run under autograd; a recurrent layer
   (``rg``, ``mlstm``, ``slstm``) launches no kernel."""
-  passes = cfg.grad_accum * (2 if cfg.remat == "full" else 1)
+  passes = cfg.grad_accum * (1 if cfg.remat == "none" else 2)
   kinds = cfg.layer_kinds()
   n_attn = attention_layers(cfg)
   routed = (sum(kind == "mla_moe" for kind in kinds)
@@ -3040,6 +3322,20 @@ def train_checks(rec, cfg, fa, dev, arch: str) -> tuple[list[str], dict]:
   return lines, {"qkv": (q, k, v), "out": out, "do": do, "window": window}
 
 
+def same_losses_text(first_losses, arch: str, other: str) -> str:
+  """The first step's microbatch losses of ``arch`` against ``other``'s,
+  from the same weights and batches: within 1e-6 relative (a remat
+  changes no forward computation), and whether bit for bit."""
+  got, want = first_losses[arch], first_losses[other]
+  worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+  check(len(got) == len(want) and worst <= 1e-6,
+        f"{arch}'s first step losses {got} vs {other}'s {want}")
+  return (f"{arch}'s first step's {len(got)} microbatch losses "
+          f"{', '.join(f'{x:.6f}' for x in got)} against {other}'s: worst "
+          f"relative difference {worst:.3e} (tol 1e-6), "
+          f"{'bit for bit' if got == want else 'not bit for bit'}")
+
+
 def timed_steps(trainer, state, n: int) -> list[float]:
   """Seconds of ``n`` more train steps, timed as ``Trainer.run`` times
   them (a sync before, the loss read back after), with no recorder around
@@ -3157,6 +3453,8 @@ def train_times(res, rec, captured, fa, name_limit,
       f"{tokens / statistics.median(recorded[1:]):.0f} positions/s); peak "
       f"memory {peak:.2f} GiB ({res['peak_gib']:.2f} in the recorded run) "
       f"[{name_limit}]")
+  if run.get("timed") == "steps":
+    return lines, None
   row = None
   if captured["qkv"] is not None:
     row, line = train_attn_times(captured, fa, name_limit, arch)
@@ -3268,7 +3566,7 @@ def train_attn_times(captured, fa, name_limit, arch: str):
 def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     serve_rows, dense_row, grok_row, grok_gate_rows,
                     full_rows, audio_row, train_launches, train_rows,
-                    engine_runs, engine_rows) -> list[dict]:
+                    engine_runs, engine_rows, option_rows) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
   ``train_launches`` by model).  ``launches`` is each kernel's main path:
@@ -3282,9 +3580,13 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   prefill, llava's (128, 128) at G = 4 at its 1088-position prefill,
   musicgen's (64, 64) at G = 1 at its prefill; xlstm has no attention)
   with its own launches, error and training shape's times (none for grok,
-  which is not trained, nor for recurrentgemma and llava, whose train runs
-  are checks only; gemma's at its first, windowed, layer).  The gates' top-level numbers stay
-  deepseek's (4096, 64); ``shapes`` adds grok's (4096, 8) and (8, 8)."""
+  which is not trained; recurrentgemma's and llava's, whose train runs are
+  checks only, the attention alone; gemma's at its first, windowed,
+  layer); ``options``
+  the kernel with a soft-cap, a query offset and a window without
+  ``causal`` beside the same shapes without them.  The gates' top-level
+  numbers stay deepseek's (4096, 64); ``shapes`` adds grok's (4096, 8) and
+  (8, 8)."""
 
   def by_arch(counts: dict, kname: str) -> dict[str, int]:
     return {arch: c[kname] for arch, c in counts.items()}
@@ -3353,7 +3655,8 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
       "replaces": REPLACES["flash_attention"],
       **{k: v for k, v in widths[0].items()
          if k not in ("arch", "train_shape", "train_launches")},
-      **paths("flash_attention"), "widths": widths})
+      **paths("flash_attention"), "widths": widths,
+      "options": option_rows})
   return kernels
 
 
@@ -3606,7 +3909,9 @@ def main() -> int:
                                            name_limit)
   from repro_torch.kernels import dispatch
   backward_lines = backward_times(pav, dispatch, dev, engine_rng, name_limit)
-  for line in lines + serve_lines + engine_lines + backward_lines:
+  option_lines, option_rows = attn_option_times(dev, fa, name_limit)
+  for line in (lines + serve_lines + engine_lines + backward_lines
+               + option_lines):
     say(line)
 
   clock("phase 5")
@@ -3618,6 +3923,13 @@ def main() -> int:
   torch.cuda.empty_cache()
   say(f"serve: the {ARCH} server's model freed; "
       f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still allocated")
+
+  # Figure 4 ---------------------------------------------------------------
+  for line in fig4_checks(rt, dev):
+    say(line)
+  for line in fig4_times(rt, dev, name_limit):
+    say(line)
+  clock("figure 4")
   dense_res, dense_launches, dense_rec, dense_err = dense_serve_path(
       dev, serve, kops, st, fa)
   for kname, err in dense_err.items():
@@ -3676,7 +3988,7 @@ def main() -> int:
 
   # 6. train ------------------------------------------------------------------
   # Each trainer's model and state go before the next one's.
-  train_launches, train_rows = {}, {}
+  train_launches, train_rows, first_losses = {}, {}, {}
   for arch in TRAIN_RUNS:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3687,11 +3999,20 @@ def main() -> int:
                                          arch)
     for line in train_lines:
       say(line)
-    if TRAIN_RUNS[arch].get("timed", True):
+    run = TRAIN_RUNS[arch]
+    first_losses[arch] = train_rec.losses[:train_res["cfg"].grad_accum]
+    if "same_losses_as" in run:
+      say("train: " + same_losses_text(first_losses, arch,
+                                       run["same_losses_as"]))
+    if run.get("timed", True):
       time_lines, train_rows[arch] = train_times(
           train_res, train_rec, captured, fa, name_limit, arch)
-      for line in time_lines:
-        say(line)
+    else:
+      train_rows[arch], line = train_attn_times(captured, fa, name_limit,
+                                                arch)
+      time_lines = [line]
+    for line in time_lines:
+      say(line)
     del train_res, train_rec, captured
     clock(f"train {arch}")
 
@@ -3705,7 +4026,8 @@ def main() -> int:
       grok_gate_rows=grok_gate_rows, full_rows=full_rows,
       audio_row=audio_row,
       train_launches=train_launches, train_rows=train_rows,
-      engine_runs=engine_runs, engine_rows=engine_rows)
+      engine_runs=engine_runs, engine_rows=engine_rows,
+      option_rows=option_rows)
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Flash attention forward (causal or not, GQA, D != Dv allowed, a causal
-// sliding window) for Hopper (sm_90a), bf16 in and out, f32 softmax state.
+// sliding window, a logit soft-cap, a query offset) for Hopper (sm_90a),
+// bf16 in and out, f32 softmax state.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_tpu (body _flash_kernel), and with it the attention of
@@ -8,10 +9,17 @@
 // Layout (the JAX one): q (B, Sq, H, D), k (B, Skv, Hkv, D),
 // v (B, Skv, Hkv, Dv), out (B, Sq, H, Dv), all C-contiguous; H = G * Hkv and
 // query head h = hkv * G + g attends to kv head hkv.  Scores are scaled by
-// 1 / sqrt(D) (the q/k width, not Dv); causal masking is top-left aligned
-// (key position <= query position), as in the reference with q_offset 0.
-// A window W > 0 (causal only) also masks keys at or below query - W: query
-// i sees keys i - W + 1 .. i, the reference's `local` layers' attention.
+// 1 / sqrt(D) (the q/k width, not Dv); query i sits at position
+// q_offset + i (the reference's q_offset: a prefill that continues a
+// cache) and causal masking keeps key positions <= its position.  A window
+// W > 0 (causal only) also masks keys at or below position - W: query i
+// sees keys p - W + 1 .. p, p = q_offset + i, the reference's `local`
+// layers' attention.  A soft-cap c > 0 replaces each scaled score s by
+// c * tanh(s / c) before the mask (the logit soft-cap the reference's
+// attention takes): tanhf in f32, in an instantiation of its own (kCap), so
+// that the kernel without a soft-cap runs the instructions it ran before
+// and gives the same bits (a branch on a runtime argument, uniform across
+// the grid, slowed it measurably at (64, 64) on the card).
 //
 // Five widths are built: (D, Dv) = (192, 128), MLA's (deepseek-v2-lite),
 // (64, 64), the GQA head width of llama3.2-1b and tinyllama-1.1b,
@@ -373,8 +381,10 @@ __device__ __forceinline__ float ex2(float x) {
 
 // Online softmax of one kv tile for this thread's two rows.  sc holds the
 // tile's raw scores (element e of n8 tile nt: row gid + 8 * (e / 2), key
-// kv0 + nt * 8 + tig * 2 + e % 2); masked where need_mask says so (past
-// Skv, past the row's position under the causal mask, at or below the
+// kv0 + nt * 8 + tig * 2 + e % 2); with a soft-cap (kCap; cap_in = scale /
+// c) each becomes tanh(score * cap_in) first, and scale_log2 is then
+// c * log2(e) in place of scale * log2(e); masked where need_mask says so
+// (past Skv, past the row's position under the causal mask, at or below the
 // row's position - window under a window), they become P = 2^(score *
 // scale_log2 - m), packed to bf16 as wgmma's register A fragments (the S
 // fragment of keys 16 kk .. 16 kk + 15 is exactly the A fragment of k-step
@@ -383,11 +393,16 @@ __device__ __forceinline__ float ex2(float x) {
 // score is -inf, whose 2^ is 0 whatever m is: under a window a row's first
 // tiles may hold none of its keys, and m then stays finite (near kNeg)
 // until a tile does.
+template <bool kCap>
 __device__ __forceinline__ void softmax_tile(
     float (&sc)[kKv / 2], uint32_t (&pa)[kKv / 16][4], float (&m)[2],
-    float (&l)[2], float (&alpha)[2], float scale_log2, bool need_mask,
-    int kv0, int skv, bool causal, int window, const int (&qpos)[2],
-    int tig) {
+    float (&l)[2], float (&alpha)[2], float scale_log2, float cap_in,
+    bool need_mask, int kv0, int skv, bool causal, int window,
+    const int (&qpos)[2], int tig) {
+  if constexpr (kCap) {
+#pragma unroll
+    for (int k = 0; k < kKv / 2; ++k) sc[k] = tanhf(sc[k] * cap_in);
+  }
   if (need_mask) {
 #pragma unroll
     for (int k = 0; k < kKv / 2; ++k) {
@@ -463,13 +478,14 @@ struct Smem {
   static_assert(kBytes <= 232448, "more shared memory than a block has");
 };
 
-template <int D, int DV>
+template <int D, int DV, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
              __nv_bfloat16* __restrict__ out, int batch, int sq, int skv,
-             int h, int hkv, int causal, int window, float scale_log2) {
+             int h, int hkv, int causal, int window, int q_offset,
+             float scale_log2, float cap_in) {
   using S = Smem<D, DV>;
   // D and DV are the tensors' widths; kD and kDV, whole boxes, the widths
   // shared memory and the products run at (columns past D or DV arrive as
@@ -500,7 +516,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   // items blockIdx.x, blockIdx.x + gridDim.x, ...  Its kv tiles are
   // [first, last): under the causal mask they end at its last query
   // position's tile, under a window they start at the tile of its first
-  // position's first key, q0 - window + 1.
+  // position's first key, q_offset + q0 - window + 1 (the launch checks
+  // that every query sees a key, so first < last).
   const int g_count = h / hkv;
   const int bq = kRows / g_count;               // query positions per item
   const int q_rows = bq * g_count;              // rows loaded: 128 - 128 % G
@@ -516,9 +533,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     it.kvh = (i % n_bh) % hkv;
     it.b = (i % n_bh) / hkv;
     it.q0 = (n_q - 1 - i / n_bh) * bq;
-    it.last = causal ? min(n_tiles, (min(it.q0 + bq, sq) - 1) / kKv + 1)
-                     : n_tiles;
-    it.first = window > 0 ? max(0, it.q0 - window + 1) / kKv : 0;
+    const int last_pos = q_offset + min(it.q0 + bq, sq) - 1;
+    it.last = causal ? min(n_tiles, last_pos / kKv + 1) : n_tiles;
+    it.first = window > 0 ? max(0, q_offset + it.q0 - window + 1) / kKv : 0;
     return it;
   };
 
@@ -588,20 +605,27 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int qb = ic % kQBufs;
     const uint32_t q_base =
         smem_addr(q_s + qb * S::kQBytes) + wg * 64 * kBoxBytes;
-    int qpos[2];
-    for (int i = 0; i < 2; ++i) qpos[i] = it.q0 + row[i] / g_count;
+    // The rows' query indices and their positions, q_offset + index.
+    int qidx[2], qpos[2];
+    for (int i = 0; i < 2; ++i) {
+      qidx[i] = it.q0 + row[i] / g_count;
+      qpos[i] = q_offset + qidx[i];
+    }
     const int wg_first = it.q0 + (wg * 64) / g_count;
     const int wg_last =
         min(it.q0 + min(wg * 64 + 63, q_rows - 1) / g_count, sq - 1);
+    const int wg_first_pos = q_offset + wg_first;
+    const int wg_last_pos = q_offset + wg_last;
     // This warpgroup's tiles [w0, nw): under the causal mask, up to its
     // last row; under a window, from the tile of its first row's first
     // key.  The item's other tiles it only waits for and releases.
     const int nw = wg_first >= sq ? 0
-                   : causal       ? min(it.last, wg_last / kKv + 1)
+                   : causal       ? min(it.last, wg_last_pos / kKv + 1)
                                   : it.last;
-    const int w0 = nw == 0 || window == 0
-                       ? it.first
-                       : max(it.first, max(0, wg_first - window + 1) / kKv);
+    const int w0 =
+        nw == 0 || window == 0
+            ? it.first
+            : max(it.first, max(0, wg_first_pos - window + 1) / kKv);
     auto stage_of = [&](int j) { return (tc + j - it.first) % kStages; };
     auto wait_tile = [&](int j) {
       mbar_wait(&full[stage_of(j)], ((tc + j - it.first) / kStages) & 1);
@@ -639,8 +663,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     // of this warpgroup's first row, or (under a window) reaches down to
     // the lower edge of its last row's window.
     auto need_mask = [&](int j) {
-      return (j + 1) * kKv > skv || (causal && (j + 1) * kKv - 1 > wg_first)
-             || (window > 0 && j * kKv <= wg_last - window);
+      return (j + 1) * kKv > skv ||
+             (causal && (j + 1) * kKv - 1 > wg_first_pos) ||
+             (window > 0 && j * kKv <= wg_last_pos - window);
     };
 
     float m[2] = {kNeg, kNeg};
@@ -664,8 +689,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs(sc);
       if (nw == w0 + 1) release_q();
-      softmax_tile(sc, pa, m, l, alpha, scale_log2, need_mask(w0), w0 * kKv,
-                   skv, causal, window, qpos, tig);
+      softmax_tile<kCap>(sc, pa, m, l, alpha, scale_log2, cap_in,
+                         need_mask(w0), w0 * kKv, skv, causal, window, qpos,
+                         tig);
     }
     // Tile j's P V product and tile j + 1's scores go to the tensor cores
     // together; tile j + 1's softmax follows once both are done (and
@@ -700,8 +726,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (j + 1 < nw) {
         fence_regs(sc);
         if (j + 2 == nw) release_q();
-        softmax_tile(sc, pa, m, l, alpha, scale_log2, need_mask(j + 1),
-                     (j + 1) * kKv, skv, causal, window, qpos, tig);
+        softmax_tile<kCap>(sc, pa, m, l, alpha, scale_log2, cap_in,
+                           need_mask(j + 1), (j + 1) * kKv, skv, causal,
+                           window, qpos, tig);
       }
     }
     for (int j = nw > 0 ? nw : w0; j < it.last; ++j) {
@@ -714,12 +741,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     // columns past DV hold zeros and are not written).
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      if (row[i] >= q_rows || qpos[i] >= sq) continue;
+      if (row[i] >= q_rows || qidx[i] >= sq) continue;
       const int head = it.kvh * g_count + row[i] % g_count;
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
       __nv_bfloat16* op =
           out +
-          ((static_cast<int64_t>(it.b) * sq + qpos[i]) * h + head) * DV;
+          ((static_cast<int64_t>(it.b) * sq + qidx[i]) * h + head) * DV;
 #pragma unroll
       for (int nt = 0; nt < DV / 8; ++nt) {
         *reinterpret_cast<uint32_t*>(op + nt * 8 + tig * 2) =
@@ -774,10 +801,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DV>
+// One instantiation's launch: kCap with a soft-cap, its own without.
+template <int D, int DV, bool kCap>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, int h, int hkv, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int q_offset, float scale, float softcap, cudaStream_t stream) {
   const int g_count = h / hkv;
   const int bq = kRows / g_count;   // the Q box: (64, G, bq), bq * G <= 128
   CUtensorMap tm_q, tm_k, tm_v;
@@ -787,14 +815,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int kSmem = Smem<D, DV>::kBytes;
-  // Per device, once: the shared-memory opt-in and the SM count.
+  // Per device and instantiation, once: the shared-memory opt-in and the
+  // SM count.
   static int sms[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (sms[device] == 0) {
-    err = cudaFuncSetAttribute(flash_kernel<D, DV>,
+    err = cudaFuncSetAttribute(flash_kernel<D, DV, kCap>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -806,10 +835,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   // walking its share of the work items.
   const int n_items = b * hkv * ((sq + bq - 1) / bq);
   const int grid = n_items < sms[device] ? n_items : sms[device];
-  flash_kernel<D, DV><<<grid, kThreads, kSmem, stream>>>(
+  // Without a soft-cap the scores are scaled by scale * log2(e) inside the
+  // exponent, as before; with one, tanh(score * scale / c) is scaled by
+  // c * log2(e).
+  const float log2e = 1.4426950408889634f;
+  flash_kernel<D, DV, kCap><<<grid, kThreads, kSmem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), b, sq, skv, h, hkv,
-      causal, window, scale * 1.4426950408889634f);
+      causal, window, q_offset, (kCap ? softcap : scale) * log2e,
+      kCap ? scale / softcap : 0.f);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int DV>
+int launch_width(const void* q, const void* k, const void* v, void* out,
+                 int b, int sq, int skv, int h, int hkv, int causal,
+                 int window, int q_offset, float scale, float softcap,
+                 cudaStream_t stream) {
+  return softcap > 0.f
+             ? launch<D, DV, true>(q, k, v, out, b, sq, skv, h, hkv, causal,
+                                   window, q_offset, scale, softcap, stream)
+             : launch<D, DV, false>(q, k, v, out, b, sq, skv, h, hkv, causal,
+                                    window, q_offset, scale, softcap, stream);
 }
 
 }  // namespace
@@ -821,33 +867,37 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // (256, 256) or (80, 80), the dense GQA widths; another width is one more
 // instantiation of the template (multiples of 8, padded to whole 64-column
 // boxes, a wgmma wrapper of n = the padded dv, a shared-memory plan that
-// fits), and until then returns cudaErrorInvalidValue.  window > 0 (causal only) keeps the keys of
-// positions query - window + 1 .. query; 0 keeps all.  Returns the
-// launch's cudaError_t.
+// fits), and until then returns cudaErrorInvalidValue.  Query i sits at
+// position q_offset + i (q_offset >= 0).  window > 0 (causal only) keeps
+// the keys of positions p - window + 1 .. p, and every query must see one;
+// 0 keeps all.  softcap > 0 caps the scaled scores at softcap * tanh(s /
+// softcap); 0 leaves them.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int sq,
                                       int skv, int h, int hkv, int d, int dv,
-                                      int causal, int window, float scale,
+                                      int causal, int window, int q_offset,
+                                      float scale, float softcap,
                                       cudaStream_t stream) {
   if (b == 0 || sq == 0) return 0;
   if (hkv < 1 || h % hkv || h / hkv > kRows || skv < 1 || window < 0 ||
-      (window > 0 && !causal)) {
+      q_offset < 0 || softcap < 0.f || (window > 0 && !causal) ||
+      (window > 0 && q_offset + sq - window >= skv)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (d == 192 && dv == 128)
-    return launch<192, 128>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
-                            scale, stream);
+    return launch_width<192, 128>(q, k, v, out, b, sq, skv, h, hkv, causal,
+                                  window, q_offset, scale, softcap, stream);
   if (d == 64 && dv == 64)
-    return launch<64, 64>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
-                          scale, stream);
+    return launch_width<64, 64>(q, k, v, out, b, sq, skv, h, hkv, causal,
+                                window, q_offset, scale, softcap, stream);
   if (d == 128 && dv == 128)
-    return launch<128, 128>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
-                            scale, stream);
+    return launch_width<128, 128>(q, k, v, out, b, sq, skv, h, hkv, causal,
+                                  window, q_offset, scale, softcap, stream);
   if (d == 256 && dv == 256)
-    return launch<256, 256>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
-                            scale, stream);
+    return launch_width<256, 256>(q, k, v, out, b, sq, skv, h, hkv, causal,
+                                  window, q_offset, scale, softcap, stream);
   if (d == 80 && dv == 80)
-    return launch<80, 80>(q, k, v, out, b, sq, skv, h, hkv, causal, window,
-                          scale, stream);
+    return launch_width<80, 80>(q, k, v, out, b, sq, skv, h, hkv, causal,
+                                window, q_offset, scale, softcap, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

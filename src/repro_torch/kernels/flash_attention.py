@@ -9,10 +9,13 @@ output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
   tensor, a ``torch.autograd.Function`` whose forward is the hand-written
   kernel in ``csrc/flash_attention.cu`` (bf16, f32 softmax state, tensor
   cores, built for the widths in ``KERNEL_WIDTHS``; see the note there) and
-  whose backward is ``flash_attention_bwd``; the kernel takes the causal
-  mask's sliding window (``window``, the ``local`` layers' attention);
-  on a CPU tensor, the plain version with every option, differentiated by
-  autograd.  Each kernel launch adds one to ``LAUNCHES["flash_attention"]``.
+  whose backward is ``flash_attention_bwd``; the kernel takes every
+  option of the reference: the causal mask's sliding window (``window``,
+  the ``local`` layers' attention; a window is causal whatever ``causal``
+  says), the logit soft-cap (``softcap``) and the query offset
+  (``q_offset``); on a CPU tensor, the plain version with every option,
+  differentiated by autograd.  Each kernel launch adds one to
+  ``LAUNCHES["flash_attention"]``.
 * ``flash_attention_bwd``: the gradients of q, k and v, as
   FlashAttention-2's backward in PyTorch ops over query and key chunks
   (the reference has no backward kernel: its training attention is the
@@ -25,13 +28,10 @@ output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
   from ``q_lo - window``, clipped to the last, and so counts the last
   chunk twice where they run past it (and misses chunks where ``q_chunk``
   exceeds ``kv_chunk``): fault R4 of the reference (ROADMAP.md), which
-  gives a wrong result, not another rounding.  It also has the
-  reference's logit soft-cap and query offset, which the kernel does not
-  take (neither is on a serving or training path; on the card they
-  raise).
+  gives a wrong result, not another rounding.
 * ``compare_with_plain`` / ``compare_bwd_with_plain``: the error models of
   the forward kernel and of the backward, held against the plain version
-  (and its autograd) in f32 on the same inputs, window and all.
+  (and its autograd) in f32 on the same inputs, options and all.
 """
 
 from __future__ import annotations
@@ -154,7 +154,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           window: int = 0, q_offset: int = 0) -> None:
   for name, t in (("q", q), ("k", k), ("v", v)):
     if t.device != q.device:
       raise ValueError(f"flash_attention: q on {q.device}, {name} on "
@@ -182,24 +183,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                      f"the kernel has {KERNEL_WIDTHS}")
   if skv == 0:
     raise ValueError("flash_attention: no keys (Skv = 0)")
+  if q_offset < 0:
+    raise ValueError(f"flash_attention: q_offset = {q_offset} < 0 leaves "
+                     "queries without a key under the causal mask")
+  if window > 0 and q_offset + sq - window >= skv:
+    raise ValueError(f"flash_attention: under a window of {window} the last "
+                     f"query (position {q_offset + sq - 1}) sees none of the "
+                     f"{skv} keys")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: int = 0) -> torch.Tensor:
+            causal: bool, window: int = 0, softcap: float = 0.0,
+            q_offset: int = 0) -> torch.Tensor:
   """One launch of the forward kernel on checked CUDA tensors (``window``
-  > 0 with ``causal`` only; 0: none)."""
+  > 0 with ``causal`` only, 0: none; ``softcap`` 0: none)."""
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
   out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
   launch = _build.entry(
       "flash_attention", "flash_attention_launch",
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-      + [ctypes.c_float, ctypes.c_void_p])
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+      + [ctypes.c_float] * 2 + [ctypes.c_void_p])
   with _build.on_device(q.device):
     err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-        skv, h, hkv, d, dv, int(causal), int(window), 1.0 / math.sqrt(d),
-        _build.current_stream(q.device))
+        skv, h, hkv, d, dv, int(causal), int(window), int(q_offset),
+        1.0 / math.sqrt(d), float(softcap), _build.current_stream(q.device))
   if err != 0:
     raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                        f"error {err}")
@@ -212,17 +221,18 @@ class _FlashAttention(torch.autograd.Function):
   log-sum-exp from q and k (the kernel does not store it)."""
 
   @staticmethod
-  def forward(ctx, q, k, v, causal, window):
-    out = _launch(q, k, v, causal, window)
-    ctx.causal, ctx.window = causal, window
+  def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+    out = _launch(q, k, v, causal, window, softcap, q_offset)
+    ctx.causal = causal
+    ctx.opts = dict(window=window, softcap=softcap, q_offset=q_offset)
     ctx.save_for_backward(q, k, v, out)
     return out
 
   @staticmethod
   def backward(ctx, do):
     q, k, v, out = ctx.saved_tensors
-    return (*flash_attention_bwd(q, k, v, out, do, ctx.causal,
-                                 window=ctx.window), None, None)
+    return (*flash_attention_bwd(q, k, v, out, do, ctx.causal, **ctx.opts),
+            None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -233,9 +243,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   """Fused attention forward. q: (B,Sq,H,D); k, v: (B,Skv,Hkv,D|Dv).
 
   A CUDA tensor runs the kernel (bf16 only; ``q_chunk`` and ``kv_chunk``
-  are the plain version's chunking and do not apply; a ``window`` needs
-  ``causal``), differentiable through ``flash_attention_bwd``; a CPU
-  tensor the plain version; any other device raises.
+  are the plain version's chunking and do not apply; a ``window`` is
+  causal, as in the plain version; every query must see a key),
+  differentiable through ``flash_attention_bwd``; a CPU tensor the plain
+  version; any other device raises.
   """
   if q.device.type == "cpu":
     return flash_attention_plain(
@@ -244,17 +255,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   if q.device.type != "cuda":
     raise ValueError(f"flash_attention takes CPU or CUDA tensors; got "
                      f"{q.device}")
-  if window > 0 and not causal:
-    raise NotImplementedError(
-        "a sliding window without the causal mask is not built on the card "
-        "(the reference's window is causal; ROADMAP.md, queue 1: "
-        "window/softcap attention)")
-  if softcap > 0.0 or q_offset != 0:
-    raise NotImplementedError(
-        "attention with a logit soft-cap or query offset on the card is not "
-        "ported yet (ROADMAP.md, queue 1: window/softcap attention)")
-  _check(q, k, v)
-  return _FlashAttention.apply(q, k, v, bool(causal), max(int(window), 0))
+  window, q_offset = max(int(window), 0), int(q_offset)
+  _check(q, k, v, window=window, q_offset=q_offset)
+  return _FlashAttention.apply(q, k, v, bool(causal) or window > 0, window,
+                               max(float(softcap), 0.0), q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -263,12 +267,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _scores(q_blk, k_blk, q0: int, k0: int, scale: float, causal: bool,
-            window: int = 0):
-  """Masked f32 scores of a block, (B, Hkv, G, cq, ckv); q_blk (B, cq, Hkv,
-  G, D) and k_blk (B, ckv, Hkv, D) in f32, starting at positions q0, k0;
-  under a window (causal only) keys at or below query - window masked too,
-  as in the forward."""
+            window: int = 0, softcap: float = 0.0):
+  """(masked f32 scores of a block (B, Hkv, G, cq, ckv), the soft-cap's
+  derivative or None); q_blk (B, cq, Hkv, G, D) and k_blk (B, ckv, Hkv, D)
+  in f32, starting at positions q0 (the query offset included), k0; with
+  ``softcap`` c > 0 the scaled score s becomes c * tanh(s / c), whose
+  derivative is 1 - (c * tanh(s / c) / c)^2; under a window (causal only)
+  keys at or below query - window masked too, as in the forward."""
   s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
+  dcap = None
+  if softcap > 0.0:
+    s = torch.tanh(s / softcap) * softcap
+    dcap = 1.0 - torch.square(s / softcap)
   if causal:
     q_pos = torch.arange(q0, q0 + q_blk.shape[1], device=s.device)
     kv_pos = torch.arange(k0, k0 + k_blk.shape[1], device=s.device)
@@ -276,12 +286,13 @@ def _scores(q_blk, k_blk, q0: int, k0: int, scale: float, causal: bool,
     if window > 0:
       masked |= kv_pos[None, :] <= q_pos[:, None] - window
     s = s.masked_fill(masked, _NEG_INF)
-  return s
+  return s, dcap
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         causal: bool = True, *, window: int = 0,
+                        softcap: float = 0.0, q_offset: int = 0,
                         q_chunk: int = 512, kv_chunk: int = 1024):
   """Gradients (dq, dk, dv) of attention at (q, k, v), output ``o`` and
   output cotangent ``do``, in the layouts and dtypes of q, k and v.
@@ -289,12 +300,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   FlashAttention-2's backward over query chunks of ``q_chunk`` rows and
   key chunks of ``kv_chunk`` (a ragged last chunk allowed; with ``causal``
   a key chunk wholly after a query chunk is skipped, and with a ``window``
-  one wholly below every query's window).  Per query chunk,
-  first the row log-sum-exp of the masked scores S * scale, merged chunk
-  by chunk; then, per key chunk, P = exp(S * scale - lse), dV += P^T dO,
-  dP = dO V^T, dS = P * (dP - D) with D = rowsum(dO * O), dQ += dS K * scale
-  and dK += dS^T Q * scale, the G query heads of a kv head summed into its
-  dK and dV.  Everything is f32 inside, on any device.
+  one wholly below every query's window; query i at position q_offset +
+  i).  Per query chunk, first the row log-sum-exp of the masked scores S
+  * scale (soft-capped where ``softcap`` > 0), merged chunk by chunk;
+  then, per key chunk, P = exp(S * scale - lse), dV += P^T dO, dP = dO
+  V^T, dS = P * (dP - D) with D = rowsum(dO * O), times the soft-cap's
+  derivative, dQ += dS K * scale and dK += dS^T Q * scale, the G query
+  heads of a kv head summed into its dK and dV.  Everything is f32 inside,
+  on any device.
   """
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
@@ -310,23 +323,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   dq, dk, dvv = (torch.zeros_like(x) for x in (qf, kf, vf))
   for q0 in range(0, sq, q_chunk):
     q1 = min(q0 + q_chunk, sq)
+    p0, p1 = q0 + q_offset, q1 + q_offset       # the chunk's positions
     q_blk, do_blk = qf[:, q0:q1], dof[:, q0:q1]
     blocks = [(k0, min(k0 + kv_chunk, skv)) for k0 in range(0, skv, kv_chunk)
-              if not causal or (k0 < q1 and (window <= 0 or min(
-                  k0 + kv_chunk, skv) - 1 > q0 - window))]
+              if not causal or (k0 < p1 and (window <= 0 or min(
+                  k0 + kv_chunk, skv) - 1 > p0 - window))]
     lse = None
     for k0, k1 in blocks:
-      part = torch.logsumexp(
-          _scores(q_blk, kf[:, k0:k1], q0, k0, scale, causal, window),
-          dim=-1)
+      s, _ = _scores(q_blk, kf[:, k0:k1], p0, k0, scale, causal, window,
+                     softcap)
+      part = torch.logsumexp(s, dim=-1)
       lse = part if lse is None else torch.logaddexp(lse, part)
     d_blk = delta[..., q0:q1, None]
     for k0, k1 in blocks:
       k_blk, v_blk = kf[:, k0:k1], vf[:, k0:k1]
-      p = torch.exp(_scores(q_blk, k_blk, q0, k0, scale, causal, window)
-                    - lse[..., None])
+      s, dcap = _scores(q_blk, k_blk, p0, k0, scale, causal, window, softcap)
+      p = torch.exp(s - lse[..., None])
       dvv[:, k0:k1] += torch.einsum("bhgqk,bqhgc->bkhc", p, do_blk)
       ds = p * (torch.einsum("bqhgc,bkhc->bhgqk", do_blk, v_blk) - d_blk)
+      if dcap is not None:
+        ds = ds * dcap
       dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk)
       dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, q_blk)
   return ((dq * scale).reshape(b, sq, h, d).to(q.dtype),
@@ -348,14 +364,17 @@ REL_FROB_LIMIT = 2.0**-7
 
 
 def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor, causal: bool,
-                       window: int = 0) -> dict[str, float]:
+                       v: torch.Tensor, causal: bool, window: int = 0,
+                       softcap: float = 0.0,
+                       q_offset: int = 0) -> dict[str, float]:
   """The kernel's output against the plain version in f32 on the same bf16
-  inputs, with the same mask (``window`` as in ``flash_attention``).
+  inputs, with the same mask and scores (``window``, ``softcap`` and
+  ``q_offset`` as in ``flash_attention``).
 
   The kernel rounds P to bf16 for the P V product and the output to bf16,
   each a relative error of at most BF16_U; its f32 scores, exponentials and
-  sums add errors near 1e-6.  So element (i, c) is off by at most
+  sums (and its f32 tanh under a soft-cap, whose slope is at most 1) add
+  errors near 1e-6.  So element (i, c) is off by at most
   BF16_U * (|ref_ic| + A_ic), with A = the same attention over |v| (the
   softmax-weighted mean of |v_jc|).  ``tol_ratio`` is the largest
   |out - ref| / (2 * BF16_U * (|ref| + A)), at most 1 for a right kernel;
@@ -363,8 +382,10 @@ def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
   ``median_ref`` is the median |ref|, the scale that both sit against.
   """
   qf, kf, vf = q.float(), k.float(), v.float()
-  ref = flash_attention_plain(qf, kf, vf, causal=causal, window=window)
-  a = flash_attention_plain(qf, kf, vf.abs(), causal=causal, window=window)
+  opts = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+  ref = flash_attention_plain(qf, kf, vf, **opts)
+  a = flash_attention_plain(qf, kf, vf.abs(), **opts)
   err = (out.float() - ref).abs()
   tol = torch.clamp(2 * BF16_U * (ref.abs() + a), min=1e-30)
   return {
@@ -377,29 +398,36 @@ def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
   }
 
 
-def _magnitudes(q, k, v, do, causal: bool, window: int = 0):
+def _magnitudes(q, k, v, do, causal: bool, window: int = 0,
+                softcap: float = 0.0, q_offset: int = 0):
   """The backward's terms over absolute values, in f32, dense: for each
   of dq, dk, dv the same sums as the gradient with every factor replaced
   by its size, D by A_D = rowsum(|dO| * (|O| + A)) (A the attention over
-  |v|: the forward kernel's own error bound is 2 * BF16_U * (|O| + A))."""
+  |v|: the forward kernel's own error bound is 2 * BF16_U * (|O| + A)),
+  and dS by its size times the soft-cap's derivative."""
   b, sq, h, d = q.shape
   hkv = k.shape[2]
   g = h // hkv
   qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
   kh, vh = (x.repeat_interleave(g, dim=2) for x in (kf, vf))
   s = torch.einsum("bqhd,bkhd->bhqk", qf, kh) / math.sqrt(d)
+  dcap = 1.0
+  if softcap > 0.0:
+    s = torch.tanh(s / softcap) * softcap
+    dcap = 1.0 - torch.square(s / softcap)
   if causal or window > 0:
-    mask = torch.ones(sq, k.shape[1], dtype=torch.bool,
-                      device=s.device).tril()
+    q_pos = q_offset + torch.arange(sq, device=s.device)[:, None]
+    kv_pos = torch.arange(k.shape[1], device=s.device)[None, :]
+    mask = kv_pos <= q_pos
     if window > 0:
-      mask = mask.triu(1 - window)
+      mask &= kv_pos > q_pos - window
     s = s.masked_fill(~mask, _NEG_INF)
   p = torch.softmax(s, dim=-1)
   o = torch.einsum("bhqk,bkhc->bqhc", p, vh).abs()
   a_fwd = torch.einsum("bhqk,bkhc->bqhc", p, vh.abs())
   a_d = torch.sum(dof.abs() * (o + a_fwd), dim=-1).transpose(1, 2)
   a_ds = p * (torch.einsum("bqhc,bkhc->bhqk", dof.abs(), vh.abs())
-              + a_d[..., None])
+              + a_d[..., None]) * dcap
   scale = 1.0 / math.sqrt(d)
   a_dq = torch.einsum("bhqk,bkhd->bqhd", a_ds, kh.abs()) * scale
   a_dk = torch.einsum("bhqk,bqhd->bkhd", a_ds, qf.abs()) * scale
@@ -410,10 +438,12 @@ def _magnitudes(q, k, v, do, causal: bool, window: int = 0):
 
 def compare_bwd_with_plain(grads, q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, do: torch.Tensor, causal: bool,
-                           window: int = 0) -> dict[str, dict[str, float]]:
+                           window: int = 0, softcap: float = 0.0,
+                           q_offset: int = 0
+                           ) -> dict[str, dict[str, float]]:
   """``grads`` = (dq, dk, dv) against the autograd of the plain version in
-  f32 on the same inputs, by the error model of the forward carried
-  through the backward.
+  f32 on the same inputs and options, by the error model of the forward
+  carried through the backward.
 
   ``flash_attention_bwd`` computes in f32 from the kernel's bf16 output O,
   which is within 2 * BF16_U * (|O| + A) of the exact one; through
@@ -426,11 +456,13 @@ def compare_bwd_with_plain(grads, q: torch.Tensor, k: torch.Tensor,
   ``compare_with_plain``.
   """
   xs = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
-  ref = flash_attention_plain(*xs, causal=causal, window=window)
+  ref = flash_attention_plain(*xs, causal=causal, window=window,
+                              softcap=softcap, q_offset=q_offset)
   refs = torch.autograd.grad(ref, xs, do.float())
   out = {}
   for name, got, want, a in zip(("dq", "dk", "dv"), grads, refs,
-                                _magnitudes(q, k, v, do, causal, window)):
+                                _magnitudes(q, k, v, do, causal, window,
+                                            softcap, q_offset)):
     err = (got.float() - want).abs()
     tol = torch.clamp(2 * BF16_U * (want.abs() + a), min=1e-30)
     out[name] = {

@@ -160,14 +160,14 @@ def mlp_apply(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
   """Single-token attention. q: (B,H,D); caches: (B,S,Hkv,D) -> (B,H,D).
 
   A masked softmax over the full-length cache (positions below
   ``cache_len`` and, with ``window > 0``, above ``cache_len - 1 - window``),
-  the G = H / Hkv query heads of a kv head together; scores in f32, the
-  weights cast to the values' dtype, as in the reference (plain ops there
-  too: no kernel).
+  the G = H / Hkv query heads of a kv head together; scores in f32 (with
+  ``softcap`` c > 0, c * tanh(s / c) before the mask), the weights cast to
+  the values' dtype, as in the reference (plain ops there too: no kernel).
   """
   b, h, d = q.shape
   s, hkv = k_cache.shape[1:3]
@@ -175,6 +175,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
   qg = q.reshape(b, hkv, g, d)
   scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).to(torch.float32)
   scores = scores * (1.0 / math.sqrt(d))
+  if softcap > 0.0:
+    scores = torch.tanh(scores / softcap) * softcap
   pos = torch.arange(s, device=q.device)
   valid = pos < cache_len
   if window > 0:

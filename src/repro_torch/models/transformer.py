@@ -37,9 +37,11 @@ them.  ``forward_train`` gives the per-token loss and the aux loss (0
 without MoE layers), with the reference's remat: ``"full"`` recomputes
 each layer in backward (``torch.utils.checkpoint``, non-reentrant, the
 counterpart of ``jax.checkpoint(nothing_saveable)`` around each scan
-step), ``"none"`` keeps its activations.  Remat ``"dots"`` raises
-``NotImplementedError``; a layer kind or frontend the reference does not
-have raises ``ValueError``.
+step), ``"dots"`` keeps the outputs of each layer's products and
+recomputes the rest (a selective checkpoint, the counterpart of
+``jax.checkpoint(checkpoint_dots)``: ``_dots_context``), ``"none"`` keeps
+its activations; another remat, a layer kind or a frontend the reference
+does not have raises ``ValueError``.
 
 ``init_params`` builds random weights with the reference's distributions
 and scales (``attn_init``, ``mla_init``, ``rg_init``, ``mlstm_init`` or
@@ -56,7 +58,11 @@ import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -372,19 +378,48 @@ def embed_inputs(cfg, model: Transformer, batch: dict) -> torch.Tensor:
                        scale=cfg.tie_embeddings)
 
 
+REMATS = ("none", "dots", "full")
+# The aten ops that the layers' products (einsum, matmul, F.linear) lower
+# to: the outputs that remat "dots" keeps, as checkpoint_dots keeps those of
+# dot_general.
+DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                     torch.ops.aten.addmm.default,
+                     torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+  return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+          else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+  """Remat "dots": the products' outputs are kept in forward and handed
+  back in the recompute; every other op runs again, the kernels' launches
+  through ctypes too (the attention kernel writes into a fresh
+  ``torch.empty``, an op that is recomputed, so the recompute never reads a
+  buffer of the forward's), each on the same inputs, so that it takes the
+  same route (the router's ``pav_l2`` among them; the soft-LTS loss runs
+  after the layers, outside any checkpoint)."""
+  return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def forward_train(cfg, model: Transformer, batch: dict):
   """Per-token NLL (B, S) in f32 and the aux loss (a 0-d f32 tensor).  For
   ``vision`` the loss covers the text positions (the last S of the
   ``tokens``); for ``audio`` it is the mean over the codebook heads of
   each head's loss on its targets (``targets`` (B, S, K))."""
-  if cfg.remat not in ("none", "full"):
-    raise L.not_ported(f"remat {cfg.remat!r}", "remat \"dots\"")
+  if cfg.remat not in REMATS:
+    raise ValueError(f"unknown remat {cfg.remat!r}; the config takes "
+                     f"{REMATS}")
   x = embed_inputs(cfg, model, batch)
   positions = torch.arange(x.shape[1], device=x.device)
   aux = torch.zeros((), dtype=torch.float32, device=x.device)
   for layer in model.layers:
     if cfg.remat == "full":
       x, a = checkpoint(layer.apply_train, x, positions, use_reentrant=False)
+    elif cfg.remat == "dots":
+      x, a = checkpoint(layer.apply_train, x, positions, use_reentrant=False,
+                        context_fn=_dots_context)
     else:
       x, a = layer.apply_train(x, positions)
     aux = aux + a

@@ -142,7 +142,7 @@ def test_unported_kinds_still_raise():
   """Every kind of the reference is ported (``mlstm`` builds now); a kind
   that no layer of the reference has either, such as ``local_moe`` of the
   config schema's comment, raises ``ValueError`` as the reference's
-  ``_mixer_init`` does, and remat "dots" stays unported."""
+  ``_mixer_init`` does."""
   cfg = dataclasses.replace(smoke_config("llama3.2-1b"),
                             block_cycle=("mlstm", "dense"))
   assert [layer.kind for layer in T.init_params(cfg, 0).layers] == [
@@ -150,11 +150,6 @@ def test_unported_kinds_still_raise():
   cfg = dataclasses.replace(cfg, block_cycle=("local_moe", "dense"))
   with pytest.raises(ValueError, match="local_moe"):
     T.init_params(cfg, 0)
-  cfg = dataclasses.replace(smoke_config("llama3.2-1b"), remat="dots")
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    T.forward_train(cfg, T.init_params(cfg, 0), {
-        "tokens": torch.zeros((1, 4), dtype=torch.int64),
-        "targets": torch.zeros((1, 4), dtype=torch.int64)})
 
 
 def test_attention_layer_matches_reference(smoke):
@@ -213,6 +208,24 @@ def test_decode_attention_matches_reference(h, hkv, cache_len):
   again = layers.decode_attention(as_torch(q), as_torch(k), as_torch(v2),
                                   cache_len)
   np.testing.assert_array_equal(again.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("softcap, window", [(2.0, 0), (1.5, 4)])
+def test_decode_attention_softcap_matches_reference(softcap, window):
+  """The reference's logit soft-cap (c * tanh(s / c) before the mask),
+  alone and under a window, with scores of ~N(0, 3^2) so that it binds;
+  without it the result moves by more than the tolerance."""
+  rng = np.random.default_rng(64)
+  q = 3.0 * rng.normal(size=(2, 4, 16))
+  k, v = (rng.normal(size=(2, 12, 2, 16)) for _ in range(2))
+  want = jax.jit(lambda a, b, c: jlayers.decode_attention(
+      a, b, c, jnp.int32(10), window=window, softcap=softcap))(
+          *(jnp.asarray(t, jnp.float32) for t in (q, k, v)))
+  args = [as_torch(t) for t in (q, k, v)]
+  got = layers.decode_attention(*args, 10, window, softcap=softcap)
+  assert_close(got, want, want)
+  uncapped = layers.decode_attention(*args, 10, window)
+  assert np.abs(uncapped.numpy() - np.asarray(want)).max() > 1e-2
 
 
 def test_forward_train_and_gradients_match_reference(smoke):

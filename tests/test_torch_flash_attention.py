@@ -266,14 +266,70 @@ def test_cuda_wrapper_refuses_an_unbuilt_width(cuda_device):
   assert fa.LAUNCHES["flash_attention"] == before
 
 
+def test_check_refuses_queries_without_a_key():
+  """A negative query offset (queries before every key under the causal
+  mask) and a window that the last query's position leaves with no key
+  raise in ``_check``, before any launch; the last query seeing one key
+  passes."""
+  x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+  kv = torch.zeros((1, 12, 2, 64), dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="q_offset"):
+    fa._check(x, kv, kv, q_offset=-1)
+  with pytest.raises(ValueError, match="sees none"):
+    fa._check(x, kv, kv, window=3, q_offset=7)   # last position 14
+  fa._check(x, kv, kv, window=3, q_offset=6)     # position 13 sees key 11
+
+
+# (B, Sq, Skv, H, Hkv, D, Dv, options): the options the models do not use
+# on a path, at every built width: a soft-cap of 30 (the
+# scores made large enough by ``HOT_Q`` that it binds), queries that
+# continue a cache (Sq < Skv, q_offset = Skv - Sq), a window without
+# ``causal`` (the causal windowed kernel), and all three together.
+OPTION_CUDA_SHAPES = [
+    (2, 64, 64, 8, 2, 64, 64, dict(softcap=30.0)),
+    (2, 200, 333, 32, 8, 64, 64, dict(q_offset=133)),
+    (2, 128, 128, 48, 8, 128, 128, dict(window=50, causal=False)),
+    (1, 256, 700, 16, 8, 256, 256, dict(softcap=30.0, q_offset=444,
+                                        window=300, causal=False)),
+    (1, 300, 500, 10, 1, 256, 256, dict(softcap=30.0, q_offset=150)),
+    (2, 77, 200, 16, 16, 192, 128, dict(softcap=30.0, q_offset=123,
+                                        window=64)),
+    (1, 100, 260, 32, 32, 80, 80, dict(softcap=30.0, q_offset=160,
+                                       causal=False)),
+]
+# Scale of q in those cases: scores of ~N(0, 10^2), so that c * tanh(s / c)
+# at c = 30 departs from s.
+HOT_Q = 10.0
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("opts", [dict(window=4, causal=False),
-                                  dict(softcap=2.0), dict(q_offset=1)])
-def test_cuda_wrapper_refuses_options_the_kernel_lacks(opts, cuda_device):
-  q, k, v = (as_torch(x, torch.bfloat16).to(cuda_device)
-             for x in _inputs(1, 8, 8, 2, 2, 192, 128))
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    fa.flash_attention(q, k, v, **opts)
+@pytest.mark.parametrize("shape", OPTION_CUDA_SHAPES)
+def test_cuda_kernel_takes_softcap_offset_and_window(shape, cuda_device):
+  """On the card: the kernel with a soft-cap, a query offset and a window
+  without ``causal`` against the plain version with the same options, by
+  the error model, forward and backward, one launch each."""
+  b, sq, skv, h, hkv, d, dv, opts = shape
+  causal = opts.get("causal", True)
+  kw = {key: val for key, val in opts.items() if key != "causal"}
+  q, k, v = _inputs(b, sq, skv, h, hkv, d, dv)
+  xs = [as_torch(x, torch.bfloat16).to(cuda_device).requires_grad_(True)
+        for x in (q * HOT_Q, k, v)]
+  before = fa.LAUNCHES["flash_attention"]
+  out = fa.flash_attention(*xs, causal, **kw)
+  assert fa.LAUNCHES["flash_attention"] == before + 1
+  do = as_torch(rng.normal(size=out.shape), torch.bfloat16).to(cuda_device)
+  grads = torch.autograd.grad(out, xs, do)
+  torch.cuda.synchronize()
+  causal = causal or kw.get("window", 0) > 0
+  cmp = fa.compare_with_plain(out.detach(), *(x.detach() for x in xs),
+                              causal, **kw)
+  assert cmp["finite"]
+  assert cmp["tol_ratio"] <= 1.0, cmp
+  assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, cmp
+  for name, c in fa.compare_bwd_with_plain(
+      grads, *(x.detach() for x in xs), do, causal, **kw).items():
+    assert c["finite"] and c["tol_ratio"] <= 1.0, (name, c)
+    assert c["rel_frob"] <= fa.REL_FROB_LIMIT, (name, c)
 
 
 def _bf16_kernel_model(q, k, v, causal, extra_key=False, window=0):
@@ -552,6 +608,129 @@ def test_backward_error_model_catches_a_mask_error():
         name, cmp)
 
 
+# (B, Sq, Skv, H, Hkv, D, Dv, causal, options, q_chunk, kv_chunk): a
+# soft-cap that binds (scores ~N(0, 1) against c = 1.5 or 2), a query
+# offset (Sq < Skv: queries that continue a cache), both together, and both
+# with a window without ``causal``; ragged chunks.
+OPTION_BWD_CASES = {
+    "softcap": (2, 33, 33, 4, 2, 16, 8, True, dict(softcap=2.0), 8, 5),
+    "q_offset": (1, 20, 45, 6, 2, 8, 8, True, dict(q_offset=25), 7, 6),
+    "softcap_q_offset": (2, 17, 40, 4, 1, 8, 4, True,
+                         dict(softcap=1.5, q_offset=23), 5, 8),
+    "softcap_q_offset_window_not_causal": (
+        2, 17, 40, 4, 1, 8, 4, False,
+        dict(softcap=1.5, q_offset=20, window=9), 5, 8),
+}
+
+
+def _option_case(case, dtype):
+  b, sq, skv, h, hkv, d, dv, causal, opts, qc, kc = OPTION_BWD_CASES[case]
+  q, k, v = (as_torch(x, dtype) for x in _inputs(b, sq, skv, h, hkv, d, dv))
+  do = as_torch(rng.normal(size=(b, sq, h, dv)), dtype)
+  return q, k, v, do, causal, opts, qc, kc
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_BWD_CASES))
+def test_backward_with_options_matches_plain_autograd_f64(case):
+  """With a soft-cap, a query offset, both, and both under a window
+  without ``causal`` (which is causal), the backward on f64 inputs within
+  1e-5 * (1 + max|want|) of the autograd of the plain version in f64 with
+  the same options: the backward computes in f32 inside, so it is held at
+  f32's contract against the exact gradient, in f64 out."""
+  q, k, v, do, causal, opts, qc, kc = _option_case(case, torch.float64)
+  xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+  out = fa.flash_attention_plain(*xs, causal=causal, **opts)
+  want = torch.autograd.grad(out, xs, do)
+  got = fa.flash_attention_bwd(q, k, v, out.detach(), do, causal, **opts,
+                               q_chunk=qc, kv_chunk=kc)
+  for g, w, x in zip(got, want, (q, k, v)):
+    assert g.dtype == torch.float64 and g.shape == x.shape
+    assert_close(g, w, w)
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_BWD_CASES))
+def test_backward_with_options_matches_reference_vjp(case):
+  """f32: the same cases against ``jax.vjp`` of the reference's chunked
+  attention with the same options (one chunk each under a window: fault
+  R4), within 1e-5 * (1 + max|want|)."""
+  b, sq, skv, h, hkv, d, dv, causal, opts, qc, kc = OPTION_BWD_CASES[case]
+  q, k, v = _inputs(b, sq, skv, h, hkv, d, dv)
+  do = rng.normal(size=(b, sq, h, dv))
+  ref_opts = {**opts, "q_chunk": sq, "kv_chunk": skv}
+  out, want = jax_vjp(lambda a, b_, c: jlayers.flash_attention(
+      a, b_, c, causal=causal, **ref_opts), (q, k, v), do)
+  got = fa.flash_attention_bwd(*(as_torch(x) for x in (q, k, v)),
+                               as_torch(out), as_torch(do), causal, **opts,
+                               q_chunk=qc, kv_chunk=kc)
+  for g, w in zip(got, want):
+    assert_close(g, w, w)
+
+
+def test_backward_with_options_bf16_within_error_model_and_catches_errors():
+  """bf16, O rounded as the kernel gives it: the gradients with a soft-cap
+  and a query offset within ``compare_bwd_with_plain``'s model with both;
+  the same gradients computed without the soft-cap's derivative, or
+  without the offset, fail it."""
+  q, k, v, do, causal, opts, _, _ = _option_case("softcap_q_offset",
+                                                 torch.bfloat16)
+  out = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                 **opts).to(torch.bfloat16)
+  got = fa.flash_attention_bwd(q, k, v, out, do, causal, **opts)
+  for name, cmp in fa.compare_bwd_with_plain(got, q, k, v, do, causal,
+                                             **opts).items():
+    assert cmp["finite"], name
+    assert cmp["tol_ratio"] <= 1.0, (name, cmp)
+    assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, (name, cmp)
+  for wrong in (dict(opts, softcap=0.0), dict(opts, q_offset=0)):
+    bad = fa.flash_attention_bwd(q, k, v, out, do, causal, **wrong)
+    worst = max(c["tol_ratio"] for c in fa.compare_bwd_with_plain(
+        bad, q, k, v, do, causal, **opts).values())
+    assert worst > 1.0, wrong
+
+
+def test_error_model_holds_the_options_and_catches_a_missing_softcap():
+  """``compare_with_plain`` with a soft-cap and a query offset: the plain
+  output at those options, rounded to bf16, passes; the output without
+  the soft-cap fails."""
+  q, k, v, _, causal, opts, _, _ = _option_case("softcap_q_offset",
+                                                torch.bfloat16)
+  good = fa.flash_attention_plain(q.float(), k.float(), v.float(), **opts)
+  cmp = fa.compare_with_plain(good.to(torch.bfloat16), q, k, v, causal,
+                              **opts)
+  assert cmp["tol_ratio"] <= 1.0 and cmp["rel_frob"] <= fa.REL_FROB_LIMIT
+  bad = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                 q_offset=opts["q_offset"])
+  cmp = fa.compare_with_plain(bad.to(torch.bfloat16), q, k, v, causal,
+                              **opts)
+  assert cmp["tol_ratio"] > 1.0
+
+
+def test_autograd_function_takes_every_option(monkeypatch):
+  """The card's route without the card, with the options: the Function
+  hands the window, soft-cap and query offset to the launch and to
+  ``flash_attention_bwd``, which give the plain version's autograd."""
+  q, k, v, do, _, opts, _, _ = _option_case(
+      "softcap_q_offset_window_not_causal", torch.float32)
+  calls = []
+
+  def plain_launch(q, k, v, causal, window=0, softcap=0.0, q_offset=0):
+    calls.append((causal, window, softcap, q_offset))
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, q_offset=q_offset)
+
+  monkeypatch.setattr(fa, "_launch", plain_launch)
+  xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+  out = fa._FlashAttention.apply(*xs, True, opts["window"], opts["softcap"],
+                                 opts["q_offset"])
+  assert calls == [(True, opts["window"], opts["softcap"], opts["q_offset"])]
+  got = torch.autograd.grad(out, xs, do)
+  ys = [x.clone().requires_grad_(True) for x in (q, k, v)]
+  want = torch.autograd.grad(
+      fa.flash_attention_plain(*ys, causal=False, **opts), ys, do)
+  for g, w in zip(got, want):
+    assert_close(g, w, w)
+
+
 def test_autograd_function_saves_and_differentiates(monkeypatch):
   """The card's route without the card: the autograd Function around the
   forward launch, with the launch replaced by the plain version, gives
@@ -560,13 +739,14 @@ def test_autograd_function_saves_and_differentiates(monkeypatch):
   do = as_torch(rng.normal(size=(2, 20, 4, 16)))
   calls = []
 
-  def plain_launch(q, k, v, causal, window=0):
+  def plain_launch(q, k, v, causal, window=0, softcap=0.0, q_offset=0):
     calls.append(causal)
-    return fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, q_offset=q_offset)
 
   monkeypatch.setattr(fa, "_launch", plain_launch)
   xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-  out = fa._FlashAttention.apply(*xs, True, 0)
+  out = fa._FlashAttention.apply(*xs, True, 0, 0.0, 0)
   assert out.grad_fn is not None and calls == [True]
   got = torch.autograd.grad(out, xs, do)
   _, *want = _plain_grads(q, k, v, do, True)

@@ -42,6 +42,7 @@ def test_importing_the_port_loads_no_jax_or_reference():
   code = (
       "import sys\n"
       "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
+      "import repro_torch.core.baselines\n"
       "import repro_torch.kernels.dispatch, repro_torch.obs.tracing\n"
       "import repro_torch.kernels.soft_topk, repro_torch.kernels.flash_attention\n"
       "import repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.smoke\n"

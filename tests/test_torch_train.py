@@ -15,6 +15,7 @@ metrics within 1e-4 relative.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -184,28 +185,96 @@ def test_train_steps_match_reference(accum):
     assert_close(p, want_p[name], want_p[name], contract=1e-4)
 
 
+@functools.cache
+def _smoke_params():
+  """The reference's smoke weights (seed 1), made once: read only."""
+  return _params(jsmoke_config(ARCH))
+
+
+def _loss_and_grads(remat: str, trim: float = TRIM):
+  """(names, loss_from_batch's total, its gradient of every leaf) of the
+  smoke model under ``remat``."""
+  _, cfg = _configs(remat=remat, loss_trim_fraction=trim)
+  model = _trainable(cfg, _smoke_params())
+  total, _ = steps.loss_from_batch(cfg, model, _batch(jsmoke_config(ARCH))[1])
+  names, leaves = zip(*model.named_parameters())
+  return names, total, torch.autograd.grad(total, leaves)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
 @pytest.mark.parametrize("trim", [0.0, TRIM])
-def test_remat_full_equals_none_bit_for_bit(trim):
-  """Recomputing each layer in backward changes no bit of the loss or of
-  any gradient (the router takes the same route in the recompute)."""
-  out = {}
-  for remat in ("none", "full"):
-    _, cfg = _configs(remat=remat, loss_trim_fraction=trim)
-    model = _trainable(cfg, _params(jsmoke_config(ARCH)))
-    total, _ = steps.loss_from_batch(cfg, model, _batch(
-        jsmoke_config(ARCH))[1])
-    names, leaves = zip(*model.named_parameters())
-    out[remat] = (total, torch.autograd.grad(total, leaves))
-  assert torch.equal(out["none"][0], out["full"][0])
-  for name, a, b in zip(names, out["none"][1], out["full"][1]):
+def test_remat_full_equals_none_bit_for_bit(trim, remat):
+  """Recomputing each layer in backward, whole ("full") or all but its
+  products ("dots"), changes no bit of the loss or of any gradient (the
+  router takes the same route in the recompute)."""
+  names, want_total, want = _loss_and_grads("none", trim)
+  _, total, got = _loss_and_grads(remat, trim)
+  assert torch.equal(want_total, total)
+  for name, a, b in zip(names, want, got):
     assert torch.equal(a, b), name
 
 
-def test_remat_dots_is_not_ported():
-  _, cfg = _configs(remat="dots")
-  model = convert.from_jax_params(cfg, _params(jsmoke_config(ARCH)))
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    T.forward_train(cfg, model, _batch(jsmoke_config(ARCH))[1])
+class _CountProducts(torch.utils._python_dispatch.TorchDispatchMode):
+  """Counts the layers' product ops (``T.DOT_OPS``) that run."""
+
+  def __init__(self):
+    super().__init__()
+    self.count = 0
+
+  def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+    self.count += func in T.DOT_OPS
+    return func(*args, **(kwargs or {}))
+
+
+def _backward_products(remat: str) -> tuple[int, int]:
+  """(products run in forward_train, products run in its backward)."""
+  _, cfg = _configs(remat=remat)
+  model = _trainable(cfg, _smoke_params())
+  batch = _batch(jsmoke_config(ARCH))[1]
+  with _CountProducts() as fwd:
+    loss, aux = T.forward_train(cfg, model, batch)
+  total = loss.mean() + aux
+  with _CountProducts() as bwd:
+    torch.autograd.grad(total, list(model.parameters()))
+  return fwd.count, bwd.count
+
+
+def test_remat_dots_runs_no_product_twice():
+  """Under "dots" the backward runs exactly the products that it runs
+  without remat (each layer product's two gradient products), none of
+  the forward's again; under "full" it runs the forward's products once
+  more."""
+  fwd, none = _backward_products("none")
+  assert fwd > 0 and none > 0
+  assert _backward_products("dots") == (fwd, none)
+  full_fwd, full = _backward_products("full")
+  assert full_fwd == fwd and full > none
+
+
+def test_remat_dots_matches_reference():
+  """The port's loss and every leaf's gradient under remat "dots" against
+  the reference's ``loss_from_batch`` under remat "dots"
+  (``jax.checkpoint(checkpoint_dots)`` around each scan step), within the
+  tolerances of ``test_loss_gradient_with_trim_matches_reference`` (no
+  trim: the loss after the layers is not what remat changes)."""
+  jcfg, cfg = _configs(remat="dots", loss_trim_fraction=0.0)
+  params = _smoke_params()
+  jb, tb = _batch(jcfg)
+  (want_total, _), want_g = jax.jit(jax.value_and_grad(
+      lambda p: jsteps.loss_from_batch(jcfg, p, jb), has_aux=True))(params)
+  model = _trainable(cfg, params)
+  total, _ = steps.loss_from_batch(cfg, model, tb)
+  names, leaves = zip(*model.named_parameters())
+  grads = dict(zip(names, torch.autograd.grad(total, leaves)))
+  assert_close(total, want_total, want_total)
+  want = _port_leaves(cfg, want_g)
+  assert sorted(want) == sorted(grads)
+  for name, g in grads.items():
+    assert bool(torch.any(g != 0)), name
+    w = want[name].detach().numpy()
+    np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                               atol=1e-4 * (1 + np.abs(w).max()),
+                               err_msg=name)
 
 
 def test_decay_mask_follows_the_reference_layouts():
