@@ -292,13 +292,32 @@ its own lines; any failure raises and the script exits non-zero:
             beside scaled_dot_product_attention's (with a boolean band mask
             under a window), one profiled step and the optimizer by square
             root (for recurrentgemma and llava the attention times only).
+mesh        the sharded main path on a one-rank NCCL group: meshes (1, 1)
+            over (data, model) and (1, 1, 1) over (pod, data, model);
+            ``pod_psum_int8`` through NCCL bit for bit the int8 round
+            trip; llama3.2-1b's trainer whole for 2 steps with its
+            parameters, state and batches distributed by the rules (FSDP
+            on) against the same steps without a mesh, losses and every
+            parameter bit for bit, launches as counted from the code; its
+            parameters through a checkpoint, restored onto the mesh
+            replicated, bit for bit; deepseek-v2-lite-16b served whole
+            (8 x 512 and 4 decode steps) on the mesh against the same
+            weights and tokens without it, logits bit for bit, 27
+            attention and 27 gate launches a prefill, 27 gates a step;
+            then the dry run (``launch/dryrun.py``), started after phase 3
+            in CPU processes (no card) pinned to the host's last two
+            cores, away from the timed phases, for llama3.2-1b and
+            deepseek at the four shapes on 16 x 16 and one 2 x 16 x 16
+            cell: each
+            cell's dominant term, bound and bytes a device.
 7. summary  one ``{"kernels": [...]}`` line (every kernel's launches by
             path; flash_attention's times by width, the top-level ones the
             MLA width's at the deepseek prefill, as before, gemma's
             (256, 256) at its global layers with the local layers' under
             ``local``; llava's (128, 128) at G 4 and musicgen's (64, 64) at
             G 1 at their prefills, with their train launches; the gates'
-            grok shapes under ``shapes``), then the device line last.
+            grok shapes under ``shapes``; the mesh phase's launches under
+            ``mesh_launches``), then the device line last.
 
 Inputs come from numpy with a fixed seed.  Imports nothing of JAX or of the
 JAX package.
@@ -322,6 +341,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# The card's constants, one source: H100 SXM data sheet, dense, HBM3
+# bandwidth and bf16 tensor-core rate.
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as BF16_OPS_PER_S)
 SEED = 0
 TOKENS = 2**20
 TRIM_FRACTION = 0.1
@@ -332,9 +356,9 @@ KERNEL_SHAPES = (*SHAPES, (1, TOKENS))
 HEADLINE = SHAPES[0]    # the shape of the kernels line
 CPU_WORKERS = 6
 
-# H100 SXM data sheet, dense: HBM bandwidth and f32 rate outside the tensor
-# cores.  The bound is the larger of bytes / bandwidth and ops / rate.
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM data sheet, dense: the f32 rate outside the tensor cores (the
+# HBM bandwidth and the bf16 rate come from repro_torch.analysis.roofline).
+# The bound is the larger of bytes / bandwidth and ops / rate.
 F32_OPS_PER_S = 67e12
 # Operations of the isotonic fit on these inputs, counted from
 # csrc/pav_scan.cu: each position's singleton value and compare, each merge
@@ -361,7 +385,6 @@ SOURCES = {"pav_l2": "src/repro_torch/kernels/csrc/pav_scan.cu",
 # The LM serving path: full config, 8 prompts of 512 tokens, 32 tokens out.
 ARCH = "deepseek-v2-lite-16b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
-BF16_OPS_PER_S = 989e12   # H100 SXM tensor cores, dense bf16
 OPERATORS = ("soft_rank_l2", "soft_rank_kl", "soft_sort_l2", "soft_sort_kl",
              "soft_spearman_loss")
 
@@ -1737,11 +1760,10 @@ def attn_bound(q, k, v, causal: bool, window: int = 0, softcap: float = 0.0,
   window those above p - window) plus the softmax (5 f32 ops a score; a
   soft-cap 2 more, its multiply and its tanh counted as one) at the f32
   rate."""
+  from repro_torch.kernels.flash_attention import attention_pairs
   b, sq, h, d = q.shape
   skv, dv = k.shape[1], v.shape[-1]
-  pairs = (sum(min(p + 1, skv) - max(0, p + 1 - window if window else 0)
-               for p in range(q_offset, q_offset + sq))
-           if causal or window else sq * skv)
+  pairs = attention_pairs(sq, skv, causal, window, q_offset)
   n_bytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * 2
   flops = 2 * b * h * pairs * (d + dv)
   score_ops = 5 + (2 if softcap > 0 else 0)
@@ -3563,10 +3585,344 @@ def train_attn_times(captured, fa, name_limit, arch: str):
       f"{lib_fb - lib_fwd:.4f} ms [{name_limit}]")
 
 
+# ---------------------------------------------------------------------------
+# Mesh phase: the sharded main path on a one-rank NCCL group.
+# ---------------------------------------------------------------------------
+
+# The card is one H100, so every sharded run is at world size 1: a real
+# NCCL group of one rank, meshes (1, 1) over (data, model) and (1, 1, 1)
+# over (pod, data, model).  That proves the code path (NCCL, DTensor
+# dispatch, the kernels fed from local blocks), not scaling; many ranks are
+# traced by the dry run.  llama3.2-1b trains whole (FSDP on, so that every
+# rule path runs) for MESH_TRAIN_STEPS steps at the train phase's shapes
+# and seed, deepseek-v2-lite-16b serves whole (8 x 512 and MESH_SERVE_STEPS
+# decode steps); each against the same run without a mesh on the card, bit
+# for bit.
+MESH_TRAIN_STEPS = 2
+MESH_SERVE_STEPS = 4
+# The dry run on the card's host: both archs at all four shapes on the
+# 16 x 16 mesh, and one 2 x 16 x 16 cell, in CPU processes started after the
+# CPU workers of phase 3 (they share the host, not the card).
+DRYRUN_ARCHS = (DENSE_ARCH, ARCH)
+DRYRUN_MULTI = (DENSE_ARCH, "decode_32k")
+
+
+def start_dryrun(out_dir: str) -> list:
+  """The dry run's CLI in 3 CPU processes (no card: CUDA hidden), one
+  thread each, pinned to the host's last two cores where it has 4 or
+  more (deepseek's on the last, both llama ones on the one before), so
+  that the timed phases beside them keep the other cores."""
+  import os
+  env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+             PYTHONPATH=str(ROOT / "src"))
+  cores = sorted(os.sched_getaffinity(0))
+  cmds = [["--arch", arch, "--mesh", "single"] for arch in DRYRUN_ARCHS]
+  cmds.append(["--arch", DRYRUN_MULTI[0], "--shape", DRYRUN_MULTI[1],
+               "--mesh", "multi"])
+  procs = []
+  for cmd in cmds:
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", out_dir,
+         "--force", *cmd], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    if len(cores) >= 4:
+      os.sched_setaffinity(proc.pid,
+                           {cores[-1] if cmd[1] == ARCH else cores[-2]})
+    procs.append((cmd, time.perf_counter(), proc))
+  return procs
+
+
+def dryrun_lines(procs, out_dir: str) -> list[str]:
+  """Wait for the dry run's processes; each cell's dominant term, bound
+  and per-device GiB.  Fails on an error cell or a nonzero exit."""
+  lines = []
+  for cmd, t0, proc in procs:
+    out, _ = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dry run {cmd} exit {proc.returncode}:\n"
+          + out[-3000:])
+    lines.append(f"dryrun: {' '.join(cmd)}: exit 0, ended within {wall:.1f}"
+                 " s of its start (read after the mesh phase; on the host's "
+                 "CPU, no card)")
+  for path in sorted(Path(out_dir).glob("*.json")):
+    if path.name.endswith(".ops.json"):
+      continue
+    rec = json.loads(path.read_text())
+    cell = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+    if rec["status"] == "skipped":
+      lines.append(f"dryrun: {cell}: skipped ({rec['reason']})")
+      continue
+    check(rec["status"] == "ok", f"dry run {cell}: {rec.get('error')}")
+    roof, cost, mem = rec["roofline"], rec["cost"], rec["memory"]
+    lines.append(
+        f"dryrun: {cell}: {rec['devices']} ranks, trace {rec['trace_s']} s; "
+        f"dominant {roof['dominant']}, bound {roof['bound_s'] * 1e3:.3f} ms "
+        f"(compute {roof['compute_s'] * 1e3:.3f}, memory "
+        f"{roof['memory_s'] * 1e3:.3f}, collective "
+        f"{roof['collective_s'] * 1e3:.3f} ms); useful FLOPs ratio "
+        f"{roof['useful_flops_ratio']:.3f}; {mem['peak_estimate_bytes'] / 2**30:.2f}"
+        f" GiB a device ({mem['argument_bytes'] / 2**30:.2f} arguments + "
+        f"{mem['traced_peak_bytes'] / 2**30:.2f} traced peak); collectives "
+        + json.dumps(cost["collectives_by_type"]))
+  return lines
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+  from torch.distributed.tensor import DTensor
+  return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_train(dev, mesh2, kops, name_limit) -> tuple[list[str], dict,
+                                                     dict]:
+  """llama3.2-1b's trainer for MESH_TRAIN_STEPS steps without a mesh, then
+  with its parameters, optimizer state and batches distributed on the
+  (1, 1) mesh under the rules; losses and updated parameters bit for bit,
+  launches as counted from the code; then the sharded parameters through
+  a checkpoint, restored onto the mesh with other placements.  Returns
+  (lines, the sharded run's launches, timings)."""
+  import dataclasses
+  import shutil
+  from torch.distributed.tensor import Replicate
+  from repro_torch.checkpoint import checkpointer as ckpt
+  from repro_torch.configs.base import get_config
+  from repro_torch.launch import mesh as M
+  from repro_torch.launch import steps as ST
+  from repro_torch.launch import train
+  from repro_torch.optim import adamw
+  from repro_torch.sharding import specs as SP
+
+  cfg = dataclasses.replace(get_config(DENSE_ARCH), fsdp=True,
+                            loss_trim_fraction=TRIM_FRACTION)
+  opt_cfg = adamw.AdamWConfig()
+  trainer = train.Trainer(cfg, opt_cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          corrupt_fraction=0.1, total_steps=MESH_TRAIN_STEPS,
+                          seed=SEED, device="cuda")
+  rules = SP.ShardingRules(mesh2, data_axes=M.data_axes_of(mesh2),
+                           fsdp=True)
+  per_step = train_launches_per_step(cfg)
+
+  def run(sharded: bool):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = trainer.init_or_restore()
+    model, opt = state.model, state.opt_state
+    if sharded:
+      SP.distribute_model(model, mesh2, SP.param_specs_tree(rules, model))
+      opt = None
+      gc.collect()
+      opt = ST.init_opt_state(cfg, opt_cfg, dict(model.named_parameters()))
+    losses, times = [], []
+    kops.reset_all_launches()
+    for step in range(MESH_TRAIN_STEPS):
+      batch = trainer.batch_at(step)
+      if sharded:
+        batch = SP.distribute_tree(batch, mesh2,
+                                   SP.batch_specs_tree(rules, batch))
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      with SP.use_rules(rules if sharded else None):
+        _, opt, metrics = trainer.train_step(model, opt, batch)
+      losses.append(_full(metrics["loss"]).item())
+      torch.cuda.synchronize()
+      times.append(time.perf_counter() - t0)
+    launches = kops.all_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    return model, opt, losses, times, launches, peak
+
+  model, opt, ref_losses, ref_times, ref_launches, ref_peak = run(False)
+  ref = {n: p.detach().clone() for n, p in model.named_parameters()}
+  del model, opt
+  model, opt, losses, times, launches, peak = run(True)
+  want = {k: MESH_TRAIN_STEPS * n for k, n in per_step.items()}
+  check(launches == ref_launches == {**launches, **want},
+        f"mesh train launches {launches}, unsharded {ref_launches}, counted "
+        f"from the code {want}")
+  check(losses == ref_losses, f"mesh train losses {losses} vs {ref_losses}")
+  differ = [n for n, p in model.named_parameters()
+            if not torch.equal(p.full_tensor(), ref[n])]
+  check(not differ, f"mesh train: {len(differ)} parameters differ from the "
+        f"unsharded run's: {differ[:5]}")
+  lines = [
+      f"mesh: {DENSE_ARCH} train on the (1, 1) mesh (FSDP rules), "
+      f"{MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+      f"{losses} bit for bit the unsharded run's; all "
+      f"{len(ref)} updated parameters bit for bit; launches {launches} "
+      f"({per_step} a step, as without a mesh)",
+      f"mesh: {DENSE_ARCH} train step s: sharded "
+      f"{[round(t, 3) for t in times]}, unsharded "
+      f"{[round(t, 3) for t in ref_times]} (host clock, the first step "
+      f"each includes warm-up); peak {peak:.2f} GiB sharded, {ref_peak:.2f}"
+      f" GiB unsharded [{name_limit}]"]
+
+  directory = tempfile.mkdtemp(prefix="mesh_ckpt_")
+  try:
+    t0 = time.perf_counter()
+    ckpt.save(directory, MESH_TRAIN_STEPS,
+              {"params": dict(model.named_parameters())})
+    saved = time.perf_counter() - t0
+    places = {"params": {n: (Replicate(), Replicate()) for n in ref}}
+    tree, _ = ckpt.restore(directory, {"params": ref}, mesh=mesh2,
+                           placements=places)
+    moved = sum(t.placements != model.get_parameter(n).placements
+                for n, t in tree["params"].items())
+    bad = [n for n, t in tree["params"].items()
+           if t.placements != (Replicate(), Replicate())
+           or not torch.equal(t.full_tensor(), ref[n])]
+    check(not bad and moved > 0, f"mesh checkpoint: {bad[:5]} differ, "
+          f"{moved} leaves changed placements")
+  finally:
+    shutil.rmtree(directory, ignore_errors=True)
+  lines.append(
+      f"mesh: {DENSE_ARCH} checkpoint of the sharded parameters (full "
+      f"tensors, {saved:.1f} s to write) restored onto the (1, 1) mesh "
+      f"replicated ({moved} of {len(ref)} leaves change placements), bit "
+      f"for bit")
+  del model, opt, ref, tree
+  return lines, launches, {"step_s": times, "plain_step_s": ref_times,
+                           "peak_gib": peak, "plain_peak_gib": ref_peak}
+
+
+def mesh_serve(dev, mesh2, kops, name_limit) -> tuple[list[str], dict]:
+  """deepseek-v2-lite-16b whole: a prefill of SERVE_BATCH x SERVE_PROMPT
+  and MESH_SERVE_STEPS decode steps without a mesh, then the same weights
+  distributed on the (1, 1) mesh and the same tokens fed; logits bit for
+  bit, 27 attention and 27 gate launches a prefill, 27 gates a step."""
+  from repro_torch.configs.base import get_config
+  from repro_torch.launch import mesh as M
+  from repro_torch.launch import steps as ST
+  from repro_torch.models import transformer as T
+  from repro_torch.sharding import specs as SP
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  cfg = get_config(ARCH)
+  model = T.init_params(cfg, SEED, dev)
+  g = torch.Generator().manual_seed(SEED)
+  prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                          generator=g).to(dev)
+  prefill = ST.make_prefill_step(cfg, SERVE_PROMPT + MESH_SERVE_STEPS)
+  decode = ST.make_decode_step(cfg)
+  rules = SP.ShardingRules(mesh2, data_axes=M.data_axes_of(mesh2),
+                           fsdp=cfg.fsdp,
+                           seq_shard_activations=cfg.seq_shard_activations)
+
+  def run(sharded: bool, tokens=None):
+    batch = {"tokens": prompts}
+    if sharded:
+      batch = {"tokens": SP.distribute(prompts, mesh2,
+                                       SP.batch_spec(rules, prompts.shape))}
+    torch.cuda.reset_peak_memory_stats(dev)
+    kops.reset_all_launches()
+    logits, times, counts = [], [], []
+    with torch.no_grad(), SP.use_rules(rules if sharded else None):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out, caches = prefill(model, batch)
+      torch.cuda.synchronize()
+      times.append(time.perf_counter() - t0)
+      counts.append(kops.all_launches())
+      logits.append(_full(out))
+      toks = tokens or []
+      for i in range(MESH_SERVE_STEPS):
+        if not sharded:
+          toks.append(torch.argmax(logits[-1], dim=-1))
+        tok = toks[i]
+        if sharded:
+          tok = SP.distribute(tok, mesh2, SP.batch_spec(rules, tok.shape))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, caches = decode(model, caches, tok, SERVE_PROMPT + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        logits.append(_full(out))
+    del caches
+    return (logits, toks, times, counts, kops.all_launches(),
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+
+  ref_logits, toks, ref_times, _, _, ref_peak = run(False)
+  SP.distribute_model(model, mesh2, SP.param_specs_tree(rules, model))
+  gc.collect()
+  logits, _, times, counts, launches, peak = run(True, toks)
+  n = cfg.num_layers
+  check(counts[0] == {**counts[0], "flash_attention": n,
+                      "soft_topk_gates": n},
+        f"mesh prefill launches {counts[0]}")
+  check(launches == {**launches, "flash_attention": n,
+                     "soft_topk_gates": n * (1 + MESH_SERVE_STEPS)},
+        f"mesh serve launches {launches}")
+  differ = [i for i, (a, b) in enumerate(zip(logits, ref_logits))
+            if not torch.equal(a, b)]
+  check(not differ, f"mesh serve: logits of steps {differ} differ from the "
+        "unsharded run's by " + ", ".join(
+            f"{float((logits[i] - ref_logits[i]).abs().max()):.3e}"
+            for i in differ))
+  del model
+  lines = [
+      f"mesh: {ARCH} served on the (1, 1) mesh (rules with FSDP and "
+      f"sequence-sharded activations): prefill {SERVE_BATCH} x "
+      f"{SERVE_PROMPT} and {MESH_SERVE_STEPS} decode steps, logits bit for "
+      f"bit the unsharded run's; launches {launches} ({n} attention and "
+      f"{n} gates a prefill, {n} gates a step)",
+      f"mesh: {ARCH} serve s: sharded prefill {times[0]:.3f}, decode "
+      f"{[round(t, 4) for t in times[1:]]}; unsharded prefill "
+      f"{ref_times[0]:.3f}, decode {[round(t, 4) for t in ref_times[1:]]} "
+      f"(host clock, first calls warm-up); peak {peak:.2f} GiB sharded, "
+      f"{ref_peak:.2f} GiB unsharded [{name_limit}]"]
+  return lines, launches
+
+
+def mesh_psum(dev, mesh3) -> str:
+  """``pod_psum_int8`` through NCCL on the (1, 1, 1) mesh: each device's
+  int8 round trip of its own block, summed over one pod, bit for bit."""
+  from repro_torch.optim import compression
+  from repro_torch.sharding import specs as SP
+
+  g = torch.Generator(device=dev).manual_seed(SEED)
+  x = torch.randn((4096, 4096), generator=g, device=dev) * 3.0
+  spec = ("pod", "data")
+  out = compression.pod_psum_int8(SP.distribute(x, mesh3, spec), mesh3,
+                                  spec)
+  want = compression._dequant(*compression._quant_int8(x))
+  check(out.placements == SP.placements(mesh3, spec)
+        and torch.equal(out.to_local(), want),
+        "pod_psum_int8 differs from the int8 round trip on one rank")
+  return ("mesh: pod_psum_int8 over the (1, 1, 1) mesh's pod axis through "
+          f"NCCL, (4096, 4096) f32 spec {spec}: bit for bit the int8 round "
+          "trip (dequantized f32 on the wire, summed over 1 pod)")
+
+
+def mesh_phase(dev, kops, name_limit) -> tuple[list[str], dict]:
+  """The mesh phase: a one-rank NCCL group, the (1, 1) and (1, 1, 1)
+  meshes, the sharded trainer and server against the unsharded ones, the
+  int8 pod all-reduce, the checkpoint across placements; the group is
+  destroyed at the end.  Returns (lines, launches by run)."""
+  import torch.distributed as dist
+  from repro_torch.launch import mesh as M
+
+  t0 = time.perf_counter()
+  dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                          world_size=1)
+  try:
+    mesh2 = M.make_debug_mesh((1, 1), ("data", "model"))
+    mesh3 = M.make_debug_mesh((1, 1, 1), ("pod", "data", "model"))
+    lines = [mesh_psum(dev, mesh3)]
+    train_lines, train_counts, _ = mesh_train(dev, mesh2, kops, name_limit)
+    serve_lines, serve_counts = mesh_serve(dev, mesh2, kops, name_limit)
+  finally:
+    dist.destroy_process_group()
+  lines += train_lines + serve_lines
+  lines.append(f"mesh: phase {time.perf_counter() - t0:.1f} s; NCCL group "
+               f"destroyed: {not dist.is_initialized()}")
+  return lines, {f"{DENSE_ARCH} train": train_counts,
+                 f"{ARCH} serve": serve_counts}
+
+
 def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     serve_rows, dense_row, grok_row, grok_gate_rows,
                     full_rows, audio_row, train_launches, train_rows,
-                    engine_runs, engine_rows, option_rows) -> list[dict]:
+                    engine_runs, engine_rows, option_rows,
+                    mesh_launches) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
   ``train_launches`` by model).  ``launches`` is each kernel's main path:
@@ -3579,6 +3935,8 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   recurrentgemma's (256, 256) at G = 10 at its local layers' windowed
   prefill, llava's (128, 128) at G = 4 at its 1088-position prefill,
   musicgen's (64, 64) at G = 1 at its prefill; xlstm has no attention)
+  ``mesh_launches`` counts each kernel's launches in the mesh phase's
+  sharded runs, by run.  ``widths`` gives each width
   with its own launches, error and training shape's times (none for grok,
   which is not trained; recurrentgemma's and llava's, whose train runs are
   checks only, the attention alone; gemma's at its first, windowed,
@@ -3596,7 +3954,8 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
             "train_launches": by_arch(train_launches, kname),
             "engine_launches": engine_runs["default"]["launches"][kname],
             "engine_all_ops_launches":
-                engine_runs["all ops"]["launches"][kname]}
+                engine_runs["all ops"]["launches"][kname],
+            "mesh_launches": by_arch(mesh_launches, kname)}
 
   kernels = []
   for kname in ("pav_l2", "pav_kl"):
@@ -3822,6 +4181,8 @@ def main() -> int:
     pool.shutdown(wait=True, cancel_futures=True)
 
   clock("the CPU workers")
+  dryrun_dir = tempfile.mkdtemp(prefix="dryrun_")
+  dryrun_procs = start_dryrun(dryrun_dir)
   # 5. times -------------------------------------------------------------------
   lines = []
   kernel_rows = {}
@@ -4016,6 +4377,17 @@ def main() -> int:
     del train_res, train_rec, captured
     clock(f"train {arch}")
 
+  # mesh ------------------------------------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  from repro_torch.kernels import ops as kernel_ops
+  mesh_lines, mesh_launches = mesh_phase(dev, kernel_ops, name_limit)
+  for line in mesh_lines:
+    say(line)
+  for line in dryrun_lines(dryrun_procs, dryrun_dir):
+    say(line)
+  clock("mesh")
+
   # 7. summary -------------------------------------------------------------
   kernels = kernels_summary(
       launches=launches, max_err=max_err, kernel_rows=kernel_rows,
@@ -4027,7 +4399,7 @@ def main() -> int:
       audio_row=audio_row,
       train_launches=train_launches, train_rows=train_rows,
       engine_runs=engine_runs, engine_rows=engine_rows,
-      option_rows=option_rows)
+      option_rows=option_rows, mesh_launches=mesh_launches)
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,14 @@ parameter names and optimizer paths (``params/layers.0.params.mla.wq``,
 ``bfloat16`` in the manifest.  A save writes ``tmp.<step>`` and
 ``os.replace``s it into place, so a crash mid-write never leaves a
 partial ``step_<n>``; only the newest ``keep`` steps stay.  Leaves are
-stored gathered on the host: ``restore(..., map_location=)`` places them
-on any device.  ``AsyncCheckpointer`` saves on a background thread, at
-most one save in flight.
+stored gathered on the host, a DTensor as its full tensor, so a checkpoint
+does not depend on the mesh it was saved from: ``restore(...,
+map_location=)`` places the leaves on any device, and ``restore(...,
+mesh=, placements=)`` (the reference's ``shardings=``) distributes them
+onto any mesh; a DTensor leaf of ``like`` is restored onto its own mesh
+and placements.  Under a process group every rank takes part in a save
+(gathering the DTensors) and rank 0 writes.  ``AsyncCheckpointer`` saves
+on a background thread, at most one save in flight.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _SEP = "/"
 
@@ -43,6 +50,8 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+  if isinstance(t, DTensor):
+    t = t.full_tensor()
   t = t.detach().to("cpu", copy=True)   # a CPU leaf too: a snapshot
   if t.dtype == torch.bfloat16:   # numpy has no bf16: store the bits
     return t.view(torch.int16).numpy().view(np.uint16)
@@ -85,10 +94,24 @@ def _write(directory: str, step: int, host: dict, metadata: dict | None,
   return final
 
 
+def _writes() -> bool:
+  """Whether this process writes: rank 0 of a process group, or the one
+  process without one."""
+  return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(directory: str, step: int, tree: dict,
          metadata: dict | None = None, keep: int = 3) -> str:
-  """Write ``tree`` as step ``step``; returns the step's directory."""
-  return _write(directory, step, _snapshot(tree), metadata, keep)
+  """Write ``tree`` as step ``step``; returns the step's directory.  Under
+  a process group every rank calls it and it returns once rank 0 has
+  written."""
+  host = _snapshot(tree)
+  path = os.path.join(directory, f"step_{step:010d}")
+  if _writes():
+    path = _write(directory, step, host, metadata, keep)
+  if dist.is_initialized():
+    dist.barrier()
+  return path
 
 
 def _gc(directory: str, keep: int) -> None:
@@ -110,11 +133,30 @@ def latest_step(directory: str) -> int | None:
   return steps[-1] if steps else None
 
 
+def _placed(t: torch.Tensor, proto: torch.Tensor, map_location, mesh,
+            placements) -> torch.Tensor:
+  """A restored full leaf in ``proto``'s dtype: distributed by
+  ``placements`` over ``mesh`` where given, else like a DTensor
+  ``proto``, else on ``map_location`` or ``proto``'s device."""
+  if placements is None and isinstance(proto, DTensor):
+    mesh, placements = proto.device_mesh, proto.placements
+  if placements is not None:
+    t = t.to(device=mesh.device_type, dtype=proto.dtype)
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+  return t.to(device=map_location or proto.device, dtype=proto.dtype)
+
+
 def restore(directory: str, like: dict, step: int | None = None,
-            map_location=None) -> tuple[dict, dict]:
-  """The checkpoint of ``step`` (default: the latest) in the structure,
-  dtypes and devices of ``like``, or on ``map_location`` where given.
-  Returns (tree, metadata)."""
+            map_location=None, *, mesh=None,
+            placements: dict | None = None) -> tuple[dict, dict]:
+  """The checkpoint of ``step`` (default: the latest) in the structure and
+  dtypes of ``like``: each leaf on ``like``'s device, or on
+  ``map_location`` where given; or, with ``placements`` (a tree like
+  ``like`` whose leaves are DTensor placements) and ``mesh``, distributed
+  onto that mesh; a DTensor leaf of ``like`` without placements keeps its
+  own mesh and placements.  Returns (tree, metadata)."""
+  if (mesh is None) != (placements is None):
+    raise ValueError("restore takes mesh= and placements= together")
   if step is None:
     step = latest_step(directory)
     if step is None:
@@ -123,23 +165,23 @@ def restore(directory: str, like: dict, step: int | None = None,
   with open(os.path.join(path, "manifest.json")) as f:
     manifest = json.load(f)
 
-  def build(node: dict, prefix: str, data) -> dict:
+  def build(node: dict, places, prefix: str, data) -> dict:
     out = {}
     for name, proto in node.items():
       key = f"{prefix}{name}"
+      place = None if places is None else places[name]
       if isinstance(proto, dict):
-        out[name] = build(proto, key + _SEP, data)
+        out[name] = build(proto, place, key + _SEP, data)
         continue
       arr = data[key]
       t = torch.from_numpy(np.array(arr))
       if manifest["dtypes"][key] == "bfloat16":
         t = t.view(torch.int16).view(torch.bfloat16)
-      out[name] = t.to(device=map_location or proto.device,
-                       dtype=proto.dtype)
+      out[name] = _placed(t, proto, map_location, mesh, place)
     return out
 
   with np.load(os.path.join(path, "arrays.npz")) as data:
-    tree = build(like, "", data)
+    tree = build(like, placements, "", data)
   return tree, manifest["metadata"]
 
 
@@ -156,6 +198,8 @@ class AsyncCheckpointer:
   def save(self, step: int, tree: dict, metadata: dict | None = None):
     self.wait()  # at most one in flight
     host = _snapshot(tree)  # copied before the caller mutates the tree
+    if not _writes():
+      return
 
     def work():
       try:

@@ -44,6 +44,7 @@ import hashlib
 from collections import OrderedDict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.isotonic import isotonic_kl, isotonic_l2
 from repro_torch.core.permutations import (
@@ -55,6 +56,7 @@ from repro_torch.core.permutations import (
 from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.kernels import segment_vjp as _svjp
 from repro_torch.obs import metrics as _metrics
+from repro_torch.sharding import local as _local
 
 _REGS = ("l2", "kl")
 _HALF_DTYPES = (torch.bfloat16, torch.float16)
@@ -288,6 +290,14 @@ def projection_permutahedron(
   """
   if regularization not in _REGS:
     raise ValueError(f"regularization must be one of {_REGS}")
+  if isinstance(z, DTensor) or isinstance(w, DTensor):
+    # Rows are independent: each rank projects its own rows, each row
+    # whole (``sharding.local.on_rows``).
+    if z_perm is not None or w_perm is not None:
+      raise ValueError("DTensor arguments take no precomputed permutations")
+    return _local.on_rows(
+        projection_permutahedron, z, w, regularization, impl, path=path,
+        plan=plan, z_is_sorted=z_is_sorted, w_is_sorted=w_is_sorted)
   w = torch.as_tensor(w, dtype=z.dtype, device=z.device)
   if z.dtype in _HALF_DTYPES:
     # The whole pipeline runs promoted; only the result is demoted.

@@ -40,11 +40,17 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import _build
+from repro_torch.sharding import local as _local
 
 # Launch count of the kernel; only the wrapper below increments it.
 LAUNCHES = {"flash_attention": 0}
+# The devices whose tensors go to the kernel's launch op.  A caller that
+# traces on fake CPU tensors adds "cpu", so that the trace holds the launch
+# as the card runs it (the op's fake implementation gives its shape).
+KERNEL_DEVICES = {"cuda"}
 # (D, Dv) built: the MLA widths (deepseek), the dense GQA head widths of
 # llama3.2-1b and tinyllama-1.1b (64), of grok-1 (128), of gemma3-12b and
 # recurrentgemma-2b (256) and of stablelm-3b (80, run padded to 128 inside
@@ -166,9 +172,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if t.dim() != 4:
       raise ValueError(f"flash_attention takes 4-D tensors; {name} has "
                        f"shape {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-      raise ValueError(f"flash_attention takes contiguous, 16-byte aligned "
-                       f"tensors; {name} is not")
+    if not t.is_contiguous():
+      raise ValueError(f"flash_attention takes contiguous tensors; {name} "
+                       "is not")
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
   if k.shape != (b, skv, hkv, d) or v.shape[:3] != (b, skv, hkv):
@@ -192,11 +198,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      f"{skv} keys")
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: int = 0, softcap: float = 0.0,
-            q_offset: int = 0) -> torch.Tensor:
-  """One launch of the forward kernel on checked CUDA tensors (``window``
-  > 0 with ``causal`` only, 0: none; ``softcap`` 0: none)."""
+            causal: bool, window: int, softcap: float,
+            q_offset: int) -> torch.Tensor:
+  """One launch of the forward kernel (``window`` > 0 with ``causal``
+  only, 0: none; ``softcap`` 0: none) on CUDA tensors that ``_check``
+  passes, 16-byte aligned.  Its fake implementation gives the output's
+  shape, with no check: a trace holds the launch at any width."""
+  if q.device.type != "cuda":
+    raise ValueError(f"the flash_attention kernel runs on CUDA tensors; got "
+                     f"{q.device}")
+  _check(q, k, v, window=window, q_offset=q_offset)
+  for name, t in (("q", q), ("k", k), ("v", v)):
+    if t.data_ptr() % 16:
+      raise ValueError(f"flash_attention takes 16-byte aligned tensors; "
+                       f"{name} is not")
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
   out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
@@ -214,6 +231,31 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        f"error {err}")
   LAUNCHES["flash_attention"] += 1
   return out
+
+
+@_launch.register_fake
+def _(q, k, v, causal, window, softcap, q_offset):
+  return q.new_empty(q.shape[:3] + (v.shape[-1],))
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: int = 0,
+                    q_offset: int = 0) -> int:
+  """The (query, key) pairs the kernel computes: every pair; or, causal,
+  query i at position p = q_offset + i with the min(p + 1, Skv) keys up
+  to it, under a window only those above p - window."""
+  if not (causal or window > 0):
+    return sq * skv
+  return sum(min(p + 1, skv) - max(0, p + 1 - window if window > 0 else 0)
+             for p in range(q_offset, q_offset + sq))
+
+
+def attention_flops(q, k, v, causal: bool, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0) -> int:
+  """The tensor-core FLOPs of one kernel launch: QK^T and PV over the
+  pairs it computes, 2 B H pairs (D + Dv)."""
+  b, sq, h, d = q.shape
+  return 2 * b * h * attention_pairs(sq, k.shape[1], causal, window,
+                                     q_offset) * (d + v.shape[-1])
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -248,17 +290,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   differentiable through ``flash_attention_bwd``; a CPU tensor the plain
   version; any other device raises.
   """
-  if q.device.type == "cpu":
-    return flash_attention_plain(
-        q, k, v, causal=causal, window=window, q_chunk=q_chunk,
-        kv_chunk=kv_chunk, softcap=softcap, q_offset=q_offset)
-  if q.device.type != "cuda":
+  if isinstance(q, DTensor):
+    return _on_head_shards(q, k, v, causal=causal, window=window,
+                           q_chunk=q_chunk, kv_chunk=kv_chunk,
+                           softcap=softcap, q_offset=q_offset)
+  if q.device.type not in KERNEL_DEVICES:
+    if q.device.type == "cpu":
+      return flash_attention_plain(
+          q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+          kv_chunk=kv_chunk, softcap=softcap, q_offset=q_offset)
     raise ValueError(f"flash_attention takes CPU or CUDA tensors; got "
                      f"{q.device}")
   window, q_offset = max(int(window), 0), int(q_offset)
-  _check(q, k, v, window=window, q_offset=q_offset)
   return _FlashAttention.apply(q, k, v, bool(causal) or window > 0, window,
                                max(float(softcap), 0.0), q_offset)
+
+
+def _on_head_shards(q: DTensor, k: DTensor, v: DTensor,
+                    **opts) -> DTensor:
+  """``flash_attention`` on each rank's block of DTensors: the batch split
+  where q's batch is, the query heads where q's heads are, the sequence
+  and the widths whole; each rank holds the kv heads its query heads read
+  under GQA (its block of kv heads where k shards them alike, else the
+  slice it needs of replicated ones, whose gradient is then partial).
+  Other placements are redistributed first; a split that leaves a rank's
+  query heads reading kv heads out of GQA's order raises."""
+  mesh = q.device_mesh
+  qp = _local.keep_placements(q, (0, 2))
+  kvp = tuple(
+      p if p == Shard(0) or (p == Shard(2) and k.placements[i] == Shard(2))
+      else Replicate() for i, p in enumerate(qp))
+  grad_kvp = tuple(Partial() if p == Shard(2) and kv == Replicate() else kv
+                   for p, kv in zip(qp, kvp))
+  q = _local.to_placements(q, qp)
+  k = _local.to_placements(k, kvp)
+  v = _local.to_placements(v, kvp)
+  g = q.shape[2] // k.shape[2]
+  qlo, qhi = _local.shard_range(q, 2)
+  klo, khi = _local.shard_range(k, 2)
+  need_lo, need_hi = qlo // g, (qhi - 1) // g + 1
+  g_local = (qhi - qlo) // (need_hi - need_lo)
+  if (need_lo < klo or need_hi > khi
+      or any((h // g - need_lo) != (h - qlo) // g_local
+             for h in range(qlo, qhi))):
+    raise ValueError(f"flash_attention: query heads [{qlo}, {qhi}) of "
+                     f"placements {q.placements} do not read a block of the "
+                     f"kv heads [{klo}, {khi}) of placements {k.placements} "
+                     f"at G = {g}")
+  ql = q.to_local().contiguous()
+  kl = k.to_local(grad_placements=grad_kvp)[:, :, need_lo - klo:
+                                            need_hi - klo].contiguous()
+  vl = v.to_local(grad_placements=grad_kvp)[:, :, need_lo - klo:
+                                            need_hi - klo].contiguous()
+  out = flash_attention(ql, kl, vl, **opts)
+  b, sq, h, _ = q.shape
+  shape = (b, sq, h, v.shape[-1])
+  return DTensor.from_local(out, mesh, qp, shape=torch.Size(shape),
+                            stride=torch.empty(shape, device="meta").stride())
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
+from repro_torch.sharding import local as _local
 
 # Launch count of the kernel; only the wrapper below increments it.
 LAUNCHES = {"soft_topk_gates": 0}
@@ -76,7 +78,10 @@ def pool_at_k(y: torch.Tensor, k: int) -> torch.Tensor:
   psum = y[:, k - 1] + y[:, k]
   count = torch.full((t,), 2.0, dtype=y.dtype, device=y.device)
   live = pooled
-  while bool(live.any()):
+  # Each live step absorbs a neighbour, so at most E - 2 steps are live.
+  for _ in range(e - 2):
+    if not bool(live.any()):
+      break
     gamma = psum / count
     nl = torch.gather(y, 1, torch.clamp(pl - 1, min=0)[:, None])[:, 0]
     nr = torch.gather(y, 1, torch.clamp(pr + 1, max=e - 1)[:, None])[:, 0]
@@ -121,6 +126,10 @@ def soft_topk_gates(logits: torch.Tensor, k: int,
     raise RuntimeError(
         "soft_topk_gates is forward only and has no backward: under "
         "autograd use repro_torch.core.soft_topk_mask (the router does)")
+  if isinstance(logits, DTensor):
+    # Rows local, E whole: each rank gates its own tokens.
+    return _local.on_rows(soft_topk_gates, logits, k,
+                          regularization_strength)
   if logits.device.type == "cpu":
     return soft_topk_gates_plain(logits, k, regularization_strength)
   if logits.device.type != "cuda":

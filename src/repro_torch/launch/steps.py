@@ -8,6 +8,7 @@ train step updates the model and the optimizer state in place.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.profiler import record_function
 
 from repro_torch.core.losses import soft_trimmed_token_loss
@@ -35,6 +36,36 @@ def loss_from_batch(cfg, model, batch: dict):
   return total, {"loss": loss, "aux_loss": aux}
 
 
+def like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+  """``g`` in the placements of its parameter ``p``.  A DTensor
+  parameter's gradient comes back ``Partial`` where the data axes split
+  the batch but not the parameter: this redistribution is the
+  data-parallel all-reduce (or reduce-scatter, under FSDP).  Plain tensors
+  pass through."""
+  if isinstance(g, DTensor) and g.placements != p.placements:
+    return g.redistribute(p.device_mesh, p.placements)
+  return g
+
+
+def microbatches(x: torch.Tensor, accum: int) -> list[torch.Tensor]:
+  """The ``accum`` microbatches of ``x``: global rows [i mb, (i + 1) mb),
+  as the reference's reshape to (accum, mb, ...).  A DTensor's batch dim is
+  gathered once (the split's one collective, which a trace counts), and
+  each microbatch is chunked back onto ``x``'s placements (a local slice,
+  no communication)."""
+  mb = x.shape[0] // accum
+  if not isinstance(x, DTensor):
+    return [x[i * mb:(i + 1) * mb] for i in range(accum)]
+  mesh, pl = x.device_mesh, x.placements
+  gathered = [Replicate() if p == Shard(0) else p for p in pl]
+  whole = x.redistribute(mesh, gathered).to_local()
+  shape = (mb,) + tuple(x.shape[1:])
+  stride = torch.empty(shape, device="meta").stride()
+  return [DTensor.from_local(whole[i * mb:(i + 1) * mb], mesh, gathered,
+                             shape=shape, stride=stride).redistribute(mesh, pl)
+          for i in range(accum)]
+
+
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, lr_schedule=None,
                     compress_grads: bool = False):
   """(model, opt_state, batch) -> (model, opt_state, metrics), the model's
@@ -45,14 +76,16 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, lr_schedule=None,
   ``torch.autograd.grad`` in the parameters' dtype, are added into f32
   accumulators (``cfg.grad_accum_dtype``), then divided by the count and
   cast to ``cfg.dtype``.  The reported loss is the microbatches' mean,
-  and the aux loss 0, as in the reference.
+  and the aux loss 0, as in the reference.  A DTensor batch is split into
+  the same global rows (``microbatches``).  DTensor parameters take
+  gradients in their own placements (``like_param``).
   """
 
   def grads_of(model, params, batch):
     total, metrics = loss_from_batch(cfg, model, batch)
     grads = torch.autograd.grad(total, list(params.values()))
     return ({k: v.detach() for k, v in metrics.items()},
-            dict(zip(params, grads)))
+            {n: like_param(g, params[n]) for n, g in zip(params, grads)})
 
   def train_step(model, opt_state, batch):
     params = dict(model.named_parameters())
@@ -62,13 +95,13 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, lr_schedule=None,
       if rows % accum:
         raise ValueError(f"batch {rows} is not a multiple of grad_accum "
                          f"{accum}")
-      mb = rows // accum
       acc_dt = getattr(torch, cfg.grad_accum_dtype)
-      gsum = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+      gsum = {n: torch.zeros_like(p, dtype=acc_dt)
               for n, p in params.items()}
       lsum = 0.0
+      split = {k: microbatches(v, accum) for k, v in batch.items()}
       for i in range(accum):
-        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        micro = {k: v[i] for k, v in split.items()}
         metrics, g = grads_of(model, params, micro)
         for n, acc in gsum.items():
           acc += g[n].to(acc_dt)

@@ -12,9 +12,10 @@ LayerNorm and the non-gated GELU MLP.  Sequence attention is
 ``repro_torch.kernels.flash_attention``, which dispatches by device itself.
 Parameters are plain dicts of tensors in the JAX layouts (``w_in`` (d, f),
 ``wq`` (d, h, dh), ``table`` (V, d), ...), so the same pytree maps one to
-one.  The reference's ``shard_activation`` calls are dropped: the port runs
-on one card, and without sharding rules that call is the identity in the
-reference too (``repro.sharding.specs.shard_activation``).
+one.  The reference's ``shard_activation`` calls stand at its points (the
+identity without sharding rules), and the products are
+``repro_torch.sharding.local.einsum`` (``torch.einsum`` itself on plain
+tensors), so the same code runs on DTensors under a mesh.
 """
 
 from __future__ import annotations
@@ -23,18 +24,17 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.local import einsum, write_positions
+from repro_torch.sharding.specs import shard_activation
 
 Params = dict[str, torch.Tensor]
 
 _NEG_INF = -1e30
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-  return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue "
-                             f"1: {item})")
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype,
@@ -70,6 +70,9 @@ def norm_apply(p: Params, x: torch.Tensor, kind: str,
   n), not PyTorch's default n - 1."""
   if kind not in NORMS:
     raise ValueError(f"unknown norm {kind!r}; the norms are {NORMS}")
+  if isinstance(x, DTensor):
+    # The statistics take the whole feature dim on each rank.
+    x = _local.to_placements(x, _local.keep_placements(x, range(x.dim() - 1)))
   xf = x.to(torch.float32)
   if kind == "layernorm":
     mu = torch.mean(xf, dim=-1, keepdim=True)
@@ -144,13 +147,15 @@ def mlp_apply(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
   if variant not in MLPS:
     raise ValueError(f"unknown MLP variant {variant!r}; the variants are "
                      f"{MLPS}")
-  h = torch.einsum("...d,df->...f", x, p["w_in"])
+  h = einsum("...d,df->...f", x, p["w_in"])
   if variant in GATED:
-    g = torch.einsum("...d,df->...f", x, p["w_gate"])
+    g = einsum("...d,df->...f", x, p["w_gate"])
     h = GATED[variant](g) * h
   else:
     h = _gelu(h)
-  return torch.einsum("...f,fd->...d", h, p["w_out"])
+  if h.dim() == 3:
+    h = shard_activation(h, "ffn")
+  return einsum("...f,fd->...d", h, p["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -169,23 +174,75 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
   ``softcap`` c > 0, c * tanh(s / c) before the mask), the weights cast to
   the values' dtype, as in the reference (plain ops there too: no kernel).
   """
+  if isinstance(k_cache, DTensor):
+    return _decode_attention_sharded(q, k_cache, v_cache, cache_len, window,
+                                     softcap)
+  o, _ = _decode_block(q, k_cache, v_cache, 0, cache_len, window, softcap)
+  return o
+
+
+def _decode_block(q, k, v, lo: int, cache_len: int, window: int,
+                  softcap: float):
+  """``decode_attention`` over a block of cache positions starting at
+  ``lo``, the masks at their global positions: (output (B,H,Dv), its
+  masked f32 scores (B,Hkv,G,S))."""
   b, h, d = q.shape
-  s, hkv = k_cache.shape[1:3]
-  g = h // hkv
-  qg = q.reshape(b, hkv, g, d)
-  scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).to(torch.float32)
+  s, hkv = k.shape[1:3]
+  qg = q.reshape(b, hkv, h // hkv, d)
+  scores = einsum("bhgd,bkhd->bhgk", qg, k).to(torch.float32)
   scores = scores * (1.0 / math.sqrt(d))
   if softcap > 0.0:
     scores = torch.tanh(scores / softcap) * softcap
-  pos = torch.arange(s, device=q.device)
+  pos = torch.arange(lo, lo + s, device=q.device)
   valid = pos < cache_len
   if window > 0:
     valid &= pos > cache_len - 1 - window
   scores = torch.where(valid, scores,
                        torch.full((), _NEG_INF, device=q.device))
   p = torch.softmax(scores, dim=-1)
-  o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
-  return o.reshape(b, h, v_cache.shape[-1])
+  o = einsum("bhgk,bkhd->bhgd", p.to(v.dtype), v)
+  return o.reshape(b, h, v.shape[-1]), scores
+
+
+def _decode_attention_sharded(q, k_cache: DTensor, v_cache: DTensor,
+                              cache_len: int, window: int,
+                              softcap: float) -> DTensor:
+  """``decode_attention`` on the caches' blocks, which stay where they
+  are: batch over the mesh dims that split the caches' batch, heads where
+  they split the kv heads (q's heads alike), and the positions where they
+  split the sequence.  There each rank attends over its positions
+  (``_decode_block``) and the blocks' outputs are combined by their
+  softmax mass, exp(m_i - m) l_i, through a max and a sum over those mesh
+  dims (FlashDecoding's combine); one block's weight is 1."""
+  mesh = k_cache.device_mesh
+  pl = k_cache.placements
+  qp = tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+             else Replicate() for p in pl)
+  if not isinstance(q, DTensor):
+    q = DTensor.from_local(q, mesh, [Replicate()] * mesh.ndim)
+  ql = _local.to_placements(q, qp).to_local()
+  vl = v_cache.to_local()
+  lo, _ = _local.shard_range(k_cache, 1)
+  o, scores = _decode_block(ql, k_cache.to_local(), vl, lo, cache_len,
+                            window, softcap)
+  seq = [i for i, p in enumerate(pl) if p == Shard(1)]
+  if not seq:
+    return _local.wrap(o, mesh, qp)
+
+  def combined(local, op):
+    t = _local.wrap(local, mesh, [Partial(op) if i in seq else p
+                                  for i, p in enumerate(qp)])
+    return _local.to_placements(t, qp).to_local()
+
+  b, h, _ = o.shape
+  m = torch.amax(scores, dim=-1)                       # (B, Hkv, G)
+  m_all = combined(m, "max")
+  mass = torch.sum(torch.exp(scores - m[..., None]), dim=-1) * torch.exp(
+      m - m_all)
+  total = combined(mass, "sum")
+  weight = (mass / total).reshape(b, h, 1)
+  o = combined(o.to(torch.float32) * weight, "sum").to(vl.dtype)
+  return _local.wrap(o, mesh, qp)
 
 
 def attn_init(cfg, gen: torch.Generator, dtype, device) -> Params:
@@ -204,14 +261,14 @@ def attn_apply_seq(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
   """Full-sequence causal GQA attention (train / prefill), over the last
   ``window`` positions where ``window > 0``. x: (B,S,d) -> (B,S,d) [, (k,
   v) of (B,S,Hkv,dh), k after RoPE: the cache]."""
-  q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-  k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-  v = torch.einsum("bsd,dhk->bshk", x, p["wv"]).contiguous()
-  q = rope(q, positions, cfg.rope_theta)
-  k = rope(k, positions, cfg.rope_theta)
+  q = einsum("bsd,dhk->bshk", x, p["wq"])
+  k = einsum("bsd,dhk->bshk", x, p["wk"])
+  v = einsum("bsd,dhk->bshk", x, p["wv"]).contiguous()
+  q = shard_activation(rope(q, positions, cfg.rope_theta), "heads")
+  k = shard_activation(rope(k, positions, cfg.rope_theta), "heads")
   o = _fa.flash_attention(q, k, v, causal=True, window=window,
                           q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-  out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+  out = einsum("bshk,hkd->bsd", o, p["wo"])
   if return_kv:
     return out, (k, v)
   return out
@@ -225,15 +282,15 @@ def attn_apply_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
   Writes the token's k and v into ``cache`` at ``pos`` in place (the
   reference returns updated copies) and returns (out (B,d), cache).
   """
-  q = torch.einsum("bd,dhk->bhk", x, p["wq"])
-  k = torch.einsum("bd,dhk->bhk", x, p["wk"])
-  v = torch.einsum("bd,dhk->bhk", x, p["wv"])
+  q = einsum("bd,dhk->bhk", x, p["wq"])
+  k = einsum("bd,dhk->bhk", x, p["wk"])
+  v = einsum("bd,dhk->bhk", x, p["wv"])
   q = rope(q, pos, cfg.rope_theta)
   k = rope(k, pos, cfg.rope_theta)
-  cache["k"][:, pos] = k.to(cache["k"].dtype)
-  cache["v"][:, pos] = v.to(cache["v"].dtype)
+  write_positions(cache["k"], pos, k[:, None])
+  write_positions(cache["v"], pos, v[:, None])
   o = decode_attention(q, cache["k"], cache["v"], pos + 1, window)
-  return torch.einsum("bhk,hkd->bd", o, p["wo"]), cache
+  return einsum("bhk,hkd->bd", o, p["wo"]), cache
 
 
 def attn_init_cache(cfg, batch: int, max_len: int, dtype,
@@ -248,9 +305,41 @@ def attn_init_cache(cfg, batch: int, max_len: int, dtype,
 # ---------------------------------------------------------------------------
 
 
+def _embed_on_blocks(table: DTensor, tokens: torch.Tensor) -> DTensor:
+  """``table[tokens]`` of a DTensor table (Megatron's vocab-parallel
+  embedding): the table keeps its vocabulary blocks and gathers its
+  features (FSDP's gather at use); the tokens keep their batch split and
+  are whole where the table splits the vocabulary; each rank looks up the
+  tokens its block holds, zeros for the rest, and the blocks' rows are
+  summed.  At one rank the plain lookup, bit for bit."""
+  mesh = table.device_mesh
+  tab_pl = tuple(p if p == Shard(0) else Replicate()
+                 for p in table.placements)
+  table = _local.to_placements(table, tab_pl)
+  if not isinstance(tokens, DTensor):
+    tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim)
+  tok_pl = tuple(p if isinstance(p, Shard) and tp != Shard(0) else Replicate()
+                 for p, tp in zip(tokens.placements, tab_pl))
+  tokens = _local.to_placements(tokens, tok_pl)
+  grad_pl = tuple(tp if tp == Shard(0) else
+                  Partial() if isinstance(p, Shard) else Replicate()
+                  for p, tp in zip(tok_pl, tab_pl))
+  lo, hi = _local.shard_range(table, 0)
+  t = tokens.to_local()
+  local = table.to_local(grad_placements=grad_pl)
+  rows = local[torch.clamp(t - lo, 0, hi - lo - 1)]
+  rows = torch.where(((t >= lo) & (t < hi))[..., None], rows,
+                     torch.zeros((), dtype=rows.dtype, device=rows.device))
+  return _local.wrap(rows, mesh, [Partial() if tp == Shard(0) else p
+                                  for p, tp in zip(tok_pl, tab_pl)])
+
+
 def embed_apply(p: Params, tokens: torch.Tensor,
                 scale: bool = False) -> torch.Tensor:
-  out = p["table"][tokens]
+  if isinstance(p["table"], DTensor):
+    out = _embed_on_blocks(p["table"], tokens)
+  else:
+    out = p["table"][tokens]
   if scale:
     out = out * math.sqrt(out.shape[-1])
   return out
@@ -258,7 +347,7 @@ def embed_apply(p: Params, tokens: torch.Tensor,
 
 def lm_head_logits(w: torch.Tensor, x: torch.Tensor,
                    softcap: float = 0.0) -> torch.Tensor:
-  logits = torch.einsum("...d,dv->...v", x, w).to(torch.float32)
+  logits = einsum("...d,dv->...v", x, w).to(torch.float32)
   if softcap > 0.0:
     logits = torch.tanh(logits / softcap) * softcap
   return logits
@@ -266,10 +355,45 @@ def lm_head_logits(w: torch.Tensor, x: torch.Tensor,
 
 def _chunk_nll(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
                softcap: float) -> torch.Tensor:
-  logits = lm_head_logits(w, x, softcap)
+  logits = shard_activation(lm_head_logits(w, x, softcap), "logits")
+  if isinstance(logits, DTensor):
+    return _nll_vocab_parallel(logits, targets)
   logz = torch.logsumexp(logits, dim=-1)
   gold = torch.gather(logits, -1, targets[..., None])[..., 0]
   return logz - gold
+
+
+def _nll_vocab_parallel(logits: DTensor, targets: torch.Tensor) -> DTensor:
+  """``_chunk_nll``'s NLL of DTensor logits (B, c, V) whose vocabulary may
+  be split over mesh axes: each rank takes the log-sum-exp of its vocab
+  block and, where the target falls in it, the target's logit; the
+  blocks' log-sum-exps are gathered (B x c a rank) and combined, the gold
+  logits summed.  At one rank it is the plain form's arithmetic."""
+  mesh = logits.device_mesh
+  vdim = logits.dim() - 1
+  logits = _local.to_placements(logits, tuple(
+      p if isinstance(p, Shard) else Replicate() for p in logits.placements))
+  rows = tuple(p if isinstance(p, Shard) and p.dim < vdim else Replicate()
+               for p in logits.placements)
+  vocab = [i for i, p in enumerate(logits.placements) if p == Shard(vdim)]
+  lo, hi = _local.shard_range(logits, vdim)
+  if not isinstance(targets, DTensor):
+    targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim)
+  t = _local.to_placements(targets, rows).to_local()
+  local = logits.to_local()
+  lse = torch.logsumexp(local, dim=-1, keepdim=True)
+  idx = torch.clamp(t - lo, 0, hi - lo - 1)[..., None]
+  gold = torch.where((t >= lo) & (t < hi),
+                     torch.gather(local, -1, idx)[..., 0],
+                     torch.zeros((), dtype=local.dtype, device=local.device))
+  lse_all = _local.wrap(lse, mesh, [Shard(vdim) if i in vocab else p
+                                    for i, p in enumerate(rows)])
+  logz = torch.logsumexp(_local.to_placements(lse_all, rows).to_local(),
+                         dim=-1)
+  gold_all = _local.wrap(gold, mesh, [Partial() if i in vocab else p
+                                      for i, p in enumerate(rows)])
+  gold = _local.to_placements(gold_all, rows).to_local()
+  return _local.wrap(logz - gold, mesh, rows)
 
 
 def lm_loss_chunked(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
@@ -287,6 +411,9 @@ def lm_loss_chunked(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
   chunk = min(chunk, s)
   while s % chunk:
     chunk -= 1
+  if isinstance(x, DTensor):
+    # The chunks slice the sequence: only the batch stays split.
+    x = _local.to_placements(x, _local.keep_placements(x, (0,)))
   return torch.cat([
       checkpoint(_chunk_nll, w, x[:, i:i + chunk], targets[:, i:i + chunk],
                  softcap, use_reentrant=False)

@@ -16,6 +16,8 @@ import math
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.sharding.local import einsum, write_positions
+from repro_torch.sharding.specs import shard_activation
 from repro_torch.models.layers import Params, normal, rope
 
 _NEG_INF = -1e30
@@ -41,27 +43,29 @@ def mla_apply_seq(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
   """Expanded MLA for prefill. x: (B,S,d) -> (B,S,d) [, cache latents]."""
   nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
   r = cfg.kv_lora_rank
-  q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+  q = einsum("bsd,dhk->bshk", x, p["wq"])
   q_nope, q_rope = q[..., :nd], q[..., nd:]
   q_rope = rope(q_rope, positions, cfg.rope_theta)
 
-  ckv_full = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+  ckv_full = einsum("bsd,dr->bsr", x, p["w_dkv"])
   c_kv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
   k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)  # (B,S,1,rd)
 
-  k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
-  v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+  k_nope = einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+  v = einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
 
   h = cfg.num_heads
   k_rope_b = k_rope.expand(k_rope.shape[:2] + (h, rd))
   q_full = torch.cat([q_nope, q_rope], dim=-1)
   k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+  q_full = shard_activation(q_full, "heads")
+  k_full = shard_activation(k_full, "heads")
 
   # V stays at v_head_dim: the kernel takes D != Dv.
   o = _fa.flash_attention(q_full.contiguous(), k_full.contiguous(),
                           v.contiguous(), causal=True, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk)
-  out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+  out = einsum("bshk,hkd->bsd", o, p["wo"])
   if return_kv:
     return out, {"c_kv": c_kv, "k_rope": k_rope[..., 0, :]}
   return out
@@ -86,28 +90,28 @@ def mla_apply_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
   """
   nd, rd, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
   scale = 1.0 / math.sqrt(nd + rd)
-  q = torch.einsum("bd,dhk->bhk", x, p["wq"])
+  q = einsum("bd,dhk->bhk", x, p["wq"])
   q_nope, q_rope = q[..., :nd], q[..., nd:]
   q_rope = rope(q_rope, pos, cfg.rope_theta)
 
-  ckv_full = torch.einsum("bd,dr->br", x, p["w_dkv"])
+  ckv_full = einsum("bd,dr->br", x, p["w_dkv"])
   c_new, kr_new = ckv_full[..., :r], ckv_full[..., r:]
   kr_new = rope(kr_new[..., None, :], pos, cfg.rope_theta)[..., 0, :]
   c_cache, kr_cache = cache["c_kv"], cache["k_rope"]
-  c_cache[:, pos] = c_new.to(c_cache.dtype)
-  kr_cache[:, pos] = kr_new.to(kr_cache.dtype)
+  write_positions(c_cache, pos, c_new[:, None])
+  write_positions(kr_cache, pos, kr_new[:, None])
 
   # Absorb W_uk into q: q_lat (B,H,r) attends directly to the latents.
-  q_lat = torch.einsum("bhk,rhk->bhr", q_nope, p["w_uk"])
-  s_lat = torch.einsum("bhr,bsr->bhs", q_lat, c_cache)
-  s_rope = torch.einsum("bhk,bsk->bhs", q_rope, kr_cache)
+  q_lat = einsum("bhk,rhk->bhr", q_nope, p["w_uk"])
+  s_lat = einsum("bhr,bsr->bhs", q_lat, c_cache)
+  s_rope = einsum("bhk,bsk->bhs", q_rope, kr_cache)
   s = (s_lat + s_rope).to(torch.float32) * scale
   spos = torch.arange(c_cache.shape[1], device=x.device)
   s = torch.where((spos < pos + 1)[None, None], s,
                   torch.full((), _NEG_INF, device=x.device))
   pw = torch.softmax(s, dim=-1)
   # Attend over latents, then decompress once: (B,H,r) @ W_uv.
-  o_lat = torch.einsum("bhs,bsr->bhr", pw.to(c_cache.dtype), c_cache)
-  o = torch.einsum("bhr,rhk->bhk", o_lat, p["w_uv"])
-  out = torch.einsum("bhk,hkd->bd", o, p["wo"])
+  o_lat = einsum("bhs,bsr->bhr", pw.to(c_cache.dtype), c_cache)
+  o = einsum("bhr,rhk->bhk", o_lat, p["w_uv"])
+  out = einsum("bhk,hkd->bd", o, p["wo"])
   return out, cache

@@ -39,10 +39,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.operators import soft_topk_mask
 from repro_torch.kernels import soft_topk as _st
 from repro_torch.models.layers import Params, mlp_apply, normal
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.local import einsum
+from repro_torch.sharding.specs import shard_activation
 
 ROUTERS = ("softmax_topk", "soft_topk")
 
@@ -65,6 +69,13 @@ def moe_init(cfg, gen: torch.Generator, dtype, device) -> Params:
   return p
 
 
+def _gates(logits: torch.Tensor, k: int, eps: float) -> torch.Tensor:
+  """The fused gates of (..., E) logits, a row a token."""
+  e = logits.shape[-1]
+  return _st.soft_topk_gates(logits.reshape(-1, e), k, eps).reshape(
+      logits.shape)
+
+
 def _router_weights(cfg, logits: torch.Tensor):
   """logits: (..., E) f32 -> (combine weights, router probs)."""
   if cfg.router not in ROUTERS:
@@ -79,10 +90,12 @@ def _router_weights(cfg, logits: torch.Tensor):
     return w, probs
   if torch.is_grad_enabled() and logits.requires_grad:
     mask = soft_topk_mask(logits, k, cfg.router_eps)
+  elif isinstance(logits, DTensor):
+    # Each rank gates its own tokens (flattening two split dims of a
+    # DTensor would make a strided split).
+    mask = _local.on_rows(_gates, logits, k, cfg.router_eps)
   else:
-    e = logits.shape[-1]
-    mask = _st.soft_topk_gates(logits.reshape(-1, e), k,
-                               cfg.router_eps).reshape(logits.shape)
+    mask = _gates(logits, k, cfg.router_eps)
   w = mask * probs
   w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
   return w, probs
@@ -130,6 +143,9 @@ def load_balance_loss(probs: torch.Tensor,
 
 def moe_apply(p: Params, x: torch.Tensor, cfg):
   """x: (B,S,d) or (B,d) -> (same shape, aux_loss scalar)."""
+  if isinstance(x, DTensor):
+    # The tokens are flattened into groups: only the batch stays split.
+    x = _local.to_placements(x, _local.keep_placements(x, (0,)))
   orig_shape = x.shape
   d = x.shape[-1]
   xt = x.reshape(-1, d)
@@ -139,25 +155,34 @@ def moe_apply(p: Params, x: torch.Tensor, cfg):
   if pad:
     xt = torch.cat([xt, xt.new_zeros((pad, d))], dim=0)
   xg = xt.reshape(-1, gs, d)                                    # (G, gs, d)
+  xg = _local.grad_in_place(shard_activation(xg, "moe_groups"))
 
-  logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), p["router"])
+  logits = einsum("gtd,de->gte", xg.to(torch.float32), p["router"])
+  logits = shard_activation(logits, "moe_router")
   weights, probs = _router_weights(cfg, logits)
+  # The dispatch takes cumsums within a group: tokens back group-local.
+  weights = shard_activation(weights, "moe_groups")
   k, e = cfg.experts_per_token, cfg.num_experts
   capacity = max(int(math.ceil(gs * k * cfg.capacity_factor / e)), 4)
   dispatch, combine = _dispatch_mask(weights, k, capacity)
   dispatch = dispatch.to(x.dtype)
   combine = combine.to(x.dtype)
 
-  xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
-  h = torch.einsum("gecd,edf->gecf", xe, p["we_in"])
-  gg = torch.einsum("gecd,edf->gecf", xe, p["we_gate"])
+  xe = einsum("gtec,gtd->gecd", dispatch, xg)
+  xe = shard_activation(xe, "moe_groups4")
+  h = einsum("gecd,edf->gecf", xe, p["we_in"])
+  gg = einsum("gecd,edf->gecf", xe, p["we_gate"])
   h = F.silu(gg) * h
-  ye = torch.einsum("gecf,efd->gecd", h, p["we_out"])
-  yt = torch.einsum("gtec,gecd->gtd", combine, ye)
+  ye = einsum("gecf,efd->gecd", h, p["we_out"])
+  ye = shard_activation(ye, "moe_groups4")
+  yt = einsum("gtec,gecd->gtd", combine, ye)
+  yt = shard_activation(yt, "moe_groups")
 
   if "shared" in p:
     yt = yt + mlp_apply(p["shared"], xg, "swiglu")
 
   aux = load_balance_loss(probs, dispatch.to(torch.float32))
-  out = yt.reshape(-1, d)[:t_total].reshape(orig_shape)
+  # grad_in_place: the gradient arrives in the residual's layout (the
+  # sequence split), whose flatten DTensor refuses.
+  out = _local.grad_in_place(yt.reshape(-1, d)[:t_total].reshape(orig_shape))
   return out, aux

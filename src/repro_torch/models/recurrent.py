@@ -20,7 +20,8 @@ activation dtype, ``a`` and the gated input in f32, ``h`` cast back to the
 activation dtype before ``gate * h``.  Decode keeps the state {h (B, L)
 f32, conv (B, W - 1, L) f32: the last W - 1 conv inputs} and updates it in
 place, as the attention layers update their caches.  The reference's
-``shard_activation`` calls are dropped (no sharding: the identity).
+``shard_activation`` calls stand at its points (the identity without
+sharding rules).
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.local import assign, einsum
+from repro_torch.sharding.specs import shard_activation
 
 Params = dict[str, torch.Tensor]
 
@@ -65,6 +71,8 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   """Depthwise causal conv, x (B, S, L), w (W, L), in x's dtype: the
   reference's tap sum, tap W - 1 on the current position first, then the
   taps on positions 1 .. W - 1 back (zeros before the sequence)."""
+  if isinstance(x, DTensor):
+    return _conv_on_blocks(x, w)
   width = w.shape[0]
   out = x * w[width - 1]
   for i in range(1, width):
@@ -73,12 +81,29 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   return out
 
 
+def _conv_on_blocks(x: DTensor, w: torch.Tensor) -> DTensor:
+  """``_conv1d_causal`` on each rank's block of x (B, S, L): the batch and
+  the channels L split where x has them, the sequence whole, with the
+  block's channels of w (W, L), whose gradient is then partial."""
+  mesh = x.device_mesh
+  want = _local.keep_placements(x, (0, 2))
+  x = _local.to_placements(x, want)
+  lo, hi = _local.shard_range(x, 2)
+  if isinstance(w, DTensor):
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in want)
+    w = _local.to_placements(w, (Replicate(),) * mesh.ndim).to_local(
+        grad_placements=grad)
+  out = _conv1d_causal(x.to_local(), w[:, lo:hi])
+  return _local.wrap(out, mesh, want)
+
+
 def _rglru_gates(p: Params, x_raw: torch.Tensor, u: torch.Tensor):
   """(a, gated), both f32: the recurrence's decay and its input, from the
   pre-conv input ``x_raw`` (the gates) and the conv output ``u``."""
-  r = torch.sigmoid(torch.einsum("...d,dl->...l", x_raw,
+  r = torch.sigmoid(einsum("...d,dl->...l", x_raw,
                                  p["gate_w_r"]).to(torch.float32))
-  i = torch.sigmoid(torch.einsum("...d,dl->...l", x_raw,
+  i = torch.sigmoid(einsum("...d,dl->...l", x_raw,
                                  p["gate_w_i"]).to(torch.float32))
   log_a = -_C * F.softplus(p["a_param"]) * r
   a = torch.exp(log_a)
@@ -109,18 +134,19 @@ def rg_apply_seq(p: Params, x: torch.Tensor, cfg, *,
   state after the last position: h (B, L) (cast to x's dtype and back, as
   the reference keeps it) and the last W - 1 conv inputs (B, W - 1, L), f32,
   zeros where the sequence is shorter]."""
-  xb = torch.einsum("bsd,dl->bsl", x, p["w_x"])
-  gate = F.gelu(torch.einsum("bsd,dl->bsl", x, p["w_gate"]),
+  xb = einsum("bsd,dl->bsl", x, p["w_x"])
+  gate = F.gelu(einsum("bsd,dl->bsl", x, p["w_gate"]),
                 approximate="tanh")
   u = _conv1d_causal(xb, p["conv_w"])
   a, gated = _rglru_gates(p, x, u)
-  h = linear_scan(a, gated).to(x.dtype)
-  y = torch.einsum("bsl,ld->bsd", gate * h.to(gate.dtype), p["w_out"])
+  h = shard_activation(linear_scan(a, gated).to(x.dtype), "residual")
+  y = einsum("bsl,ld->bsd", gate * h.to(gate.dtype), p["w_out"])
   if not return_state:
     return y
   keep = cfg.conv_width - 1
   conv = xb[:, max(xb.shape[1] - keep, 0):].to(torch.float32)
-  conv = F.pad(conv, (0, 0, keep - conv.shape[1], 0))
+  if conv.shape[1] < keep:
+    conv = F.pad(conv, (0, 0, keep - conv.shape[1], 0))
   return y, {"h": h[:, -1].to(torch.float32), "conv": conv}
 
 
@@ -137,15 +163,15 @@ def rg_apply_decode(p: Params, x: torch.Tensor, state: Params, cfg):
   place: the conv over the f32 history (the state's W - 1 inputs and this
   one) with f32 taps, h in f32, and gate * h cast to x's dtype before
   ``w_out``, as in the reference."""
-  xb = torch.einsum("bd,dl->bl", x, p["w_x"])
-  gate = F.gelu(torch.einsum("bd,dl->bl", x, p["w_gate"]),
+  xb = einsum("bd,dl->bl", x, p["w_x"])
+  gate = F.gelu(einsum("bd,dl->bl", x, p["w_gate"]),
                 approximate="tanh")
   hist = torch.cat([state["conv"], xb[:, None].to(torch.float32)], dim=1)
-  u = torch.einsum("bwl,wl->bl", hist, p["conv_w"].to(torch.float32))
+  u = einsum("bwl,wl->bl", hist, p["conv_w"].to(torch.float32))
   a, gated = _rglru_gates(p, x, u)
-  h = a * state["h"] + gated
-  y = torch.einsum("bl,ld->bd", (gate.to(torch.float32) * h).to(x.dtype),
+  h = shard_activation(a * state["h"] + gated, "rg_state")
+  y = einsum("bl,ld->bd", (gate.to(torch.float32) * h).to(x.dtype),
                    p["w_out"])
-  state["h"].copy_(h)
-  state["conv"].copy_(hist[:, 1:])
+  assign(state["h"], h)
+  assign(state["conv"], hist[:, 1:])
   return y, state

@@ -58,6 +58,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -69,6 +70,10 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as RG
 from repro_torch.models import xlstm as XL
+from repro_torch.sharding import specs as SP
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.local import assign, write_positions
+from repro_torch.sharding.specs import shard_activation
 
 # Each layer kind's mixer, by its parameter group: GQA attention, MLA, the
 # RG-LRU block, the mLSTM or the sLSTM block.
@@ -205,9 +210,9 @@ class Layer(nn.Module):
     cfg, p = self.cfg, self.params.tree()
     h = L.norm_apply(p["norm1"], x, cfg.norm)
     mixed, cache = self._mix_seq(p, h, positions, collect_cache)
-    x = x + mixed.to(x.dtype)
+    x = shard_activation(x + mixed.to(x.dtype), "residual")
     ff, aux = self._ffn(p, L.norm_apply(p["norm2"], x, cfg.norm))
-    return x + ff.to(x.dtype), aux, cache
+    return shard_activation(x + ff.to(x.dtype), "residual"), aux, cache
 
   def apply_train(self, x, positions):
     """(x, aux) of the training pass; the unit that remat recomputes."""
@@ -221,7 +226,7 @@ class Layer(nn.Module):
     mixed, cache = self._mix_decode(p, h, cache, pos)
     x = x + mixed.to(x.dtype)
     ff, _ = self._ffn(p, L.norm_apply(p["norm2"], x, cfg.norm))
-    return x + ff.to(x.dtype), cache
+    return shard_activation(x + ff.to(x.dtype), "residual_decode"), cache
 
 
 def head_names(cfg) -> tuple[str, ...]:
@@ -467,6 +472,30 @@ def init_cache(cfg, batch: int, max_len: int, device="cpu") -> list[dict]:
   return [one(MIXERS[kind]) for kind in cfg.layer_kinds()]
 
 
+def init_cache_sharded(cfg, batch: int, max_len: int, rules) -> list[dict]:
+  """``init_cache`` as DTensors on ``rules.mesh``, each leaf laid out by
+  ``cache_specs_tree`` and built as its local block only: each leaf of
+  ``init_cache`` holds one value (zeros, or the recurrent states' initial
+  m and n), filled into the block."""
+  mesh = rules.mesh
+  protos = init_cache(cfg, 1, 1, mesh.device_type)
+  shapes = init_cache(cfg, batch, max_len, "meta")
+  specs = SP.cache_specs_tree(rules, shapes)
+
+  def block(leaf, proto, spec):
+    pl = SP.placements(mesh, spec)
+    local = list(leaf.shape)
+    for i, p in enumerate(pl):
+      if isinstance(p, Shard):
+        local[p.dim] //= mesh.size(i)
+    t = torch.zeros(local, dtype=leaf.dtype, device=mesh.device_type)
+    return _local.wrap(t + proto.reshape(-1)[0], mesh, pl)
+
+  return [{name: block(leaf, proto[name], spec[name])
+           for name, leaf in shape.items()}
+          for proto, shape, spec in zip(protos, shapes, specs)]
+
+
 def _head(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
   """Logits (B, V), or (B, K, V) over the codebook heads, in f32."""
   x = L.norm_apply(model.final_norm.tree(), x, cfg.norm)
@@ -492,14 +521,18 @@ def forward_prefill(cfg, model: Transformer, batch: dict, max_len: int):
   if s > max_len:
     raise ValueError(f"prompt of {s} positions exceeds max_len {max_len}")
   positions = torch.arange(s, device=x.device)
-  caches = init_cache(cfg, x.shape[0], max_len, x.device)
+  rules = SP.current_rules()
+  if rules is not None and isinstance(x, DTensor):
+    caches = init_cache_sharded(cfg, x.shape[0], max_len, rules)
+  else:
+    caches = init_cache(cfg, x.shape[0], max_len, x.device)
   for layer, cache in zip(model.layers, caches):
     x, _, got = layer.apply_seq(x, positions, collect_cache=True)
     for name, latent in got.items():
       if layer.mixer in RECURRENT:
-        cache[name].copy_(latent)
+        assign(cache[name], latent)
       else:
-        cache[name][:, :s] = latent.to(cache[name].dtype)
+        write_positions(cache[name], 0, latent)
   return _head(cfg, model, x[:, -1]), caches
 
 
@@ -513,6 +546,10 @@ def forward_decode(cfg, model: Transformer, caches: list[dict],
     x = inputs.to(dtype_of(cfg))
   else:
     x = L.embed_apply(model.embed.tree(), inputs, scale=cfg.tie_embeddings)
+  x = shard_activation(x, "residual_decode")
   for layer, cache in zip(model.layers, caches):
     x, _ = layer.apply_decode(x, cache, pos)
-  return _head(cfg, model, x), caches
+  logits = _head(cfg, model, x)
+  if not cfg.num_codebooks:
+    logits = shard_activation(logits, "logits_decode")
+  return logits, caches

@@ -31,17 +31,24 @@ of the backward that need no carry (the gates' activations and their
 derivatives) are computed for every position at once before the loop, so
 that each step of either loop is about 15 launches on the card.  Decode
 states are updated in place, as the attention layers update their caches.
-The reference's ``shard_activation`` calls are dropped (no sharding: the
-identity).
+The reference's ``shard_activation`` calls stand at its points (the
+identity without sharding rules); on DTensors the sLSTM scan runs on each
+rank's heads and batch rows (``_slstm_scan``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.profiler import record_function
+
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.local import assign, einsum
+from repro_torch.sharding.specs import shard_activation
 
 Params = dict[str, torch.Tensor]
 
@@ -89,9 +96,9 @@ def _mlstm_gates(p: Params, x: torch.Tensor):
   """(i (..., H), F = cumsum of log sigmoid(f) over the sequence axis or
   log sigmoid(f) for one token), both f32."""
   xf = x.to(torch.float32)
-  i_t = torch.einsum("...d,dh->...h", xf, p["w_i"])
-  f_t = torch.einsum("...d,dh->...h", xf, p["w_f"]) + p["b_f"]
-  return i_t, F.logsigmoid(f_t)
+  i_t = einsum("...d,dh->...h", xf, p["w_i"])
+  f_t = einsum("...d,dh->...h", xf, p["w_f"]) + p["b_f"]
+  return i_t, _local.elementwise(F.logsigmoid, f_t)
 
 
 def mlstm_apply_seq(p: Params, x: torch.Tensor, cfg, *,
@@ -100,11 +107,14 @@ def mlstm_apply_seq(p: Params, x: torch.Tensor, cfg, *,
   state after the last position]."""
   b, s, _ = x.shape
   h, dh = cfg.num_heads, cfg.head_dim
-  q = torch.einsum("bsd,dhk->bshk", x, p["w_q"]) / math.sqrt(dh)
-  k = torch.einsum("bsd,dhk->bshk", x, p["w_k"])
-  v = torch.einsum("bsd,dhk->bshk", x, p["w_v"])
+  q = einsum("bsd,dhk->bshk", x, p["w_q"]) / math.sqrt(dh)
+  k = einsum("bsd,dhk->bshk", x, p["w_k"])
+  v = einsum("bsd,dhk->bshk", x, p["w_v"])
+  q = shard_activation(q, "heads")
   i_t, log_f = _mlstm_gates(p, x)
-  f_cum = torch.cumsum(log_f, dim=1)                      # (B, S, H)
+  # (B, S, H): on a DTensor, on blocks with the sequence whole
+  f_cum = (_local.on_rows(torch.cumsum, log_f, 1, row_dims=(0, 2))
+           if isinstance(log_f, DTensor) else torch.cumsum(log_f, dim=1))
   qc, kc = _chunk(cfg.q_chunk, s), _chunk(cfg.kv_chunk, s)
   fk_all = f_cum.transpose(1, 2)                          # (B, H, S)
   ik_all = i_t.transpose(1, 2)
@@ -117,28 +127,32 @@ def mlstm_apply_seq(p: Params, x: torch.Tensor, cfg, *,
     m = torch.full((b, h, qc), _NEG, dtype=torch.float32, device=x.device)
     num = torch.zeros((b, h, qc, dh), dtype=torch.float32, device=x.device)
     den = torch.zeros((b, h, qc), dtype=torch.float32, device=x.device)
-    for klo in range(0, lo + qc, kc):   # blocks above the diagonal add 0
-      # mLSTM is linear in the q.k score; only gate decays are in the
-      # exponent: w_{t,j} = exp(F_t - F_j + itilde_j - m_t) (q_t . k_j).
-      score = torch.einsum("bqhd,bkhd->bhqk", q_blk,
-                           k[:, klo:klo + kc]).to(torch.float32)
-      decay = (fq - fk_all[:, :, None, klo:klo + kc]
-               + ik_all[:, :, None, klo:klo + kc])
-      kv_pos = torch.arange(klo, klo + kc, device=x.device)[None]
-      decay = torch.where(kv_pos <= q_pos, decay,
-                          torch.full((), _NEG, device=x.device))
-      m_new = torch.maximum(m, torch.amax(decay, dim=-1))
-      alpha = torch.exp(m - m_new)
-      w = torch.exp(decay - m_new[..., None]) * score
-      num = num * alpha[..., None] + torch.einsum(
-          "bhqk,bkhd->bhqd", w, vf[:, klo:klo + kc])
-      den = den * alpha + torch.sum(w, dim=-1)
-      m = m_new
+    # Blocks above the diagonal add 0; the chunks divide s, so every block
+    # has one shape.
+    blocks, counting = _scan_steps(len(range(0, lo + qc, kc)))
+    with counting:
+      for klo in (kc * i for i in blocks):
+        # mLSTM is linear in the q.k score; only gate decays are in the
+        # exponent: w_{t,j} = exp(F_t - F_j + itilde_j - m_t) (q_t . k_j).
+        score = einsum("bqhd,bkhd->bhqk", q_blk,
+                       k[:, klo:klo + kc]).to(torch.float32)
+        decay = (fq - fk_all[:, :, None, klo:klo + kc]
+                 + ik_all[:, :, None, klo:klo + kc])
+        kv_pos = torch.arange(klo, klo + kc, device=x.device)[None]
+        decay = torch.where(kv_pos <= q_pos, decay,
+                            torch.full((), _NEG, device=x.device))
+        m_new = torch.maximum(m, torch.amax(decay, dim=-1))
+        alpha = torch.exp(m - m_new)
+        w = torch.exp(decay - m_new[..., None]) * score
+        num = num * alpha[..., None] + einsum(
+            "bhqk,bkhd->bhqd", w, vf[:, klo:klo + kc])
+        den = den * alpha + torch.sum(w, dim=-1)
+        m = m_new
     norm = torch.maximum(torch.abs(den), torch.exp(-m))
     outs.append((num / norm[..., None]).transpose(1, 2))  # (B, cq, H, dh)
   o = torch.cat(outs, dim=1)
-  og = torch.sigmoid(torch.einsum("bsd,dhk->bshk", x, p["w_o"]))
-  y = torch.einsum("bshk,hkd->bsd", og * o.to(og.dtype), p["w_out"])
+  og = torch.sigmoid(einsum("bsd,dhk->bshk", x, p["w_o"]))
+  y = einsum("bshk,hkd->bsd", og * o.to(og.dtype), p["w_out"])
   if not return_state:
     return y
   return y, _mlstm_state_from_seq(k, v, i_t, f_cum)
@@ -151,8 +165,8 @@ def _mlstm_state_from_seq(k, v, i_t, f_cum) -> Params:
   m = torch.amax(logw, dim=-1)                            # (B, H)
   w = torch.exp(logw - m[..., None])
   kf, vf = k.to(torch.float32), v.to(torch.float32)
-  c = torch.einsum("bhs,bshk,bshv->bhkv", w, kf, vf)
-  n = torch.einsum("bhs,bshk->bhk", w, kf)
+  c = einsum("bhs,bshk,bshv->bhkv", w, kf, vf)
+  n = einsum("bhs,bshk->bhk", w, kf)
   return {"c": c, "n": n, "m": m}
 
 
@@ -171,9 +185,9 @@ def mlstm_apply_decode(p: Params, x: torch.Tensor, state: Params, cfg):
   update and the read-out in f32, the output gate in the model dtype."""
   dh = cfg.head_dim
   f32 = torch.float32
-  q = torch.einsum("bd,dhk->bhk", x, p["w_q"]).to(f32) / math.sqrt(dh)
-  k = torch.einsum("bd,dhk->bhk", x, p["w_k"]).to(f32)
-  v = torch.einsum("bd,dhk->bhk", x, p["w_v"]).to(f32)
+  q = einsum("bd,dhk->bhk", x, p["w_q"]).to(f32) / math.sqrt(dh)
+  k = einsum("bd,dhk->bhk", x, p["w_k"]).to(f32)
+  v = einsum("bd,dhk->bhk", x, p["w_v"]).to(f32)
   i_t, log_f = _mlstm_gates(p, x)
   m_f = state["m"] + log_f
   m_new = torch.maximum(m_f, i_t)
@@ -182,14 +196,15 @@ def mlstm_apply_decode(p: Params, x: torch.Tensor, state: Params, cfg):
   c = state["c"] * a[..., None, None] + bgt[..., None, None] * (
       k[..., :, None] * v[..., None, :])
   n = state["n"] * a[..., None] + bgt[..., None] * k
-  num = torch.einsum("bhk,bhkv->bhv", q, c)
-  den = torch.abs(torch.einsum("bhk,bhk->bh", q, n))
+  c = shard_activation(c, "mlstm_state")
+  num = einsum("bhk,bhkv->bhv", q, c)
+  den = torch.abs(einsum("bhk,bhk->bh", q, n))
   out = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-  og = torch.sigmoid(torch.einsum("bd,dhk->bhk", x, p["w_o"]))
-  y = torch.einsum("bhk,hkd->bd", og * out.to(og.dtype), p["w_out"])
-  state["c"].copy_(c)
-  state["n"].copy_(n)
-  state["m"].copy_(m_new)
+  og = torch.sigmoid(einsum("bd,dhk->bhk", x, p["w_o"]))
+  y = einsum("bhk,hkd->bd", og * out.to(og.dtype), p["w_out"])
+  assign(state["c"], c)
+  assign(state["n"], n)
+  assign(state["m"], m_new)
   return y, state
 
 
@@ -230,6 +245,14 @@ def _rec_weight(r: torch.Tensor, dtype) -> torch.Tensor:
   return r.reshape(r.shape[0], r.shape[1], -1).to(dtype)
 
 
+def _scan_steps(s: int):
+  """A loop's ``s`` steps, each running the same ops at the same shapes,
+  and the context they run in: all of them, in none.  A caller that counts
+  ops may put one step counted ``s`` times in its place
+  (``analysis.cost.CostMode`` does)."""
+  return range(s), contextlib.nullcontext()
+
+
 def _slstm_forward(u: torch.Tensor, r: torch.Tensor):
   """The recurrence over time.  ``u`` (S, H, B, 4, dh): the input
   projections plus the gate biases, in the scan's dtype (f32, or f64 in
@@ -248,21 +271,23 @@ def _slstm_forward(u: torch.Tensor, r: torch.Tensor):
   n = c + _EPS_N
   m = c - 10.0
   h = c
-  for t in range(s):
-    hr = h.to(r.dtype).to(dt) if cast else h
-    pre = pres[t]
-    torch.baddbmm(u[t].view(hh, b, 4 * dh), hr, r2,
-                  out=pre.view(hh, b, 4 * dh))
-    i_p, f_p, z_p, o_p = pre.unbind(2)
-    m_f = m + F.logsigmoid(f_p)
-    m_new = torch.maximum(m_f, i_p)
-    a = torch.exp(m_f - m_new, out=a_s[t])
-    bgt = torch.exp(i_p - m_new)
-    c = torch.addcmul(bgt * torch.tanh(z_p), c, a, out=cs[t])
-    n = torch.addcmul(bgt, n, a, out=ns[t])
-    h = torch.div(torch.sigmoid(o_p) * c, torch.clamp_min(n, _EPS_N),
-                  out=hs[t])
-    m = m_new
+  steps, counting = _scan_steps(s)
+  with counting:
+    for t in steps:
+      hr = h.to(r.dtype).to(dt) if cast else h
+      pre = pres[t]
+      torch.baddbmm(u[t].view(hh, b, 4 * dh), hr, r2,
+                    out=pre.view(hh, b, 4 * dh))
+      i_p, f_p, z_p, o_p = pre.unbind(2)
+      m_f = m + F.logsigmoid(f_p)
+      m_new = torch.maximum(m_f, i_p)
+      a = torch.exp(m_f - m_new, out=a_s[t])
+      bgt = torch.exp(i_p - m_new)
+      c = torch.addcmul(bgt * torch.tanh(z_p), c, a, out=cs[t])
+      n = torch.addcmul(bgt, n, a, out=ns[t])
+      h = torch.div(torch.sigmoid(o_p) * c, torch.clamp_min(n, _EPS_N),
+                    out=hs[t])
+      m = m_new
   return hs, (c, n, m, h), (pres, a_s, cs, ns)
 
 
@@ -314,22 +339,52 @@ def _slstm_backward(r, hs, pres, a_s, cs, ns, d_hs, d_c, d_n, d_h):
   del i_p, f_p, z_p, o_p, sig_o, n_cl
   dpres = torch.empty_like(pres)
   dc, dn, dh_rec = d_c, d_n, d_h
-  for t in range(s - 1, -1, -1):
-    dh_total = d_hs[t] + dh_rec
-    dpre = dpres[t]                            # (H, B, 4, dh)
-    torch.mul(dh_total, k_o[t], out=dpre[:, :, 3])
-    dc_t = torch.addcmul(dc, dh_total, k_c[t])
-    dn_t = torch.addcmul(dn, dh_total, k_n[t])
-    d_a = torch.addcmul(dc_t * c_prev[t], dn_t, n_prev[t])
-    torch.mul(d_a, k_f[t], out=dpre[:, :, 1])
-    torch.mul(dc_t, k_z[t], out=dpre[:, :, 2])
-    torch.mul(bgt[t], torch.addcmul(dn_t, dc_t, tanh_z[t]),
-              out=dpre[:, :, 0])
-    dh_rec = torch.bmm(dpre.view(hh, b, 4 * dh), rt)
-    dc, dn = dc_t * a_s[t], dn_t * a_s[t]
+  steps, counting = _scan_steps(s)
+  with counting:
+    for t in reversed(steps):
+      dh_total = d_hs[t] + dh_rec
+      dpre = dpres[t]                            # (H, B, 4, dh)
+      torch.mul(dh_total, k_o[t], out=dpre[:, :, 3])
+      dc_t = torch.addcmul(dc, dh_total, k_c[t])
+      dn_t = torch.addcmul(dn, dh_total, k_n[t])
+      d_a = torch.addcmul(dc_t * c_prev[t], dn_t, n_prev[t])
+      torch.mul(d_a, k_f[t], out=dpre[:, :, 1])
+      torch.mul(dc_t, k_z[t], out=dpre[:, :, 2])
+      torch.mul(bgt[t], torch.addcmul(dn_t, dc_t, tanh_z[t]),
+                out=dpre[:, :, 0])
+      dh_rec = torch.bmm(dpre.view(hh, b, 4 * dh), rt)
+      dc, dn = dc_t * a_s[t], dn_t * a_s[t]
   # ONE weight-gradient contraction for the whole sequence.
-  d_r = torch.einsum("shbgv,shbk->hkgv", dpres, h_prev).to(r.dtype)
+  d_r = einsum("shbgv,shbk->hkgv", dpres, h_prev).to(r.dtype)
   return dpres, d_r
+
+
+def _slstm_scan(u: torch.Tensor, r: torch.Tensor):
+  """``SLSTMScan`` on u (S, H, B, 4, dh); on a DTensor u, on each rank's
+  heads and batch rows (the sequence and the widths whole), with its heads'
+  slice of r (H, dh, 4, dh) made whole, whose gradient is then partial.
+  Returns (hs (S, H, B, dh), c, n, m, h (H, B, dh))."""
+  if not isinstance(u, DTensor):
+    return SLSTMScan.apply(u, r)
+  mesh = u.device_mesh
+  want = _local.keep_placements(u, (1, 2))
+  u = _local.to_placements(u, want)
+  r = _local.to_placements(r, (Replicate(),) * mesh.ndim)
+  lo, hi = _local.shard_range(u, 1)
+  grad_r = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in want)
+  outs = SLSTMScan.apply(u.to_local(),
+                         r.to_local(grad_placements=grad_r)[lo:hi])
+  s, h, b, _, dh = u.shape
+  state_pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                   for p in want)
+  wrapped = [DTensor.from_local(outs[0], mesh, want,
+                                shape=torch.Size((s, h, b, dh)),
+                                stride=(h * b * dh, b * dh, dh, 1))]
+  wrapped += [DTensor.from_local(t, mesh, state_pl,
+                                 shape=torch.Size((h, b, dh)),
+                                 stride=(b * dh, dh, 1)) for t in outs[1:]]
+  return tuple(wrapped)
 
 
 def slstm_apply_seq(p: Params, x: torch.Tensor, cfg, *,
@@ -341,11 +396,11 @@ def slstm_apply_seq(p: Params, x: torch.Tensor, cfg, *,
   x's dtype before ``w_out``."""
   w = p["w"]
   f32 = torch.float32
-  xw = torch.einsum("bsd,dghk->shbgk", x.to(w.dtype).to(f32), w.to(f32))
+  xw = einsum("bsd,dghk->shbgk", x.to(w.dtype).to(f32), w.to(f32))
   u = (xw + p["b"].transpose(0, 1)[:, None]).contiguous()  # (S, H, B, 4, dh)
   with record_function("repro_slstm_scan"):
-    hs, c, n, m, h = SLSTMScan.apply(u, p["r"])
-  y = torch.einsum("shbk,hkd->bsd", hs.to(x.dtype), p["w_out"])
+    hs, c, n, m, h = _slstm_scan(u, p["r"])
+  y = einsum("shbk,hkd->bsd", hs.to(x.dtype), p["w_out"])
   if not return_state:
     return y
   return y, {name: t.transpose(0, 1) for name, t in
@@ -358,12 +413,12 @@ def slstm_apply_decode(p: Params, x: torch.Tensor, state: Params, cfg):
   state)."""
   w, r = p["w"], p["r"]
   f32 = torch.float32
-  xw = torch.einsum("bd,dghk->bghk", x.to(w.dtype).to(f32), w.to(f32))
-  rec = torch.einsum("bhk,hkgv->bghv", state["h"].to(r.dtype).to(f32),
+  xw = einsum("bd,dghk->bghk", x.to(w.dtype).to(f32), w.to(f32))
+  rec = einsum("bhk,hkgv->bghv", state["h"].to(r.dtype).to(f32),
                      r.to(f32))
   pre = xw + rec + p["b"]
   i_p, f_p, z_p, o_p = pre.unbind(1)
-  m_f = state["m"] + F.logsigmoid(f_p)
+  m_f = state["m"] + _local.elementwise(F.logsigmoid, f_p)
   m_new = torch.maximum(m_f, i_p)
   a = torch.exp(m_f - m_new)
   bgt = torch.exp(i_p - m_new)
@@ -371,6 +426,6 @@ def slstm_apply_decode(p: Params, x: torch.Tensor, state: Params, cfg):
   n = state["n"] * a + bgt
   hid = torch.sigmoid(o_p) * c / torch.clamp_min(n, _EPS_N)
   for name, t in (("c", c), ("n", n), ("m", m_new), ("h", hid)):
-    state[name].copy_(t)
-  y = torch.einsum("bhk,hkd->bd", hid.to(x.dtype), p["w_out"])
+    assign(state[name], t)
+  y = einsum("bhk,hkd->bd", hid.to(x.dtype), p["w_out"])
   return y, state

@@ -51,10 +51,8 @@ def init(cfg: AdamWConfig, params: dict) -> dict:
   mdt = getattr(torch, cfg.moment_dtype)
   state = {
       "step": torch.zeros((), dtype=torch.int32, device=_device(params)),
-      "m": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
-            for n, p in params.items()},
-      "v": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
-            for n, p in params.items()},
+      "m": {n: torch.zeros_like(p, dtype=mdt) for n, p in params.items()},
+      "v": {n: torch.zeros_like(p, dtype=mdt) for n, p in params.items()},
   }
   if cfg.quantile_clip > 0:
     state["norm_history"] = torch.full(

@@ -62,6 +62,10 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import repro_torch.serving.bucketing, repro_torch.serving.admission\n"
       "import repro_torch.serving.aot_cache, repro_torch.serving.engine\n"
       "import repro_torch.serving, repro_torch.kernels.segment_vjp\n"
+      "import repro_torch.launch.mesh, repro_torch.launch.shapes\n"
+      "import repro_torch.launch.dryrun, repro_torch.sharding.specs\n"
+      "import repro_torch.sharding.local, repro_torch.analysis.roofline\n"
+      "import repro_torch.analysis.cost, repro_torch.analysis.report\n"
       "bad = sorted(m for m in sys.modules\n"
       "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
       "print(bad)\n"

@@ -197,8 +197,3 @@ def test_ef_int8_roundtrip_matches_reference():
   # The residual is what the int8 grid lost: g + r = dec + new r.
   assert float(res["w"].abs().max()) <= float(
       (as_torch(g_np["w"]).abs().max() + 1) / 127)
-
-
-def test_pod_psum_int8_is_not_ported():
-  with pytest.raises(NotImplementedError, match="sharding"):
-    compression.pod_psum_int8(torch.zeros(3), None, None)
