@@ -28,7 +28,11 @@ llava-next-mistral-7b (the vision frontend: 576 patch embeddings before
 the tokens, the kernel at head width 128 with G = 4) served, with a check
 of its trainer at 4 of 32 layers, and musicgen-large (the audio frontend:
 frame embeddings in, four codebook heads out, the kernel at head width 64
-with G = 1) served at the steps' level and trained.  Phases, each printing
+with G = 1) served at the steps' level and trained.  Beside them, every
+smoke config of the reference (f32, head widths 16 and (24, 16)) served
+and trained a step against the CPU, and the reference's four example
+programs run on the card, on the CUDA-core attention kernel for f32 and
+unbuilt widths.  Phases, each printing
 its own lines; any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit.
@@ -82,8 +86,19 @@ its own lines; any failure raises and the script exits non-zero:
             (``OPTION_ATTN_CASES``: a soft-cap of 30 with q scaled by 10 so
             that it binds, a query offset with Sq < Skv, a window without
             ``causal``, all three with a ragged Sq), forward and backward
-            under autograd by the two error models; a width not built,
-            (96, 96), raises with no launch.
+            under autograd by the two error models.  The CUDA-core kernel
+            ``flash_attention_simt`` (f32, any width; ``SIMT_ATTN_CASES``)
+            against the plain version: f32 at the smoke configs' (2, 48,
+            4, 16) G 2, causal and under their window of 32, MLA's smoke
+            widths (24, 16), the MoE example's (8, 64, 4, 32) G 2, the
+            robust LM example's --full (8, 128, 12, 64) G 3, a soft-cap of
+            30, a query offset and a window without ``causal``, by the f32
+            error model; bf16 at (96, 96), which the tensor-core kernel is
+            not built for, causal and not, by the bf16 model; its backward
+            at one f32 shape by the backward's model.  The route: bf16 at
+            each built width launches the tensor-core kernel alone, f32 at
+            (64, 64) the CUDA-core kernel alone, (264, 264) and (20, 20)
+            raise with no launch of either.
 4. main     fwd+bwd of soft_rank / soft_sort (l2, kl) and
             soft_spearman_loss at (128, 1000) and (128, 10000) (eps 0.1),
             and soft_trimmed_token_loss on 2**20 token losses (trim 0.1,
@@ -238,7 +253,9 @@ its own lines; any failure raises and the script exits non-zero:
             against the built-in plan's cuda backward rule; the attention
             kernel with each option (soft-cap 30, a query offset, a window
             without ``causal``) beside the same shape without it, at the
-            llama, grok and gemma prefills.
+            llama, grok and gemma prefills; the CUDA-core kernel at the
+            smoke and example shapes beside its plain version and SDPA on
+            the same inputs (its backend named).
    fig4     (the deepseek server's model freed) Figure 4 (right) of the
             paper: ``soft_rank`` (l2, kl, eps 0.1) against the O(n^2)
             baselines of ``core/baselines.py``, all-pairs (tau 0.1) and OT
@@ -250,6 +267,25 @@ its own lines; any failure raises and the script exits non-zero:
             each baseline on the card against the CPU at (8, 100), and
             OT (eps 1e-3, 400 iterations) and all-pairs (tau 1e-3) within
             0.05 and 1e-3 of the hard ranks.
+   smoke    (after Figure 4) fault F4's check: every config of
+            ``all_smoke_configs()`` (f32, head width 16, MLA (24, 16))
+            built on the CPU from seed 0 and carried to the card; on both
+            a prefill of 2 x 16, 4 decode steps and one trimmed train step
+            (trim 0.1): logits, loss, gradients and updated parameters
+            within c * (1 + max|cpu|) (``SMOKE_C_*``: c from each model's
+            measured amplification of one f32 rounding), launches a
+            prefill, decode step and train step as counted from the code;
+            TF32 off for products and cuDNN.
+   examples (while phase 3's CPU workers finish, the deepseek server's
+            model still held) the four example programs on the card
+            through their ``main``: quickstart (held to its CPU run
+            within 1e-5 * (1 + max|cpu|)), label ranking at its defaults
+            (rho with and without the projection), robust LM training
+            ``--full --steps 300`` (clean-token loss, baseline and
+            soft-LTS) and the MoE router at its defaults (each router's
+            loss and expert-load CV, the sampled tokens); wall seconds,
+            steps/s, peak memory, and every kernel's launches, held to the
+            counts from the code.
 6. train    the servers' models freed, ``repro_torch.launch.train``'s
             ``main`` on each of ``TRAIN_RUNS``, one after the other:
             deepseek-v2-lite-16b at full width and 4 of 27 layers (the
@@ -317,7 +353,9 @@ mesh        the sharded main path on a one-rank NCCL group: meshes (1, 1)
             ``local``; llava's (128, 128) at G 4 and musicgen's (64, 64) at
             G 1 at their prefills, with their train launches; the gates'
             grok shapes under ``shapes``; the mesh phase's launches under
-            ``mesh_launches``), then the device line last.
+            ``mesh_launches``; ``flash_attention_simt`` with its launches
+            by example program and smoke config and its rows by shape),
+            then the device line last.
 
 Inputs come from numpy with a fixed seed.  Imports nothing of JAX or of the
 JAX package.
@@ -372,7 +410,9 @@ BYTES_PER_ELEM = {"pav_l2": 8, "pav_kl": 12}
 REPLACES = {"pav_l2": "src/repro/kernels/pav.py:196",
             "pav_kl": "src/repro/kernels/pav.py:213",
             "soft_topk_gates": "src/repro/kernels/soft_topk.py:109",
-            "flash_attention": "src/repro/kernels/flash_attention.py:83"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:83",
+            "flash_attention_simt":
+                "src/repro/kernels/flash_attention.py:83"}
 # Names of each PAV kernel's CUDA kernels as the profiler shows them: the
 # four kernels of each instantiation of csrc/pav_scan.cu carry its algebra
 # in their template names.
@@ -381,7 +421,9 @@ SOURCES = {"pav_l2": "src/repro_torch/kernels/csrc/pav_scan.cu",
            "pav_kl": "src/repro_torch/kernels/csrc/pav_scan.cu",
            "soft_topk_gates": "src/repro_torch/kernels/csrc/soft_topk.cu",
            "flash_attention":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_simt":
+               "src/repro_torch/kernels/csrc/flash_attention_simt.cu"}
 # The LM serving path: full config, 8 prompts of 512 tokens, 32 tokens out.
 ARCH = "deepseek-v2-lite-16b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
@@ -787,7 +829,8 @@ def engine_run_checks(name, rt, dev, engine, requests, results, cells,
     check(launches[kname] == want,
           f"engine {name}: {kname} {launches[kname]} launches for "
           f"{batches[reg]} batches + {cells_by[reg]} warm-up cells")
-  for kname in ("soft_topk_gates", "flash_attention"):
+  for kname in ("soft_topk_gates", "flash_attention",
+                "flash_attention_simt"):
     check(launches[kname] == 0,
           f"engine {name}: {kname} {launches[kname]} launches")
   say(f"engine: {name}: launches {launches} = executed batches {batches} + "
@@ -1352,19 +1395,6 @@ def serve_kernel_checks(rng, dev, st, fa, record, max_err) -> None:
           f"{hkv}) (G {h // hkv}) causal {causal} window {window}: "
           f"{attn_text(cmp, fa)}{same}")
   attn_option_checks(dev, fa, max_err)
-  # A width that is not built raises before any launch: no plain fallback.
-  x = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16, device=dev)
-  before = fa.LAUNCHES["flash_attention"]
-  try:
-    fa.flash_attention(x, x, x)
-  except ValueError as err:
-    refused = str(err)
-  else:
-    refused = None
-  check(refused is not None and fa.LAUNCHES["flash_attention"] == before,
-        "flash_attention at (D, Dv) = (96, 96) did not raise")
-  say(f"kernels: flash_attention at (D, Dv) = (96, 96) on the card raises "
-      f"ValueError with no launch: {refused}")
 
 
 def attn_option_checks(dev, fa, max_err) -> None:
@@ -1695,6 +1725,8 @@ def serve_path(dev, serve, ops, st, fa):
         f"{n_layers} x {1 + steps} calls")
   check(launches["pav_l2"] == launches["pav_kl"] == 0,
         "a PAV kernel ran on the serving path")
+  check(launches["flash_attention_simt"] == 0,
+        "the CUDA-core attention kernel ran on the bf16 serving path")
   params = T.count_params(res["model"])
   check(abs(params - 16.21e9) < 0.01e9, f"{params} parameters")
   for name in ("prefill_logits", "logits"):
@@ -2196,7 +2228,7 @@ def dense_serve_path(dev, serve, ops, st, fa):
          cfg.head_dim, cfg.tie_embeddings) == DENSE_SHAPE,
         f"{DENSE_ARCH} config {cfg}")
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": n_layers}
+          "flash_attention": n_layers, "flash_attention_simt": 0}
   check(launches == want and len(rec.attn) == n_layers and not rec.gates,
         f"{DENSE_ARCH} serve launches {launches}, counted from the code "
         f"{want}")
@@ -2296,7 +2328,7 @@ def grok_serve_path(dev, serve, ops, st, fa):
         and cfg.router == "soft_topk" and cfg.router_eps == 1.0,
         f"{GROK_ARCH} config {cfg}")
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": n_layers * SERVE_GEN,
-          "flash_attention": n_layers}
+          "flash_attention": n_layers, "flash_attention_simt": 0}
   order = ["attn", "gates"] * n_layers + ["gates"] * (n_layers * steps)
   check(launches == want and rec.order == order,
         f"{GROK_ARCH} serve launches {launches}, counted from the code {want}"
@@ -2638,7 +2670,7 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
   windows = [cfg.window_size if kind == "local" else 0 for kind in kinds
              if T.MIXERS[kind] == "attn"]
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": len(windows)}
+          "flash_attention": len(windows), "flash_attention_simt": 0}
   check(launches == want and [w for w, _, _ in rec.held] == windows
         and not rec.gates,
         f"{arch} serve launches {launches}, windows "
@@ -2836,7 +2868,7 @@ def audio_serve_path(dev, ops, st, fa):
   launches = ops.all_launches()
   serve_peak = torch.cuda.max_memory_allocated(dev)
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": cfg.num_layers}
+          "flash_attention": cfg.num_layers, "flash_attention_simt": 0}
   check(launches == want and len(rec.held) == cfg.num_layers
         and not rec.gates, f"{MUSICGEN_ARCH} launches {launches}, counted "
         f"from the code {want}")
@@ -3082,7 +3114,8 @@ def train_launches_per_step(cfg) -> dict[str, int]:
             if cfg.router == "soft_topk" else 0)
   trim = cfg.grad_accum if cfg.loss_trim_fraction > 0 else 0
   return {"pav_l2": passes * routed + trim, "pav_kl": 0,
-          "soft_topk_gates": 0, "flash_attention": passes * n_attn}
+          "soft_topk_gates": 0, "flash_attention": passes * n_attn,
+          "flash_attention_simt": 0}
 
 
 class TrainRecorder:
@@ -3846,10 +3879,11 @@ def mesh_serve(dev, mesh2, kops, name_limit) -> tuple[list[str], dict]:
   logits, _, times, counts, launches, peak = run(True, toks)
   n = cfg.num_layers
   check(counts[0] == {**counts[0], "flash_attention": n,
-                      "soft_topk_gates": n},
+                      "soft_topk_gates": n, "flash_attention_simt": 0},
         f"mesh prefill launches {counts[0]}")
   check(launches == {**launches, "flash_attention": n,
-                     "soft_topk_gates": n * (1 + MESH_SERVE_STEPS)},
+                     "soft_topk_gates": n * (1 + MESH_SERVE_STEPS),
+                     "flash_attention_simt": 0},
         f"mesh serve launches {launches}")
   differ = [i for i, (a, b) in enumerate(zip(logits, ref_logits))
             if not torch.equal(a, b)]
@@ -3918,11 +3952,554 @@ def mesh_phase(dev, kops, name_limit) -> tuple[list[str], dict]:
                  f"{ARCH} serve": serve_counts}
 
 
+# ---------------------------------------------------------------------------
+# The CUDA-core attention kernel (f32, any width), every smoke config on the
+# card, and the example programs.
+# ---------------------------------------------------------------------------
+
+SIMT = "flash_attention_simt"
+F32, BF16 = torch.float32, torch.bfloat16
+# Phase 3's cases of the CUDA-core kernel: (what, B, Sq, Skv, H, Hkv, D, Dv,
+# dtype, causal, window, softcap, q_offset).  The smoke configs' attention
+# (2 x 48 positions, G 2, causal and under their window of 32), MLA's
+# smoke widths (24, 16), the MoE example's (32, 32) at G 2, the robust LM
+# example's --full layers (64, 64) at G 3, bf16 at (96, 96), which the
+# tensor-core kernel is not built for (G 4, a ragged S, causal and not),
+# and at one f32 shape the options: a soft-cap of 30 (q x HOT_Q), queries
+# that continue a cache, a window without ``causal``.
+SIMT_ATTN_CASES = (
+    ("smoke configs", 2, 48, 48, 4, 2, 16, 16, F32, True, 0, 0.0, 0),
+    ("smoke configs, window", 2, 48, 48, 4, 2, 16, 16, F32, True, 32, 0.0,
+     0),
+    ("MLA smoke widths", 2, 48, 48, 4, 4, 24, 16, F32, True, 0, 0.0, 0),
+    ("MoE example", 8, 64, 64, 4, 2, 32, 32, F32, True, 0, 0.0, 0),
+    ("robust LM --full", 8, 128, 128, 12, 4, 64, 64, F32, True, 0, 0.0, 0),
+    ("bf16 unbuilt width", 1, 333, 333, 4, 1, 96, 96, BF16, True, 0, 0.0, 0),
+    ("bf16 unbuilt width", 1, 333, 333, 4, 1, 96, 96, BF16, False, 0, 0.0,
+     0),
+    ("soft-cap", 2, 128, 128, 12, 4, 64, 64, F32, True, 0, 30.0, 0),
+    ("query offset", 2, 64, 192, 12, 4, 64, 64, F32, True, 0, 0.0, 128),
+    ("window without causal", 2, 128, 128, 12, 4, 64, 64, F32, False, 40,
+     0.0, 0),
+)
+# The backward's f32 case (B, S, H, Hkv, D): the robust LM example's
+# layers at 2 sequences.
+SIMT_BWD_CASE = (2, 128, 12, 4, 64)
+# Phase 5's shapes: the non-option cases above.
+SIMT_TIME_CASES = tuple(c for c in SIMT_ATTN_CASES
+                        if c[11] == 0.0 and c[12] == 0 and c[9])
+
+
+def simt_inputs(dev, b, sq, skv, h, hkv, d, dv, dtype, softcap=0.0,
+                seed=0):
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  q = torch.randn((b, sq, h, d), generator=gen, device=dev, dtype=dtype)
+  q = q * HOT_Q if softcap else q
+  k = torch.randn((b, skv, hkv, d), generator=gen, device=dev, dtype=dtype)
+  v = torch.randn((b, skv, hkv, dv), generator=gen, device=dev, dtype=dtype)
+  return q, k, v
+
+
+def simt_text(cmp: dict, diff: str = "kernel - plain in f32") -> str:
+  model = ("f32 model" if cmp["rel_frob_limit"] < 2.0**-10
+           else "bf16 model, tol = 2**-7 * (|ref| + A)")
+  return (f"max |{diff}| {cmp['max_abs_err']:.3e}, worst |err| / tol "
+          f"{cmp['tol_ratio']:.4f} (limit 1; {model}), relative Frobenius "
+          f"error {cmp['rel_frob']:.3e} (limit {cmp['rel_frob_limit']:.3e}),"
+          f" median |ref| {cmp['median_ref']:.3e}")
+
+
+def launch_delta(kops, before: dict) -> dict:
+  return {k: v - before.get(k, 0) for k, v in kops.all_launches().items()
+          if v != before.get(k, 0)}
+
+
+def simt_kernel_checks(dev, fa, kops, max_err) -> None:
+  """Phase 3: the CUDA-core kernel against the plain version on the card
+  (``SIMT_ATTN_CASES``, by the error model of the output's dtype), its
+  backward at one f32 shape by the backward's model, and the route: bf16
+  at each built width launches the tensor-core kernel alone, f32 at (64,
+  64) the CUDA-core kernel alone, (264, 264) and (20, 20) raise with no
+  launch of either."""
+  for (what, b, sq, skv, h, hkv, d, dv, dtype, causal, window, softcap,
+       q_offset) in SIMT_ATTN_CASES:
+    q, k, v = simt_inputs(dev, b, sq, skv, h, hkv, d, dv, dtype, softcap,
+                          seed=sq + skv + d + window + q_offset)
+    opts = dict(window=window, softcap=softcap, q_offset=q_offset)
+    before = kops.all_launches()
+    out = fa.flash_attention(q, k, v, causal, **opts)
+    torch.cuda.synchronize()
+    delta = launch_delta(kops, before)
+    check(delta == {SIMT: 1}, f"{SIMT} {what}: launches {delta}")
+    check(out.dtype == dtype, f"{SIMT} {what}: output {out.dtype}")
+    cmp = fa.compare_with_plain(out, q, k, v, causal or window > 0, **opts)
+    check(cmp["finite"] and cmp["tol_ratio"] <= 1.0
+          and cmp["rel_frob"] <= cmp["rel_frob_limit"],
+          f"{SIMT} {what}: {simt_text(cmp)}")
+    max_err[SIMT] = max(max_err.get(SIMT, 0.0), cmp["max_abs_err"])
+    say(f"kernels: {SIMT} {what}: q ({b}, {sq}, {h}, {d}) kv ({skv}, {hkv}) "
+        f"Dv {dv} (G {h // hkv}) {str(dtype)[6:]} causal {causal} window "
+        f"{window} softcap {softcap} q_offset {q_offset}, one launch: "
+        f"{simt_text(cmp)}")
+  b, s, h, hkv, d = SIMT_BWD_CASE
+  xs = [t.requires_grad_(True)
+        for t in simt_inputs(dev, b, s, s, h, hkv, d, d, F32, seed=7)]
+  out = fa.flash_attention(*xs, True)
+  do = torch.randn(out.shape, generator=torch.Generator(
+      device=dev).manual_seed(8), device=dev)
+  grads = torch.autograd.grad(out, xs, do)
+  texts = []
+  for name, c in fa.compare_bwd_with_plain(
+      grads, *(t.detach() for t in xs), do, True).items():
+    check(c["finite"] and c["tol_ratio"] <= 1.0
+          and c["rel_frob"] <= fa.REL_FROB_LIMIT,
+          f"{SIMT} backward {name}: {c}")
+    texts.append(f"{name} max |err| {c['max_abs_err']:.3e}, |err| / tol "
+                 f"{c['tol_ratio']:.5f}, relative Frobenius "
+                 f"{c['rel_frob']:.3e}")
+  say(f"kernels: {SIMT} f32 q ({b}, {s}, {h}, {d}) G {h // hkv} under "
+      "autograd, flash_attention_bwd against the plain version's autograd "
+      "by the backward's error model: " + "; ".join(texts))
+  routed = []
+  for d, dv in fa.KERNEL_WIDTHS:
+    hkv = 4 if d != dv else 2
+    q, k, v = simt_inputs(dev, 1, 64, 64, 4, hkv, d, dv, BF16, seed=d)
+    before = kops.all_launches()
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    delta = launch_delta(kops, before)
+    check(delta == {"flash_attention": 1},
+          f"bf16 ({d}, {dv}): launches {delta}, not the tensor-core kernel "
+          "alone")
+    routed.append(f"bf16 ({d}, {dv}) -> flash_attention")
+  q, k, v = simt_inputs(dev, 1, 64, 64, 4, 2, 64, 64, F32, seed=64)
+  before = kops.all_launches()
+  fa.flash_attention(q, k, v)
+  torch.cuda.synchronize()
+  delta = launch_delta(kops, before)
+  check(delta == {SIMT: 1}, f"f32 (64, 64): launches {delta}")
+  routed.append(f"f32 (64, 64) -> {SIMT}")
+  for width in (264, 20):
+    for dtype in (F32, BF16):
+      x = torch.zeros((1, 8, 4, width), dtype=dtype, device=dev)
+      before = kops.all_launches()
+      try:
+        fa.flash_attention(x, x, x)
+      except ValueError:
+        refused = True
+      else:
+        refused = False
+      check(refused and not launch_delta(kops, before),
+            f"{str(dtype)[6:]} ({width}, {width}) did not raise before a "
+            "launch")
+      routed.append(f"{str(dtype)[6:]} ({width}, {width}) raises ValueError"
+                    " with no launch")
+  say("kernels: attention route on the card: " + "; ".join(routed))
+
+
+def simt_bound(q, k, v, causal: bool, window: int = 0, softcap: float = 0.0,
+               q_offset: int = 0) -> tuple[float, str]:
+  """Least time for the CUDA-core kernel: bytes (q, k, v read once, out
+  written once, in their dtype) against its f32 operations at the f32 rate
+  outside the tensor cores: 2 (D + Dv) FLOPs a computed (query, key) pair
+  (the products, as FFMA) plus 5 a score for the softmax (2 more under a
+  soft-cap)."""
+  from repro_torch.kernels.flash_attention import attention_pairs
+  b, sq, h, d = q.shape
+  skv, dv = k.shape[1], v.shape[-1]
+  pairs = b * h * attention_pairs(sq, skv, causal, window, q_offset)
+  n_bytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * (
+      q.element_size())
+  ops = pairs * (2 * (d + dv) + 5 + (2 if softcap > 0 else 0))
+  bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+  ops_ms = ops / F32_OPS_PER_S * 1e3
+  return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def simt_times(dev, fa, name_limit) -> tuple[list[dict], list[str]]:
+  """Phase 5: the CUDA-core kernel at each shape of ``SIMT_TIME_CASES``:
+  CUDA-event median and the profiler's device time of its kernel, the
+  plain version, scaled_dot_product_attention on the same inputs
+  (``enable_gqa``; under a window a boolean band mask; its backend, which
+  for f32 cannot be flash or cuDNN, named from its longest kernel), and
+  the bound."""
+  rows, lines = [], []
+  for (what, b, sq, skv, h, hkv, d, dv, dtype, causal, window, _,
+       _) in SIMT_TIME_CASES:
+    q, k, v = simt_inputs(dev, b, sq, skv, h, hkv, d, dv, dtype, seed=sq)
+    call = lambda: fa.flash_attention(q, k, v, causal, window=window)  # noqa
+    ms = median_ms(call, 50, warmup=3)
+    dev_ms = kernel_device_ms(call, "attention_simt_kernel", 50)
+    plain_ms = median_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window), 10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = band_mask(q, k, window)
+
+    def sdpa():
+      torch.nn.functional.scaled_dot_product_attention(
+          qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+          enable_gqa=h != hkv)
+
+    lib_ms = median_ms(sdpa, 50, warmup=3)
+    lib_dev_ms = kernel_device_ms(sdpa, "", 50)
+    backend = sdpa_backend(sdpa)
+    bound_ms, bound_by = simt_bound(q, k, v, causal, window)
+    rows.append({"what": what, "shape": list(q.shape),
+                 "kv_shape": list(k.shape), "width": [d, dv],
+                 "dtype": str(dtype)[6:], "causal": causal,
+                 "window": window, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "library_device_ms": lib_dev_ms,
+                 "library_backend": backend, "bound_ms": bound_ms,
+                 "bound_by": bound_by})
+    lines.append(
+        f"times: {SIMT} {what} q {tuple(q.shape)} kv {tuple(k.shape)} Dv {dv}"
+        f" {str(dtype)[6:]} {'window ' + str(window) if window else 'causal'}"
+        f": kernel {ms:.4f} ms (device {ms_text(dev_ms)} a launch, "
+        f"profiler), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms (device {ms_text(lib_dev_ms)}, profiler; backend "
+        f"{backend}), bound {bound_ms:.6f} ms ({bound_by}), "
+        f"{share(bound_ms, dev_ms)} of the kernel's device time "
+        f"[{name_limit}]")
+  return rows, lines
+
+
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_DECODE = 2, 16, 4
+SMOKE_TRIM = 0.1
+# The smoke phase's tolerance, c * (1 + max|cpu|), c per config: the card
+# and the CPU run the same f32 model with other summation orders (cuBLAS
+# and the CUDA-core attention kernel against the CPU's products and the
+# plain version), so each output is off the exact one by the model's
+# amplification of f32 roundings.  That amplification is measured on the
+# CPU: the same prefill with the embedding (or the input frames) moved by
+# one rounding (a factor 1 +- 2**-24 an element), its largest logit change
+# over 1 + max|logit| is s.  Every layer adds roundings of that size at a
+# few points (products, norms, softmax), each amplified at most as much as
+# the input's: c = max(SMOKE_C_MIN, SMOKE_C_AMP * s), SMOKE_C_MIN the
+# reference's cross-backend contract.  A random-weight smoke model can be
+# chaotic (xlstm's scans amplify 10^4-fold): s carries that.  The updated
+# parameters add 2 * lr: AdamW's first update of an element is lr * g /
+# (|g| + eps) (plus the decay), at most lr in size, so a gradient that
+# differs in the last bits where |g| is near eps moves it by up to 2 lr.
+SMOKE_C_MIN = 1e-5
+SMOKE_C_AMP = 16.0
+
+
+def smoke_batch(cfg, rng) -> tuple[dict, np.ndarray]:
+  """(the prefill's and train step's batch as numpy, from the pipeline at
+  seed 0 with 10% of the targets corrupted: 2 prompts of 16 tokens, after
+  the 8 patches for vision, or 16 frames for audio; the 4 decode inputs,
+  token ids or frames, from ``rng``)."""
+  from repro_torch.data.pipeline import pipeline_for_arch
+
+  seq = SMOKE_PROMPT + (cfg.num_patches if cfg.frontend == "vision" else 0)
+  batch = pipeline_for_arch(cfg, SMOKE_BATCH, seq, seed=SEED,
+                            corrupt_fraction=0.1).batch_at(0)
+  batch.pop("corrupt_mask")
+  if cfg.frontend == "audio":
+    decode = rng.standard_normal((SMOKE_DECODE, SMOKE_BATCH, cfg.d_model),
+                                 dtype=np.float32)
+  else:
+    decode = rng.integers(0, cfg.vocab_size, (SMOKE_DECODE, SMOKE_BATCH))
+  return batch, decode
+
+
+def on_device(arrays: dict, device) -> dict:
+  return {k: torch.from_numpy(np.asarray(v)).to(
+      device=device, dtype=torch.int64 if np.asarray(v).dtype.kind in "iu"
+      else None) for k, v in arrays.items()}
+
+
+def smoke_run(cfg, model, batch_np, decode_np, kops, device) -> dict:
+  """On ``device``: the prefill, 4 decode steps and one trimmed AdamW train
+  step (trim 0.1, lr the default 3e-4) of ``model``; logits, the
+  gradients of the step's loss, its loss, the updated parameters (on the
+  CPU) and each kernel's launches a prefill, a decode step and a train
+  step, each read after counts set to 0."""
+  import dataclasses
+
+  from repro_torch.launch import steps as ST
+  from repro_torch.optim import adamw
+
+  batch = on_device(batch_np, device)
+  max_len = ST.prefill_length(cfg, batch) + SMOKE_DECODE
+  out = {"launches": {}}
+  kops.reset_all_launches()
+  with torch.no_grad():
+    logits, caches = ST.make_prefill_step(cfg, max_len)(model, batch)
+    out["launches"]["prefill"] = kops.all_launches()
+    seen = [logits]
+    pos = ST.prefill_length(cfg, batch)
+    decode = ST.make_decode_step(cfg)
+    kops.reset_all_launches()
+    for i in range(SMOKE_DECODE):
+      inp = torch.from_numpy(decode_np[i]).to(
+          device, torch.float32 if cfg.frontend == "audio" else torch.int64)
+      logits, caches = decode(model, caches, inp, pos + i)
+      seen.append(logits)
+    out["launches"]["decode step"] = {
+        k: n // SMOKE_DECODE for k, n in kops.all_launches().items()}
+  out["logits"] = [x.float().cpu() for x in seen]
+  tcfg = dataclasses.replace(cfg, loss_trim_fraction=SMOKE_TRIM)
+  model.requires_grad_(True)
+  params = dict(model.named_parameters())
+  total, _ = ST.loss_from_batch(tcfg, model, batch)
+  out["grads"] = {n: g.cpu() for n, g in zip(
+      params, torch.autograd.grad(total, list(params.values())))}
+  opt_cfg = adamw.AdamWConfig()
+  state = ST.init_opt_state(tcfg, opt_cfg, params)
+  kops.reset_all_launches()
+  _, state, metrics = ST.make_train_step(tcfg, opt_cfg)(model, state, batch)
+  out["launches"]["train step"] = kops.all_launches()
+  out["loss"] = metrics["loss"].detach().float().cpu()
+  out["params"] = {n: p.detach().cpu() for n, p in params.items()}
+  out["lr"] = opt_cfg.lr
+  return out
+
+
+def smoke_launches_from_code(cfg) -> dict[str, dict[str, int]]:
+  """Each kernel's launches a prefill, a decode step and a train step of a
+  smoke config on the card, counted from the code: every GQA or MLA layer
+  launches the CUDA-core attention kernel once a prefill and once a train
+  step's forward (f32; remat "none": no recompute), none a decode step
+  (decode attention is plain ops); every MoE layer with the soft top-k
+  router runs the gates kernel once a prefill and a decode step, and under
+  autograd ``soft_topk_mask``'s ``pav_l2`` once a train step; the soft-LTS
+  loss one more ``pav_l2``."""
+  from repro_torch.models import transformer as T
+
+  n_attn = attention_layers(cfg)
+  routed = (sum(kind in T.MOE_KINDS for kind in cfg.layer_kinds())
+            if cfg.router == "soft_topk" else 0)
+  zero = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
+          "flash_attention": 0, SIMT: 0}
+  return {"prefill": {**zero, "soft_topk_gates": routed, SIMT: n_attn},
+          "decode step": {**zero, "soft_topk_gates": routed},
+          "train step": {**zero, "pav_l2": routed + 1, SIMT: n_attn}}
+
+
+def smoke_sensitivity(cfg, model, batch_np) -> float:
+  """s: the CPU prefill's largest logit change over 1 + max|logit| when the
+  model's input (the embedding table, or the frames) moves by one f32
+  rounding, a factor 1 +- 2**-24 an element (seeded)."""
+  import copy
+
+  from repro_torch.launch import steps as ST
+
+  batch = on_device(batch_np, "cpu")
+  gen = torch.Generator().manual_seed(SEED)
+  bump = lambda x: x * (1 + 2.0**-24 * (2 * torch.randint(  # noqa: E731
+      0, 2, x.shape, generator=gen) - 1).to(x.dtype))
+  moved = copy.deepcopy(model)
+  if cfg.frontend == "audio":
+    batch2 = {**batch, "embeds": bump(batch["embeds"])}
+  else:
+    batch2 = batch
+    with torch.no_grad():
+      moved.embed.table.copy_(bump(moved.embed.table))
+  with torch.no_grad():
+    a, _ = ST.make_prefill_step(cfg)(model, batch)
+    b, _ = ST.make_prefill_step(cfg)(moved, batch2)
+  return float((a - b).abs().max()) / (1 + float(a.abs().max()))
+
+
+def smoke_phase(dev, kops, name_limit) -> tuple[list[str], dict]:
+  """Fault F4's check: every config of ``all_smoke_configs()`` (f32, head
+  width 16, MLA's (24, 16)) built on the CPU from seed 0 and the same
+  weights carried to the card; on both a prefill of 2 prompts of 16
+  tokens, 4 decode steps and one trimmed train step.  The card's logits,
+  loss, gradients and updated parameters held to the CPU's within c * (1 +
+  max|cpu|) (``SMOKE_C_*``), each kernel's launches a prefill, a decode
+  step and a train step equal to the counts from the code, TF32 off for
+  both products and cuDNN's convolutions."""
+  import copy
+
+  from repro_torch.configs.smoke import all_smoke_configs
+  from repro_torch.models import transformer as T
+
+  lines, counts, failed = [], {}, []
+  rng = np.random.default_rng([SEED, 24])
+  cudnn_tf32 = torch.backends.cudnn.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    for cfg in all_smoke_configs():
+      t0 = time.perf_counter()
+      batch_np, decode_np = smoke_batch(cfg, rng)
+      model = T.init_params(cfg, SEED, "cpu")
+      card_model = copy.deepcopy(model).to(dev)
+      s = smoke_sensitivity(cfg, model, batch_np)
+      c = max(SMOKE_C_MIN, SMOKE_C_AMP * s)
+      cpu = smoke_run(cfg, model, batch_np, decode_np, kops, "cpu")
+      card = smoke_run(cfg, card_model, batch_np, decode_np, kops, dev)
+      torch.cuda.synchronize()
+      worst = {}
+
+      def held(what, got, want, c_what):
+        err = float((got.double() - want.double()).abs().max())
+        tol = c_what * (1 + float(want.abs().max()))
+        ratio = err / tol
+        worst[what] = max(worst.get(what, 0.0), ratio)
+        if not (bool(torch.isfinite(got).all()) and err <= tol):
+          failed.append(f"{cfg.name} {what}: |card - cpu| {err:.3e} > "
+                        f"{tol:.3e}")
+
+      for i, (a, b) in enumerate(zip(card["logits"], cpu["logits"])):
+        held("logits", a, b, c)
+      held("loss", card["loss"], cpu["loss"], c)
+      for n in cpu["grads"]:
+        held("gradients", card["grads"][n], cpu["grads"][n], c)
+      for n in cpu["params"]:
+        held("parameters", card["params"][n], cpu["params"][n],
+             c + 2 * cpu["lr"])
+      want = smoke_launches_from_code(cfg)
+      counts[cfg.name] = card["launches"]
+      if card["launches"] != want:
+        failed.append(f"{cfg.name}: launches {card['launches']}, counted "
+                      f"from the code {want}")
+      lines.append(
+          f"smoke: {cfg.name} (f32, head width {cfg.head_dim}"
+          f"{', MLA' if cfg.kv_lora_rank else ''}): card against CPU from "
+          f"seed {SEED}'s weights, prefill {SMOKE_BATCH} x {SMOKE_PROMPT} + "
+          f"{SMOKE_DECODE} decode steps + one train step (trim "
+          f"{SMOKE_TRIM}): worst |card - cpu| / (c (1 + max|cpu|)) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+          + f" (limit 1; c {c:.3e} from s {s:.3e}; parameters c + 2 lr); "
+          f"loss card {float(card['loss']):.7f} cpu {float(cpu['loss']):.7f};"
+          f" launches {card['launches']}; {time.perf_counter() - t0:.1f} s")
+      del card_model
+  finally:
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+  for line in lines:
+    say(line)
+  check(not failed, "smoke: " + "; ".join(failed))
+  return lines, counts
+
+
+# The example programs as the card runs them, with the launches each makes
+# counted from its code (``example_launches``).
+EXAMPLE_RUNS = {
+    "quickstart": [],
+    "label_ranking": [],
+    "robust_lm_training": ["--full", "--steps", "300"],
+    "moe_soft_router": [],
+}
+
+
+def example_launches(name: str, res: dict, mod) -> dict[str, int]:
+  """Each kernel's launches in one run of an example program on the card,
+  counted from its code and what its ``main`` returned: label ranking one
+  ``pav_l2`` a step of the soft Spearman loss (the ablation none); robust
+  LM training one CUDA-core attention launch a layer each training step
+  and each clean-token evaluation, and under the trim one ``pav_l2`` a
+  step; the MoE example a CUDA-core attention launch a layer each training
+  step (both routers), ``pav_l2`` a layer a step for the soft router's
+  training gates, and the gates kernel once for its load CV, once a layer
+  for the generation's prefill and for each of its decode steps (plus the
+  prefill's attention); quickstart one ``pav_l2`` a soft_rank / soft_sort
+  / soft_topk_mask / soft_quantile call (7 l2) and one ``pav_kl`` (the KL
+  rank)."""
+  zero = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
+          "flash_attention": 0, SIMT: 0}
+  if name == "quickstart":
+    return {**zero, "pav_l2": 7, "pav_kl": 1}
+  if name == "label_ranking":
+    return {**zero, "pav_l2": res["steps"]}
+  if name == "robust_lm_training":
+    layers = mod.make_cfg(res["full"], 0.0).num_layers
+    per_run = res["steps"] + len(res["baseline"]["eval_steps"])
+    return {**zero, SIMT: 2 * layers * per_run, "pav_l2": res["steps"]}
+  layers, steps = mod.make_cfg("soft_topk").num_layers, res["steps"]
+  return {**zero, SIMT: 2 * layers * steps + layers,
+          "pav_l2": layers * steps,
+          "soft_topk_gates": 1 + layers * (1 + mod.GENERATE)}
+
+
+def examples_phase(dev, kops, name_limit) -> tuple[list[str], dict]:
+  """The four example programs on the card through their ``main``, with
+  the launch counts set to 0 before each and read after (held to
+  ``example_launches``), wall seconds and peak memory (above what was
+  allocated before the program); quickstart's values held to the same
+  program on the CPU within 1e-5 * (1 + max|cpu|)."""
+  import importlib
+
+  lines, rows = [], {}
+  cudnn_tf32 = torch.backends.cudnn.allow_tf32
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    for name, argv in EXAMPLE_RUNS.items():
+      mod = importlib.import_module(f"repro_torch.examples.{name}")
+      gc.collect()
+      torch.cuda.empty_cache()
+      held = torch.cuda.memory_allocated(dev)
+      torch.cuda.reset_peak_memory_stats(dev)
+      kops.reset_all_launches()
+      t0 = time.perf_counter()
+      res = mod.main(argv + ["--device", "cuda"])
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+      launches = kops.all_launches()
+      peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+      want = example_launches(name, res, mod)
+      check(launches == want, f"{name}: launches {launches}, counted from "
+            f"the code {want}")
+      steps = 2 * res.get("steps", 0)   # two trainings each, or none
+      row = {"wall_s": wall, "peak_gib": peak, "launches": launches,
+             "steps": steps, "steps_per_s": steps / wall if steps else None}
+      if name == "quickstart":
+        cpu = mod.main(["--device", "cpu"])
+        errs = [close(torch.tensor(res[k]), torch.tensor(cpu[k]))
+                for k in cpu if k not in ("seconds", "ranks_shape")]
+        check(res["ranks_shape"] == cpu["ranks_shape"], "quickstart shape")
+        text = (f"every value within 1e-5 * (1 + max|cpu|) of the CPU run "
+                f"(worst |card - cpu| {max(errs):.3e}); soft_rank eps 1 "
+                f"{res['soft_rank_eps1']}, soft median "
+                f"{res['soft_median']:.6f}")
+      elif name == "label_ranking":
+        rho = (res["rho_projection"], res["rho_no_projection"])
+        check(all(0.5 < r <= 1.0 for r in rho), f"label ranking rho {rho}")
+        row.update(rho_projection=rho[0], rho_no_projection=rho[1])
+        text = (f"held-out Spearman rho {rho[0]:.4f} with the projection, "
+                f"{rho[1]:.4f} without")
+      elif name == "robust_lm_training":
+        base, lts = res["baseline"]["clean"][-1], res["soft_lts"]["clean"][-1]
+        check(all(map(math.isfinite, res["baseline"]["train"]
+                      + res["soft_lts"]["train"] + [base, lts])),
+              "robust LM: non-finite losses")
+        row.update(clean_baseline=base, clean_soft_lts=lts,
+                   params=res["params"])
+        text = (f"{res['params']:,} f32 parameters, {res['steps']} steps "
+                f"each: clean-token loss baseline {base:.4f}, soft-LTS "
+                f"{lts:.4f}; final train loss baseline "
+                f"{res['baseline']['train'][-1]:.4f}, soft-LTS "
+                f"{res['soft_lts']['train'][-1]:.4f}")
+      else:
+        for router in ("softmax_topk", "soft_topk"):
+          check(math.isfinite(res[router]["loss"]), f"MoE {router} loss")
+        row.update({r: {"loss": res[r]["loss"], "cv": res[r]["cv"]}
+                    for r in ("softmax_topk", "soft_topk")},
+                   tokens=res["tokens"])
+        text = ("; ".join(f"{r} final loss {res[r]['loss']:.4f} expert-load"
+                          f" CV {res[r]['cv']:.4f}"
+                          for r in ("softmax_topk", "soft_topk"))
+                + f"; sampled tokens {res['tokens'][0]}")
+      rows[name] = row
+      lines.append(f"examples: {name} {' '.join(argv)}: {text}; wall "
+                   f"{wall:.2f} s, {row['steps_per_s'] or 0:.1f} steps/s, "
+                   f"peak {peak:.3f} GiB; launches {launches} [{name_limit}]")
+  finally:
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+  for line in lines:
+    say(line)
+  return lines, rows
+
+
 def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     serve_rows, dense_row, grok_row, grok_gate_rows,
                     full_rows, audio_row, train_launches, train_rows,
                     engine_runs, engine_rows, option_rows,
-                    mesh_launches) -> list[dict]:
+                    mesh_launches, simt_rows, smoke_counts,
+                    example_rows) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
   ``train_launches`` by model).  ``launches`` is each kernel's main path:
@@ -3944,7 +4521,12 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   the kernel with a soft-cap, a query offset and a window without
   ``causal`` beside the same shapes without them.  The gates' top-level
   numbers stay deepseek's (4096, 64); ``shapes`` adds grok's (4096, 8) and
-  (8, 8)."""
+  (8, 8).  The CUDA-core attention kernel's main path is the example
+  programs (``launches``: their sum); ``example_launches`` by program,
+  ``smoke_launches`` by smoke config a prefill, decode step and train step
+  (each read after counts set to 0), the bf16 paths' zeros under
+  ``serve_launches`` and ``train_launches``; its top-level numbers are
+  the robust LM example's --full shape, ``rows`` every shape timed."""
 
   def by_arch(counts: dict, kname: str) -> dict[str, int]:
     return {arch: c[kname] for arch, c in counts.items()}
@@ -4016,6 +4598,20 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
          if k not in ("arch", "train_shape", "train_launches")},
       **paths("flash_attention"), "widths": widths,
       "options": option_rows})
+  head = next(r for r in simt_rows if r["what"] == "robust LM --full")
+  kernels.append({
+      "name": SIMT, "route": "cuda", "source": SOURCES[SIMT],
+      "replaces": REPLACES[SIMT],
+      "launches": sum(r["launches"][SIMT] for r in example_rows.values()),
+      "max_abs_err": max_err[SIMT],
+      **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "shape", "dtype",
+                              "library_backend")},
+      "example_launches": {name: r["launches"][SIMT]
+                           for name, r in example_rows.items()},
+      "smoke_launches": {name: {what: c[SIMT] for what, c in runs.items()}
+                         for name, runs in smoke_counts.items()},
+      **paths(SIMT), "rows": simt_rows})
   return kernels
 
 
@@ -4073,7 +4669,7 @@ def main() -> int:
              "flash_attention 128x128": 0.0, "flash_attention 256x256": 0.0,
              "flash_attention 256x256 G10": 0.0,
              "flash_attention 80x80": 0.0, "flash_attention 128x128 G4": 0.0,
-             "flash_attention 64x64 G1": 0.0}
+             "flash_attention 64x64 G1": 0.0, SIMT: 0.0}
 
   def record(kname, out, ref):
     err = close(out, ref)
@@ -4093,6 +4689,7 @@ def main() -> int:
           f" l2 {errs[0]:.3e} kl {errs[1]:.3e} (tol 1e-5 * (1 + max|plain|))")
 
   serve_kernel_checks(rng, dev, st, fa, record, max_err)
+  simt_kernel_checks(dev, fa, kops, max_err)
 
   # At (128, 10000) and (1, 2**20) the stack machine takes tens of seconds
   # per call: it runs on a CPU copy in worker processes (spawned, so they
@@ -4149,6 +4746,10 @@ def main() -> int:
       max_err[kname] = max(max_err[kname], err)
 
     clock("phase 4, the engine and the deepseek server")
+    # The example programs run on the card while the CPU workers finish
+    # (their peaks are their own, above what the server holds).
+    _, example_rows = examples_phase(dev, kops, name_limit)
+    clock("examples")
     t0 = time.perf_counter()
     for (kname, what, shape, out, fn_name, _), future in zip(jobs, futures):
       ref, seconds = future.result()
@@ -4271,8 +4872,9 @@ def main() -> int:
   from repro_torch.kernels import dispatch
   backward_lines = backward_times(pav, dispatch, dev, engine_rng, name_limit)
   option_lines, option_rows = attn_option_times(dev, fa, name_limit)
+  simt_rows, simt_lines = simt_times(dev, fa, name_limit)
   for line in (lines + serve_lines + engine_lines + backward_lines
-               + option_lines):
+               + option_lines + simt_lines):
     say(line)
 
   clock("phase 5")
@@ -4291,6 +4893,9 @@ def main() -> int:
   for line in fig4_times(rt, dev, name_limit):
     say(line)
   clock("figure 4")
+  # smoke configs and examples (f32: the CUDA-core attention kernel) -----
+  _, smoke_counts = smoke_phase(dev, kops, name_limit)
+  clock("smoke configs")
   dense_res, dense_launches, dense_rec, dense_err = dense_serve_path(
       dev, serve, kops, st, fa)
   for kname, err in dense_err.items():
@@ -4399,7 +5004,9 @@ def main() -> int:
       audio_row=audio_row,
       train_launches=train_launches, train_rows=train_rows,
       engine_runs=engine_runs, engine_rows=engine_rows,
-      option_rows=option_rows, mesh_launches=mesh_launches)
+      option_rows=option_rows, mesh_launches=mesh_launches,
+      simt_rows=simt_rows, smoke_counts=smoke_counts,
+      example_rows=example_rows)
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig, get_config
+from repro_torch.configs.base import ASSIGNED, ArchConfig, get_config
 
 
 def smoke_config(name: str) -> ArchConfig:
@@ -51,3 +51,9 @@ def smoke_config(name: str) -> ArchConfig:
   if cfg.num_patches:
     reductions.update(num_patches=8)
   return dataclasses.replace(cfg, **reductions)
+
+
+def all_smoke_configs() -> list[ArchConfig]:
+  """The smoke variant of each of the reference's ten configs, in its
+  order (``repro.configs.smoke.all_smoke_configs``)."""
+  return [smoke_config(n) for n in ASSIGNED]

@@ -6,7 +6,12 @@ exactly by PAV (a CUDA kernel on the GPU), with O(n) exact Jacobian
 products (no differentiation through solver iterates).
 """
 
-from repro_torch.core.isotonic import isotonic_kl, isotonic_l2
+from repro_torch.core.isotonic import (
+    isotonic_kl,
+    isotonic_l2,
+    set_default_impl,
+    use_impl,
+)
 from repro_torch.core.losses import (
     hard_rank,
     soft_lts_loss,
@@ -27,9 +32,23 @@ from repro_torch.core.operators import (
 )
 from repro_torch.core.permutations import SortContext
 from repro_torch.core.projection import projection_permutahedron
+from repro_torch.plan import (
+    ExecutionPlan,
+    PlanRule,
+    load_plan,
+    set_active_plan,
+    use_plan,
+)
 
 __all__ = [
     "SortContext",
+    "ExecutionPlan",
+    "PlanRule",
+    "load_plan",
+    "set_active_plan",
+    "use_plan",
+    "set_default_impl",
+    "use_impl",
     "isotonic_kl",
     "isotonic_l2",
     "projection_permutahedron",

@@ -17,6 +17,8 @@ the forward output, so the VJP is a couple of batched segment reductions
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.kernels import dispatch as _d
@@ -78,3 +80,21 @@ def isotonic_kl(s: torch.Tensor, w: torch.Tensor, impl: str | None = None,
   batch.  ``plan`` pins an execution plan for the forward and the backward.
   """
   return _IsotonicKL.apply(s, w, impl, plan)
+
+
+# ---------------------------------------------------------------------------
+# Backend selection: thin aliases over the dispatch shims.
+# ---------------------------------------------------------------------------
+
+
+def set_default_impl(impl: str) -> None:
+  """Set the process-wide forward backend (one of ``dispatch.BACKENDS``;
+  ``"auto"`` goes back to the plans)."""
+  _d.set_default_backend(impl)
+
+
+@contextlib.contextmanager
+def use_impl(impl: str):
+  """Select the isotonic solver backend for the scope of a ``with``."""
+  with _d.use_backend(impl):
+    yield

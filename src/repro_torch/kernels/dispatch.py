@@ -56,6 +56,7 @@ counts of calls, not of traces.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable
 
@@ -66,6 +67,12 @@ from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import tracing as _tracing
 
 ExecutionPlan = _plan.ExecutionPlan
+# Re-exported, as the reference does, so that selection tools come from
+# the dispatch choke point.
+use_plan = _plan.use_plan
+set_active_plan = _plan.set_active_plan
+get_active_plan = _plan.get_active_plan
+load_plan = _plan.load_plan
 
 ENV_VAR = "REPRO_TORCH_BACKEND"
 BWD_ENV_VAR = "REPRO_TORCH_BACKWARD"
@@ -230,6 +237,101 @@ def resolve_projection(path: str | None = None,
   platform = "cpu" if device is None else torch.device(device).type
   return _resolve("projection", "projection", regularization, path,
                   platform, dtype, shape, plan)
+
+
+def resolve_backend(op: str, regularization: str,
+                    backend: str | None = None, *,
+                    shape: tuple[int, ...] | None = None,
+                    platform: str | None = None, dtype: str | None = None,
+                    plan: ExecutionPlan | None = None) -> str:
+  """The reference's ``resolve_backend``: a forward backend by platform
+  name (``"cpu"`` when None) rather than by device; see ``resolve``."""
+  return resolve(op, regularization, backend, platform or "cpu",
+                 dtype=dtype or "*", shape=shape, plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# Backend selection shims (the reference's legacy surface): each puts an
+# unconditional rule on the active plan, or takes it off.
+# ---------------------------------------------------------------------------
+
+
+def _unconditional(r: _plan.PlanRule, kind: str) -> bool:
+  return (r.kind == kind and not r.shape_constrained() and r.op == "*"
+          and r.regularization == "*" and r.platform == "*"
+          and r.dtype == "*")
+
+
+def _override_plan(kind: str, backend: str) -> ExecutionPlan:
+  """The active plan with an unconditional ``kind -> backend`` rule put
+  first; ``"auto"`` instead removes every unconditional rule of ``kind``,
+  so the decision falls through to the default plans."""
+  base = _plan.get_active_plan()
+  base_rules = base.rules if base is not None else ()
+  if backend == "auto":
+    rules = tuple(r for r in base_rules if not _unconditional(r, kind))
+  else:
+    rules = (_plan.PlanRule(kind, backend),) + tuple(base_rules)
+  name = f"{base.name if base is not None else 'override'}+{kind}={backend}"
+  return ExecutionPlan(name=name, rules=rules)
+
+
+def _unconditional_choice(kind: str) -> str:
+  """The backend of the active plan's first unconditional rule of
+  ``kind``, or ``"auto"`` when it has none."""
+  base = _plan.get_active_plan()
+  for r in (base.rules if base is not None else ()):
+    if _unconditional(r, kind):
+      return r.backend
+  return "auto"
+
+
+def _checked(kind: str, backend: str) -> str:
+  allowed = _KIND_SPECS[kind][1]
+  if backend not in allowed:
+    raise ValueError(f"{kind} backend must be one of {allowed}, got "
+                     f"{backend!r}")
+  return backend
+
+
+def get_default_backend() -> str:
+  """The active plan's unconditional forward backend, or ``"auto"``."""
+  return _unconditional_choice("forward")
+
+
+def set_default_backend(backend: str) -> None:
+  """Put an unconditional forward rule on the active plan (``"auto"``
+  takes it off)."""
+  _plan.set_active_plan(_override_plan("forward",
+                                       _checked("forward", backend)))
+
+
+@contextlib.contextmanager
+def use_backend(backend: str):
+  """``set_default_backend`` for the scope of a ``with``."""
+  with _plan.use_plan(_override_plan("forward",
+                                     _checked("forward", backend))):
+    yield
+
+
+def get_default_backward() -> str:
+  """The active plan's unconditional backward backend, or ``"auto"``."""
+  return _unconditional_choice("backward")
+
+
+def set_default_backward(backend: str) -> None:
+  """Put an unconditional backward rule on the active plan (``"auto"``
+  takes it off)."""
+  _plan.set_active_plan(_override_plan("backward",
+                                       _checked("backward", backend)))
+
+
+@contextlib.contextmanager
+def use_backward(backend: str):
+  """``set_default_backward`` for the scope of a ``with``."""
+  with _plan.use_plan(_override_plan("backward",
+                                     _checked("backward", backend))):
+    yield
 
 
 def _promote_flat(args: tuple[torch.Tensor, ...], n: int):

@@ -1,4 +1,4 @@
-"""Flash attention: the CUDA forward kernel, its backward, plain versions.
+"""Flash attention: two CUDA forward kernels, the backward, plain versions.
 
 Counterpart of ``repro.kernels.flash_attention`` (the TPU kernel) and of
 the chunked attention in ``repro.models.layers.flash_attention``, in the
@@ -6,16 +6,20 @@ JAX layout: q (B, Sq, H, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv),
 output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
 
 * ``flash_attention``: the one entry point the models call.  On a CUDA
-  tensor, a ``torch.autograd.Function`` whose forward is the hand-written
-  kernel in ``csrc/flash_attention.cu`` (bf16, f32 softmax state, tensor
-  cores, built for the widths in ``KERNEL_WIDTHS``; see the note there) and
-  whose backward is ``flash_attention_bwd``; the kernel takes every
-  option of the reference: the causal mask's sliding window (``window``,
-  the ``local`` layers' attention; a window is causal whatever ``causal``
-  says), the logit soft-cap (``softcap``) and the query offset
-  (``q_offset``); on a CPU tensor, the plain version with every option,
-  differentiated by autograd.  Each kernel launch adds one to
-  ``LAUNCHES["flash_attention"]``.
+  tensor, a ``torch.autograd.Function`` whose forward is one of two
+  hand-written kernels, chosen by ``route`` from (dtype, D, Dv) alone,
+  and whose backward is ``flash_attention_bwd``: bf16 at a width in
+  ``KERNEL_WIDTHS`` runs ``csrc/flash_attention.cu`` (tensor cores, f32
+  softmax state; see the note there); f32, or bf16 at another multiple of
+  8 up to ``SIMT_MAX_WIDTH``, runs ``csrc/flash_attention_simt.cu`` (f32
+  FFMA on the CUDA cores, no TF32); anything else raises before a launch.
+  Both take every option of the reference: the causal mask's sliding
+  window (``window``, the ``local`` layers' attention; a window is causal
+  whatever ``causal`` says), the logit soft-cap (``softcap``) and the
+  query offset (``q_offset``).  On a CPU tensor, the plain version with
+  every option, differentiated by autograd.  Each launch adds one to its
+  kernel's count, ``LAUNCHES["flash_attention"]`` or
+  ``LAUNCHES["flash_attention_simt"]``.
 * ``flash_attention_bwd``: the gradients of q, k and v, as
   FlashAttention-2's backward in PyTorch ops over query and key chunks
   (the reference has no backward kernel: its training attention is the
@@ -30,8 +34,9 @@ output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
   exceeds ``kv_chunk``): fault R4 of the reference (ROADMAP.md), which
   gives a wrong result, not another rounding.
 * ``compare_with_plain`` / ``compare_bwd_with_plain``: the error models of
-  the forward kernel and of the backward, held against the plain version
-  (and its autograd) in f32 on the same inputs, options and all.
+  the forward kernels (bf16 and f32 outputs) and of the backward, held
+  against the plain version (and its autograd) in f32 on the same inputs,
+  options and all.
 """
 
 from __future__ import annotations
@@ -45,8 +50,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.kernels import _build
 from repro_torch.sharding import local as _local
 
-# Launch count of the kernel; only the wrapper below increments it.
-LAUNCHES = {"flash_attention": 0}
+# Launch count of each kernel; only the launch op below increments them.
+LAUNCHES = {"flash_attention": 0, "flash_attention_simt": 0}
 # The devices whose tensors go to the kernel's launch op.  A caller that
 # traces on fake CPU tensors adds "cpu", so that the trace holds the launch
 # as the card runs it (the op's fake implementation gives its shape).
@@ -54,8 +59,11 @@ KERNEL_DEVICES = {"cuda"}
 # (D, Dv) built: the MLA widths (deepseek), the dense GQA head widths of
 # llama3.2-1b and tinyllama-1.1b (64), of grok-1 (128), of gemma3-12b and
 # recurrentgemma-2b (256) and of stablelm-3b (80, run padded to 128 inside
-# the kernel).  Any other width raises on the card.
+# the kernel): the tensor-core kernel's, for bf16.
 KERNEL_WIDTHS = ((192, 128), (64, 64), (128, 128), (256, 256), (80, 80))
+# The CUDA-core kernel takes f32 and bf16 at every D and Dv that are
+# multiples of 8 up to this.
+SIMT_MAX_WIDTH = 256
 # Query rows of one block's tile: a work item takes 128 // G query positions
 # of G heads each (at G = 6, 21 positions, 126 rows), so G is at most 128.
 ROWS_PER_BLOCK = 128
@@ -64,7 +72,25 @@ _NEG_INF = -1e30
 
 
 def reset_launches() -> None:
-  LAUNCHES["flash_attention"] = 0
+  for name in LAUNCHES:
+    LAUNCHES[name] = 0
+
+
+def route(dtype: torch.dtype, d: int, dv: int) -> str:
+  """The kernel a CUDA call runs, by one static rule: ``"wgmma"``
+  (``csrc/flash_attention.cu``) for bf16 at a width in ``KERNEL_WIDTHS``;
+  ``"simt"`` (``csrc/flash_attention_simt.cu``) for f32, or bf16 at any
+  other (D, Dv) of multiples of 8 up to ``SIMT_MAX_WIDTH``; any other
+  dtype or width raises ``ValueError``."""
+  if dtype == torch.bfloat16 and (d, dv) in KERNEL_WIDTHS:
+    return "wgmma"
+  if dtype in (torch.float32, torch.bfloat16) and all(
+      x % 8 == 0 and 8 <= x <= SIMT_MAX_WIDTH for x in (d, dv)):
+    return "simt"
+  raise ValueError(
+      f"flash_attention on the card takes f32 or bf16 with D and Dv "
+      f"multiples of 8 up to {SIMT_MAX_WIDTH}; got {dtype} at (D, Dv) = "
+      f"{(d, dv)}")
 
 
 # ---------------------------------------------------------------------------
@@ -160,15 +186,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           window: int = 0, q_offset: int = 0) -> None:
+def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int = 0, q_offset: int = 0) -> None:
+  """What both kernels need: one device, 4-D contiguous tensors of
+  matching shapes, keys, and a key for every query."""
   for name, t in (("q", q), ("k", k), ("v", v)):
     if t.device != q.device:
       raise ValueError(f"flash_attention: q on {q.device}, {name} on "
                        f"{t.device}")
-    if t.dtype != torch.bfloat16:
-      raise TypeError(f"the flash_attention kernel takes bf16; {name} is "
-                      f"{t.dtype}")
     if t.dim() != 4:
       raise ValueError(f"flash_attention takes 4-D tensors; {name} has "
                        f"shape {tuple(t.shape)}")
@@ -181,12 +206,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                      f"{tuple(k.shape)}, v {tuple(v.shape)} do not match "
                      "(B,Sq,H,D), (B,Skv,Hkv,D), (B,Skv,Hkv,Dv)")
-  if h % hkv or h // hkv > ROWS_PER_BLOCK:
+  if hkv == 0 or h % hkv:
     raise ValueError(f"flash_attention: H = {h} must be a multiple G of "
-                     f"Hkv = {hkv}, with G at most {ROWS_PER_BLOCK}")
-  if (d, dv) not in KERNEL_WIDTHS:
-    raise ValueError(f"flash_attention: (D, Dv) = {(d, dv)} is not built; "
-                     f"the kernel has {KERNEL_WIDTHS}")
+                     f"Hkv = {hkv}")
   if skv == 0:
     raise ValueError("flash_attention: no keys (Skv = 0)")
   if q_offset < 0:
@@ -198,38 +220,81 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      f"{skv} keys")
 
 
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           window: int = 0, q_offset: int = 0) -> None:
+  """The tensor-core kernel's inputs: bf16, a width in ``KERNEL_WIDTHS``,
+  G at most ``ROWS_PER_BLOCK``."""
+  for name, t in (("q", q), ("k", k), ("v", v)):
+    if t.dtype != torch.bfloat16:
+      raise TypeError(f"the flash_attention kernel takes bf16; {name} is "
+                      f"{t.dtype}")
+  _check_layout(q, k, v, window=window, q_offset=q_offset)
+  h, hkv = q.shape[2], k.shape[2]
+  d, dv = q.shape[3], v.shape[3]
+  if h // hkv > ROWS_PER_BLOCK:
+    raise ValueError(f"flash_attention: H = {h} must be a multiple G of "
+                     f"Hkv = {hkv}, with G at most {ROWS_PER_BLOCK}")
+  if (d, dv) not in KERNEL_WIDTHS:
+    raise ValueError(f"flash_attention: (D, Dv) = {(d, dv)} is not built; "
+                     f"the kernel has {KERNEL_WIDTHS}")
+
+
+def _check_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                window: int = 0, q_offset: int = 0) -> None:
+  """The CUDA-core kernel's inputs: one dtype, f32 or bf16, D and Dv
+  multiples of 8 up to ``SIMT_MAX_WIDTH``, any G."""
+  for name, t in (("k", k), ("v", v)):
+    if t.dtype != q.dtype:
+      raise TypeError(f"flash_attention: q is {q.dtype}, {name} is "
+                      f"{t.dtype}")
+  if q.dtype not in (torch.float32, torch.bfloat16):
+    raise TypeError(f"the flash_attention_simt kernel takes f32 or bf16; "
+                    f"q is {q.dtype}")
+  _check_layout(q, k, v, window=window, q_offset=q_offset)
+  d, dv = q.shape[3], v.shape[3]
+  if not all(x % 8 == 0 and 8 <= x <= SIMT_MAX_WIDTH for x in (d, dv)):
+    raise ValueError(f"flash_attention_simt: (D, Dv) = {(d, dv)} must be "
+                     f"multiples of 8 up to {SIMT_MAX_WIDTH}")
+
+
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: int, softcap: float,
             q_offset: int) -> torch.Tensor:
-  """One launch of the forward kernel (``window`` > 0 with ``causal``
-  only, 0: none; ``softcap`` 0: none) on CUDA tensors that ``_check``
-  passes, 16-byte aligned.  Its fake implementation gives the output's
-  shape, with no check: a trace holds the launch at any width."""
+  """One launch of the forward kernel that ``route`` picks (``window`` > 0
+  with ``causal`` only, 0: none; ``softcap`` 0: none) on CUDA tensors that
+  its check passes (the tensor-core kernel's also 16-byte aligned).  Its
+  fake implementation gives the output's shape, with no check: a trace
+  holds the launch at any width, whichever kernel runs it."""
   if q.device.type != "cuda":
     raise ValueError(f"the flash_attention kernel runs on CUDA tensors; got "
                      f"{q.device}")
-  _check(q, k, v, window=window, q_offset=q_offset)
-  for name, t in (("q", q), ("k", k), ("v", v)):
-    if t.data_ptr() % 16:
-      raise ValueError(f"flash_attention takes 16-byte aligned tensors; "
-                       f"{name} is not")
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
-  out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+  if route(q.dtype, d, dv) == "wgmma":
+    _check(q, k, v, window=window, q_offset=q_offset)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+      if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention takes 16-byte aligned tensors; "
+                         f"{name} is not")
+    name, dtype_arg = "flash_attention", []
+  else:
+    _check_simt(q, k, v, window=window, q_offset=q_offset)
+    name, dtype_arg = "flash_attention_simt", [int(q.dtype == torch.bfloat16)]
+  # Each kernel is csrc/<name>.cu with the entry point <name>_launch.
   launch = _build.entry(
-      "flash_attention", "flash_attention_launch",
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+      name, f"{name}_launch",
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * (10 + len(dtype_arg))
       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+  out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
   with _build.on_device(q.device):
     err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-        skv, h, hkv, d, dv, int(causal), int(window), int(q_offset),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dtype_arg,
+        b, sq, skv, h, hkv, d, dv, int(causal), int(window), int(q_offset),
         1.0 / math.sqrt(d), float(softcap), _build.current_stream(q.device))
   if err != 0:
-    raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
-                       f"error {err}")
-  LAUNCHES["flash_attention"] += 1
+    raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+  LAUNCHES[name] += 1
   return out
 
 
@@ -284,11 +349,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0) -> torch.Tensor:
   """Fused attention forward. q: (B,Sq,H,D); k, v: (B,Skv,Hkv,D|Dv).
 
-  A CUDA tensor runs the kernel (bf16 only; ``q_chunk`` and ``kv_chunk``
-  are the plain version's chunking and do not apply; a ``window`` is
-  causal, as in the plain version; every query must see a key),
-  differentiable through ``flash_attention_bwd``; a CPU tensor the plain
-  version; any other device raises.
+  A CUDA tensor runs the kernel ``route`` picks (the tensor-core kernel
+  for bf16 at a built width, the CUDA-core kernel for f32 or another
+  width; ``q_chunk`` and ``kv_chunk`` are the plain version's chunking and
+  do not apply; a ``window`` is causal, as in the plain version; every
+  query must see a key), differentiable through ``flash_attention_bwd``;
+  a CPU tensor the plain version; any other device raises.
   """
   if isinstance(q, DTensor):
     return _on_head_shards(q, k, v, causal=causal, window=window,
@@ -451,22 +517,78 @@ BF16_U = 2.0**-8
 REL_FROB_LIMIT = 2.0**-7
 
 
+# Unit roundoff of f32 (24 significant bits).
+F32_U = 2.0**-24
+# Limit on ||kernel - plain||_F / ||plain||_F for an f32 output: both
+# round independently near a few units of 2**-24 times the scores' size
+# (1e-6 to 1e-5 at the widths and scores the models give); a mask one key
+# off or a mis-scaled tile moves the output by about 1 / (keys seen),
+# far above it.
+F32_REL_FROB_LIMIT = 2.0**-14
+
+
+def _row_terms(q, k, causal: bool, window: int, softcap: float,
+               q_offset: int):
+  """Per query row, in the output's layout (B, Sq, H, 1): sigma, the
+  largest scale * sum_d |q_d k_d| over the keys (an upper bound on every
+  score's size and on its dot product's condition), and n, the keys the
+  row sees."""
+  b, sq, h, d = q.shape
+  skv, hkv = k.shape[1], k.shape[2]
+  kh = k.float().abs().repeat_interleave(h // hkv, dim=2)
+  sigma = torch.einsum("bqhd,bkhd->bqhk", q.float().abs(), kh).amax(-1)
+  sigma = sigma[..., None] / math.sqrt(d)
+  pos = q_offset + torch.arange(sq, device=q.device, dtype=torch.float32)
+  if causal or window > 0:
+    hi = torch.clamp(pos + 1, max=skv)
+    lo = torch.clamp(pos + 1 - window, min=0) if window > 0 else 0.0
+    n = hi - lo
+  else:
+    n = torch.full_like(pos, float(skv))
+  return sigma, n[None, :, None, None]
+
+
 def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, causal: bool, window: int = 0,
                        softcap: float = 0.0,
                        q_offset: int = 0) -> dict[str, float]:
-  """The kernel's output against the plain version in f32 on the same bf16
-  inputs, with the same mask and scores (``window``, ``softcap`` and
-  ``q_offset`` as in ``flash_attention``).
+  """A kernel's output against the plain version in f32 on the same inputs,
+  with the same mask and scores (``window``, ``softcap`` and ``q_offset``
+  as in ``flash_attention``); the model follows the output's dtype.
 
-  The kernel rounds P to bf16 for the P V product and the output to bf16,
-  each a relative error of at most BF16_U; its f32 scores, exponentials and
-  sums (and its f32 tanh under a soft-cap, whose slope is at most 1) add
-  errors near 1e-6.  So element (i, c) is off by at most
-  BF16_U * (|ref_ic| + A_ic), with A = the same attention over |v| (the
-  softmax-weighted mean of |v_jc|).  ``tol_ratio`` is the largest
-  |out - ref| / (2 * BF16_U * (|ref| + A)), at most 1 for a right kernel;
-  ``rel_frob`` is the relative Frobenius error, at most REL_FROB_LIMIT;
+  bf16 output (either kernel on bf16 inputs): the tensor-core kernel
+  rounds P to bf16 for the P V product and the output to bf16, each a
+  relative error of at most BF16_U, and the CUDA-core kernel only the
+  output; the f32 scores, exponentials and sums (and the f32 tanh under a
+  soft-cap, whose slope is at most 1) add errors near 1e-6.  So element
+  (i, c) is off by at most BF16_U * (|ref_ic| + A_ic), with A = the same
+  attention over |v| (the softmax-weighted mean of |v_jc|).
+  ``tol_ratio`` is the largest |out - ref| / (2 * BF16_U * (|ref| + A)),
+  at most 1 for a right kernel; ``rel_frob`` the relative Frobenius
+  error, at most REL_FROB_LIMIT.
+
+  f32 output (the CUDA-core kernel on f32 inputs, FFMA throughout): the
+  kernel and the plain version each round every step in f32 (u =
+  F32_U), so each is within E of the exact result and they differ by at
+  most 2 E.  For row i seeing n_i keys in t_i = n_i // 32 + 2 tiles or
+  chunks at most (the kernel's tiles are 32 keys, the plain version's
+  chunks longer), with sigma_i the largest scale * sum_d |q_id k_jd|:
+    * a score is a dot product of D terms, then scaled: off by at most
+      (D + 1) u sigma_i; the soft-cap's division, tanh (2 ulp) and
+      product add at most 4 u sigma_i, its slope at most 1: e_s =
+      (D + 5) u sigma_i;
+    * a normalized weight exp(s_ij - lse_i) moves relatively by the two
+      scores' errors, 2 e_s, and the rounding of s - m (at most 2 u
+      sigma_i) and of exp (2 u), at most once a tile as the running max
+      rescales (t_i (2 u sigma_i + 3 u)), the sum of its n_i positive
+      terms (n_i u) and the division (u);
+    * the output's n_i products and sums add n_i u of A_ic, and its
+      rounding u |ref_ic|.
+  So E_ic <= u ((2 D + 12 + 2 t_i) sigma_i + 2 n_i + 3 t_i + 3) A_ic +
+  u |ref_ic|, and ``tol_ratio`` is the largest |out - ref| / (2 E), at
+  most 1; ``rel_frob`` is held to F32_REL_FROB_LIMIT.  The bound is a
+  worst case: the measured errors sit two to three orders of magnitude
+  below it, and a key masked wrongly (about |v| / n_i) far above it.
   ``median_ref`` is the median |ref|, the scale that both sit against.
   """
   qf, kf, vf = q.float(), k.float(), v.float()
@@ -475,13 +597,23 @@ def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
   ref = flash_attention_plain(qf, kf, vf, **opts)
   a = flash_attention_plain(qf, kf, vf.abs(), **opts)
   err = (out.float() - ref).abs()
-  tol = torch.clamp(2 * BF16_U * (ref.abs() + a), min=1e-30)
+  if out.dtype == torch.float32:
+    sigma, n = _row_terms(q, k, causal, window, softcap, q_offset)
+    t = torch.floor(n / 32) + 2
+    tol = 2 * F32_U * (((2 * q.shape[-1] + 12 + 2 * t) * sigma + 2 * n
+                        + 3 * t + 3) * a + ref.abs())
+    limit = F32_REL_FROB_LIMIT
+  else:
+    tol = 2 * BF16_U * (ref.abs() + a)
+    limit = REL_FROB_LIMIT
+  tol = torch.clamp(tol, min=1e-30)
   return {
       "finite": bool(torch.isfinite(out).all()),
       "max_abs_err": float(err.max()),
       "tol_ratio": float((err / tol).max()),
       "rel_frob": float(torch.linalg.vector_norm(err)
                         / torch.linalg.vector_norm(ref)),
+      "rel_frob_limit": limit,
       "median_ref": float(ref.abs().median()),
   }
 

@@ -67,6 +67,17 @@ CASES = {
                                    dict(window=16, q_chunk=12, kv_chunk=8)),
     "causal_stablelm_width_80_ragged": (2, 37, 37, 4, 4, 80, 80,
                                         dict(q_chunk=16, kv_chunk=16)),
+    # The f32 widths that the CUDA-core kernel takes on the card: the smoke
+    # configs' 16 (G 2, and under their window of 32), the MoE example's
+    # 32 (G 2) and a width no tensor-core instantiation has, 96 (G 4).
+    "causal_smoke_width_16_g2": (2, 48, 48, 4, 2, 16, 16,
+                                 dict(q_chunk=16, kv_chunk=16)),
+    "window_smoke_width_16_g2": (2, 48, 48, 4, 2, 16, 16,
+                                 dict(window=20, q_chunk=16, kv_chunk=16)),
+    "causal_moe_example_width_32_g2": (2, 64, 64, 4, 2, 32, 32,
+                                       dict(q_chunk=64, kv_chunk=64)),
+    "causal_width_96_g4_ragged": (1, 45, 45, 8, 2, 96, 96,
+                                  dict(q_chunk=16, kv_chunk=16)),
 }
 
 
@@ -259,11 +270,68 @@ def test_wrapper_on_cpu_takes_every_option():
 
 @pytest.mark.requires_cuda
 def test_cuda_wrapper_refuses_an_unbuilt_width(cuda_device):
+  """bf16 at (96, 96), which the tensor-core kernel is not built for, runs
+  the CUDA-core kernel once and the tensor-core kernel never (``route``);
+  a width that is no multiple of 8 raises before any launch."""
   x = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16, device=cuda_device)
-  before = fa.LAUNCHES["flash_attention"]
-  with pytest.raises(ValueError, match="not built"):
-    fa.flash_attention(x, x, x)
-  assert fa.LAUNCHES["flash_attention"] == before
+  before = dict(fa.LAUNCHES)
+  out = fa.flash_attention(x, x, x)
+  torch.cuda.synchronize()
+  assert out.shape == x.shape and out.dtype == torch.bfloat16
+  assert fa.LAUNCHES["flash_attention"] == before["flash_attention"]
+  assert (fa.LAUNCHES["flash_attention_simt"]
+          == before["flash_attention_simt"] + 1)
+  y = torch.zeros((1, 8, 4, 20), dtype=torch.bfloat16, device=cuda_device)
+  with pytest.raises(ValueError, match="multiples of 8"):
+    fa.flash_attention(y, y, y)
+  assert fa.LAUNCHES == {**before, "flash_attention_simt":
+                         before["flash_attention_simt"] + 1}
+
+
+# (dtype, D, Dv) -> the kernel ``route`` picks on the card, or None where
+# it raises: bf16 at each built width -> the tensor-core kernel; f32 at
+# those widths and at the smoke, MLA-smoke and example widths, and bf16 at
+# unbuilt multiples of 8 -> the CUDA-core kernel; widths past 256, widths
+# that are no multiple of 8, and other dtypes -> ValueError.
+ROUTES = [
+    *((torch.bfloat16, d, dv, "wgmma") for d, dv in fa.KERNEL_WIDTHS),
+    *((torch.float32, d, dv, "simt") for d, dv in fa.KERNEL_WIDTHS),
+    (torch.float32, 16, 16, "simt"), (torch.float32, 24, 16, "simt"),
+    (torch.float32, 32, 32, "simt"), (torch.float32, 8, 256, "simt"),
+    (torch.bfloat16, 96, 96, "simt"), (torch.bfloat16, 16, 16, "simt"),
+    (torch.bfloat16, 128, 64, "simt"), (torch.bfloat16, 256, 8, "simt"),
+    (torch.float32, 264, 264, None), (torch.bfloat16, 264, 264, None),
+    (torch.float32, 20, 20, None), (torch.bfloat16, 64, 20, None),
+    (torch.float32, 0, 16, None), (torch.float16, 64, 64, None),
+    (torch.float64, 16, 16, None),
+]
+
+
+@pytest.mark.parametrize("dtype, d, dv, want", ROUTES,
+                         ids=[f"{str(r[0])[6:]}-{r[1]}x{r[2]}"
+                              for r in ROUTES])
+def test_route_picks_the_kernel_by_dtype_and_width(dtype, d, dv, want):
+  if want is None:
+    with pytest.raises(ValueError, match="multiples of 8"):
+      fa.route(dtype, d, dv)
+  else:
+    assert fa.route(dtype, d, dv) == want
+
+
+def test_check_simt_takes_any_g_and_refuses_mixed_dtypes():
+  """The CUDA-core kernel's check: any G (here 200 query heads over one kv
+  head, past the tensor-core kernel's 128), f32 or bf16, one dtype."""
+  q = torch.zeros((1, 3, 200, 16))
+  kv = torch.zeros((1, 5, 1, 16))
+  fa._check_simt(q, kv, kv)
+  with pytest.raises(ValueError, match="at most 128"):
+    fa._check(q.bfloat16(), kv.bfloat16(), kv.bfloat16())
+  with pytest.raises(TypeError, match="is torch.bfloat16"):
+    fa._check_simt(q, kv.bfloat16(), kv)
+  with pytest.raises(TypeError, match="f32 or bf16"):
+    fa._check_simt(q.double(), kv.double(), kv.double())
+  with pytest.raises(ValueError, match="sees none"):
+    fa._check_simt(q, kv, kv, window=2, q_offset=4)
 
 
 def test_check_refuses_queries_without_a_key():
@@ -392,6 +460,32 @@ def test_error_model_holds_rounding_and_catches_a_window_edge_error():
   # Held without the window, the windowed output fails too.
   cmp = fa.compare_with_plain(good, q, k, v, True)
   assert cmp["tol_ratio"] > 1.0 and cmp["rel_frob"] > fa.REL_FROB_LIMIT
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 4, 2, 16, 16, 0),
+                                   (2, 48, 4, 2, 16, 16, 32),
+                                   (8, 128, 12, 4, 64, 64, 0)])
+def test_f32_error_model_holds_rounding_and_catches_a_mask_error(shape):
+  """The f32 model of ``compare_with_plain`` on the CPU: the plain version
+  at 32-key chunks (the CUDA-core kernel's tiles, f32 throughout) and the
+  f64 result rounded to f32 both pass at a small fraction of the limits;
+  the output with a window one key wider, or without the causal mask,
+  breaks both."""
+  b, s_, h, hkv, d, dv, window = shape
+  q, k, v = (as_torch(x) for x in _inputs(b, s_, s_, h, hkv, d, dv))
+  for good in (fa.flash_attention_plain(q, k, v, window=window, q_chunk=32,
+                                        kv_chunk=32),
+               fa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                        window=window).float()):
+    cmp = fa.compare_with_plain(good, q, k, v, True, window=window)
+    assert cmp["finite"] and cmp["rel_frob_limit"] == fa.F32_REL_FROB_LIMIT
+    assert cmp["tol_ratio"] <= 0.1, cmp
+    assert cmp["rel_frob"] <= fa.F32_REL_FROB_LIMIT / 10, cmp
+  bad = (fa.flash_attention_plain(q, k, v, window=window + 1) if window
+         else fa.flash_attention_plain(q, k, v, causal=False))
+  cmp = fa.compare_with_plain(bad, q, k, v, True, window=window)
+  assert cmp["tol_ratio"] > 1.0, cmp
+  assert cmp["rel_frob"] > fa.F32_REL_FROB_LIMIT, cmp
 
 
 # (B, Sq, Skv, H, Hkv, D, Dv, window): every built width under a window
@@ -780,3 +874,65 @@ def test_cuda_gradients_reach_q_k_and_v(shape, cuda_device):
       grads, *(x.detach() for x in xs), do, causal).items():
     assert cmp["tol_ratio"] <= 1.0, (name, cmp)
     assert cmp["rel_frob"] <= fa.REL_FROB_LIMIT, (name, cmp)
+
+
+# (B, Sq, Skv, H, Hkv, D, Dv, dtype, options): the CUDA-core kernel at the
+# smoke configs' f32 shapes (G 2, causal and under their window of 32), the
+# MLA smoke widths (24, 16), the MoE example's (32, 32) at G 2, the robust
+# LM example's --full shape (64, 64) at G 3, bf16 at (96, 96) with G 4 and
+# a ragged S, causal and not, the soft-cap with q x 10, a query offset and
+# a window without ``causal``, and G = 200 (past the tensor-core kernel's
+# 128).
+SIMT_CUDA_SHAPES = [
+    (2, 48, 48, 4, 2, 16, 16, torch.float32, dict()),
+    (2, 48, 48, 4, 2, 16, 16, torch.float32, dict(window=32)),
+    (2, 48, 48, 4, 4, 24, 16, torch.float32, dict()),
+    (8, 64, 64, 4, 2, 32, 32, torch.float32, dict()),
+    (8, 128, 128, 12, 4, 64, 64, torch.float32, dict()),
+    (1, 333, 333, 4, 1, 96, 96, torch.bfloat16, dict()),
+    (1, 333, 333, 4, 1, 96, 96, torch.bfloat16, dict(causal=False)),
+    (2, 40, 90, 4, 2, 64, 64, torch.float32,
+     dict(softcap=30.0, q_offset=50)),
+    (2, 40, 90, 4, 2, 64, 64, torch.float32,
+     dict(window=25, causal=False, q_offset=50)),
+    (1, 50, 50, 200, 1, 8, 256, torch.float32, dict()),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", SIMT_CUDA_SHAPES)
+def test_cuda_simt_kernel_matches_plain_version(shape, cuda_device):
+  """On the card: the CUDA-core kernel (one launch, none of the tensor-core
+  kernel) against the plain version in f32 on the same inputs, by the
+  error model of the output's dtype (``compare_with_plain``)."""
+  b, sq, skv, h, hkv, d, dv, dtype, opts = shape
+  q, k, v = (as_torch(x, dtype).to(cuda_device)
+             for x in _inputs(b, sq, skv, h, hkv, d, dv))
+  if opts.get("softcap"):
+    q = q * 10
+  before = dict(fa.LAUNCHES)
+  got = fa.flash_attention(q, k, v, **opts)
+  torch.cuda.synchronize()
+  assert got.dtype == dtype
+  assert fa.LAUNCHES == {**before, "flash_attention_simt":
+                         before["flash_attention_simt"] + 1}
+  causal = opts.pop("causal", True)
+  cmp = fa.compare_with_plain(got, q, k, v, causal, **opts)
+  assert cmp["finite"]
+  assert cmp["tol_ratio"] <= 1.0, cmp
+  assert cmp["rel_frob"] <= cmp["rel_frob_limit"], cmp
+
+
+@pytest.mark.requires_cuda
+def test_cuda_simt_gradients_within_the_backward_model(cuda_device):
+  """f32 under autograd on the card: the CUDA-core kernel's forward and
+  ``flash_attention_bwd``, held to the backward's error model."""
+  xs = [as_torch(x).to(cuda_device).requires_grad_(True)
+        for x in _inputs(2, 100, 100, 4, 2, 32, 32)]
+  out = fa.flash_attention(*xs, True)
+  do = as_torch(rng.normal(size=out.shape)).to(cuda_device)
+  grads = torch.autograd.grad(out, xs, do)
+  torch.cuda.synchronize()
+  for name, cmp in fa.compare_bwd_with_plain(
+      grads, *(x.detach() for x in xs), do, True).items():
+    assert cmp["finite"] and cmp["tol_ratio"] <= 1.0, (name, cmp)

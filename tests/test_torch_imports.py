@@ -66,6 +66,10 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import repro_torch.launch.dryrun, repro_torch.sharding.specs\n"
       "import repro_torch.sharding.local, repro_torch.analysis.roofline\n"
       "import repro_torch.analysis.cost, repro_torch.analysis.report\n"
+      "import repro_torch.examples, repro_torch.examples.quickstart\n"
+      "import repro_torch.examples.label_ranking\n"
+      "import repro_torch.examples.robust_lm_training\n"
+      "import repro_torch.examples.moe_soft_router\n"
       "bad = sorted(m for m in sys.modules\n"
       "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
       "print(bad)\n"

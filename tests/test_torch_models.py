@@ -70,6 +70,17 @@ def test_configs_are_the_references(name):
   assert got.plan_segments() == want.plan_segments()
 
 
+def test_all_smoke_configs_are_the_references():
+  """``all_smoke_configs``: the reference's ten smoke configs, in its
+  order, field for field."""
+  from repro.configs.smoke import all_smoke_configs as jall
+  from repro_torch.configs.smoke import all_smoke_configs
+  got, want = all_smoke_configs(), jall()
+  assert [c.name for c in got] == [c.name for c in want]
+  for g, w in zip(got, want):
+    assert dataclasses.asdict(g) == dataclasses.asdict(w)
+
+
 def test_pipeline_gives_the_references_tokens():
   cfg, jcfg = get_config(ARCH), jget_config(ARCH)
   for step, corrupt in ((0, 0.0), (3, 0.25)):

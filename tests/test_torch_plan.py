@@ -377,3 +377,100 @@ def test_plan_provenance_names_the_governing_plan():
   with plan_mod.use_plan(p):
     assert plan_mod.plan_provenance()["plan_source"] == "plan"
   assert plan_mod.plan_provenance(p)["plan_hash"] == p.plan_hash()
+
+
+# ---------------------------------------------------------------------------
+# The reference's selection shims, over the port's plans.
+# ---------------------------------------------------------------------------
+
+
+def test_set_default_backend_puts_a_rule_on_the_plan_and_auto_removes_it():
+  """``set_default_backend("scan")`` prepends an unconditional forward rule
+  to the active plan, which ``soft_rank`` on the CPU then resolves (the
+  plan decides, by the ``dispatch_resolve`` counter's source); ``"auto"``
+  removes it and the built-in plan's ``stack`` decides again.  The
+  reference's shim does the same on its plan."""
+  D.set_default_backend("scan")
+  assert D.get_default_backend() == "scan"
+  active = plan_mod.get_active_plan()
+  assert active.rules[0] == plan_mod.PlanRule("forward", "scan")
+  assert D.resolve_backend("isotonic", "l2") == "scan"
+  x = as_torch(rng.normal(size=(3, 9)))
+  metrics.reset()
+  got = soft_rank(x, 0.5)
+  assert metrics.counter_value("dispatch_resolve", op="isotonic",
+                               regularization="l2", backend="scan",
+                               source="plan") == 1
+  D.set_default_backend("auto")
+  assert D.get_default_backend() == "auto"
+  assert not plan_mod.get_active_plan().rules
+  assert D.resolve_backend("isotonic", "l2") == "stack"
+  assert_close(got, soft_rank(x, 0.5), x)
+  from repro.kernels import dispatch as jD
+  jplan.set_active_plan(None)
+  try:
+    jD.set_default_backend("scan")
+    assert jplan.get_active_plan().rules[0].to_dict() == {
+        "kind": "forward", "backend": "scan"}
+    assert jD.get_default_backend() == "scan"
+    jD.set_default_backend("auto")
+    assert not jplan.get_active_plan().rules
+  finally:
+    jplan.set_active_plan(None)
+
+
+def test_set_default_impl_and_use_impl_are_the_core_aliases():
+  from repro_torch import core
+  core.set_default_impl("minimax")
+  assert D.get_default_backend() == "minimax"
+  core.set_default_impl("auto")
+  with core.use_impl("scan"):
+    assert D.resolve("isotonic", "kl") == "scan"
+    assert D.get_default_backend() == "scan"
+  assert D.get_default_backend() == "auto"
+  assert D.resolve("isotonic", "kl") == "stack"
+  assert core.use_plan is plan_mod.use_plan
+  assert core.ExecutionPlan is plan_mod.ExecutionPlan
+  assert core.PlanRule is plan_mod.PlanRule
+  assert core.load_plan is plan_mod.load_plan
+  assert core.set_active_plan is plan_mod.set_active_plan
+
+
+def test_use_backward_is_scoped_and_set_default_backward_persists():
+  base = _pin("forward", "stack", "base")
+  plan_mod.set_active_plan(base)
+  with D.use_backward("segscan"):
+    assert D.get_default_backward() == "segscan"
+    assert D.resolve_backward("isotonic", "l2", device=GPU) == "segscan"
+    assert plan_mod.get_active_plan().rules[1:] == base.rules
+  assert plan_mod.get_active_plan() is base
+  assert D.get_default_backward() == "auto"
+  assert D.resolve_backward("isotonic", "l2", device=GPU) == "scatter"
+  D.set_default_backward("scatter")
+  assert D.resolve_backward("isotonic", "l2") == "scatter"
+  assert plan_mod.get_active_plan().name == "base+backward=scatter"
+  D.set_default_backward("auto")
+  assert plan_mod.get_active_plan().rules == base.rules
+
+
+@pytest.mark.parametrize("shim, name", [
+    (D.set_default_backend, "lax"), (D.set_default_backend, "pallas"),
+    (D.use_backend, "fused"), (D.set_default_backward, "scan"),
+    (D.use_backward, "cuda")])
+def test_selection_shims_refuse_unknown_names(shim, name):
+  with pytest.raises(ValueError, match="must be one of"):
+    if shim in (D.use_backend, D.use_backward):
+      with shim(name):
+        pass
+    else:
+      shim(name)
+  assert plan_mod.get_active_plan() is None
+
+
+def test_resolve_backend_takes_the_platform_by_name():
+  assert D.resolve_backend("isotonic", "l2", platform="cuda",
+                           dtype="float32") == "cuda"
+  assert D.resolve_backend("isotonic", "l2", platform="cuda",
+                           dtype="float64") == "scan"
+  assert D.resolve_backend("isotonic", "kl", "minimax",
+                           platform="cuda") == "minimax"
