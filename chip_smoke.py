@@ -87,14 +87,19 @@ its own lines; any failure raises and the script exits non-zero:
             that it binds, a query offset with Sq < Skv, a window without
             ``causal``, all three with a ragged Sq), forward and backward
             under autograd by the two error models.  The CUDA-core kernel
-            ``flash_attention_simt`` (f32, any width; ``SIMT_ATTN_CASES``)
-            against the plain version: f32 at the smoke configs' (2, 48,
-            4, 16) G 2, causal and under their window of 32, MLA's smoke
-            widths (24, 16), the MoE example's (8, 64, 4, 32) G 2, the
-            robust LM example's --full (8, 128, 12, 64) G 3, a soft-cap of
-            30, a query offset and a window without ``causal``, by the f32
-            error model; bf16 at (96, 96), which the tensor-core kernel is
-            not built for, causal and not, by the bf16 model; its backward
+            ``flash_attention_simt`` (f32 on FFMA, bf16 at other widths on
+            mma.sync; ``SIMT_ATTN_CASES``) against the plain version: f32
+            at the smoke configs' (2, 48, 4, 16) G 2, causal and under
+            their window of 32, MLA's smoke widths (24, 16), the MoE
+            example's (8, 64, 4, 32) G 2, the robust LM example's --full
+            (8, 128, 12, 64) G 3, a soft-cap of 30, a query offset and a
+            window without ``causal``, by the f32 error model; bf16 at
+            (96, 96), which the tensor-core kernel is not built for, causal
+            and not, by the bf16 model; the tiles' edges (Sq * G no
+            multiple of the row block over Skv != Sq, G 3, 6 and 200, D 8,
+            (8, 256), (256, 256), bf16 at (40, 40), (24, 16) and (96, 64)
+            and with a window, a soft-cap and a query offset) and the two
+            prefill shapes of phase 5, one launch each; its backward
             at one f32 shape by the backward's model.  The route: bf16 at
             each built width launches the tensor-core kernel alone, f32 at
             (64, 64) the CUDA-core kernel alone, (264, 264) and (20, 20)
@@ -147,6 +152,14 @@ its own lines; any failure raises and the script exits non-zero:
             the init's peak and the serving peak apart.  Then the kernel,
             plain and SDPA times at the prefill shape, prefill ms, decode
             tok/s and the profiled prefill and decode step.
+   serve llama3.2-1b in f32 (``--set dtype=float32``, after the bf16
+            server's model is freed): the same server at full width and
+            depth in f32.  Each prefill launches flash_attention_simt once
+            a layer (16, the FFMA path) and nothing else; logits finite;
+            the kernel held to the f32 error model on every layer's
+            captured inputs; a plain-path prefill; prefill ms, decode
+            tok/s, and the kernel's share of one profiled prefill's device
+            time.
    serve grok-1-314b (after the llama server's model is freed, before
             the trainers, with under 1 GiB allocated):
             ``serve.main(["--arch", "grok-1-314b", "--set",
@@ -254,8 +267,12 @@ its own lines; any failure raises and the script exits non-zero:
             kernel with each option (soft-cap 30, a query offset, a window
             without ``causal``) beside the same shape without it, at the
             llama, grok and gemma prefills; the CUDA-core kernel at the
-            smoke and example shapes beside its plain version and SDPA on
-            the same inputs (its backend named).
+            smoke and example shapes, bf16 (96, 96), llama3.2-1b's f32
+            prefill and bf16 (96, 96) at llama's heads, with its launch plan
+            (``simt_plan``; registers and spills from the build log),
+            beside its plain version, SDPA on the same inputs (its backend
+            named) and SDPA's memory-efficient backend on k and v expanded
+            to H heads.
    fig4     (the deepseek server's model freed) Figure 4 (right) of the
             paper: ``soft_rank`` (l2, kl, eps 0.1) against the O(n^2)
             baselines of ``core/baselines.py``, all-pairs (tau 0.1) and OT
@@ -367,6 +384,7 @@ import gc
 import json
 import math
 import multiprocessing
+import re
 import statistics
 import subprocess
 import sys
@@ -2278,6 +2296,99 @@ def dense_serve_times(res, rec, serve, fa, name_limit):
   return row, [line] + generate_times(res, serve, name_limit)
 
 
+# llama3.2-1b again in f32 (``--set dtype=float32``): every attention layer
+# on the CUDA-core kernel's FFMA path, the one f32 model served whole.
+DENSE_F32_ARGV = ["--set", "dtype=float32"]
+
+
+def dense_f32_serve(dev, serve, ops, st, fa, name_limit):
+  """llama3.2-1b at full width and depth in f32, 8 x 512 prompts and 31
+  decode steps through ``serve.run_lm``, every counter from 0: launches
+  (``flash_attention_simt`` once a layer a prefill, nothing else), f32
+  parameters, finite logits, the kernel on every layer's captured inputs
+  by the f32 error model, the same prefill on the plain versions, then the
+  server's times and one profiled prefill: its ms and the kernel's share of
+  its device time.  Returns (launches, the time row, lines)."""
+  import dataclasses
+
+  from repro_torch.configs.base import get_config
+  from repro_torch.launch import steps
+  from repro_torch.models import transformer as T
+
+  args = serve.parser().parse_args(
+      ["--arch", DENSE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+       str(SERVE_PROMPT), "--gen", str(SERVE_GEN), *DENSE_F32_ARGV])
+  cfg = dataclasses.replace(get_config(DENSE_ARCH), dtype="float32")
+  model = T.init_params(cfg, args.seed, dev)
+  torch.cuda.synchronize()
+  ops.reset_all_launches()
+  with Recorder(st, fa) as rec:
+    res = serve.run_lm(args, model=model)
+  torch.cuda.synchronize()
+  launches = ops.all_launches()
+  n_layers = res["cfg"].num_layers
+  want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
+          "flash_attention": 0, SIMT: n_layers}
+  check(launches == want and len(rec.attn) == n_layers,
+        f"{DENSE_ARCH} f32 serve launches {launches}, counted from the code "
+        f"{want}")
+  check(res["cfg"].dtype == "float32" and all(
+      p.dtype == F32 for p in res["model"].parameters()),
+        f"{DENSE_ARCH} --set dtype=float32 did not build f32 weights")
+  for name in ("prefill_logits", "logits"):
+    logits = res[name]
+    check(tuple(logits.shape) == (SERVE_BATCH, res["cfg"].vocab_size)
+          and logits.dtype == F32 and bool(torch.isfinite(logits).all()),
+          f"f32 {name}: not finite")
+  worst = {"max_abs_err": 0.0, "tol_ratio": 0.0, "rel_frob": 0.0}
+  for q, kx, v, causal, out in rec.attn:
+    check(q.dtype == F32 and out.dtype == F32,
+          f"f32 serve: attention ran in {q.dtype}")
+    cmp = fa.compare_with_plain(out, q, kx, v, causal)
+    check(cmp["finite"] and cmp["tol_ratio"] <= 1.0
+          and cmp["rel_frob"] <= cmp["rel_frob_limit"],
+          f"{SIMT} on a captured f32 llama layer: {simt_text(cmp)}")
+    for key in worst:
+      worst[key] = max(worst[key], cmp[key])
+  say(f"serve: {DENSE_ARCH} in f32 ({' '.join(DENSE_F32_ARGV)}) launches "
+      f"{launches} for 1 prefill and {SERVE_GEN - 1} decode steps of "
+      f"{n_layers} layers (counted from the code: {SIMT} once a layer a "
+      f"prefill, nothing else); logits finite; {SIMT} on the captured "
+      f"inputs of all {n_layers} layers, worst layer by each measure (f32 "
+      f"model): max |kernel - plain in f32| {worst['max_abs_err']:.3e}, "
+      f"|err| / tol {worst['tol_ratio']:.4f} (limit 1), relative Frobenius "
+      f"{worst['rel_frob']:.3e} (limit {fa.F32_REL_FROB_LIMIT:.3e})")
+  say(plain_prefill_text(res, rec, serve, st, fa))
+  q, kx, v, causal, _ = rec.attn[0]
+  shape = (tuple(q.shape), tuple(kx.shape))
+  del rec
+  lines = generate_times(res, serve, name_limit)
+  batch, model = res["batch"], res["model"]
+  s = steps.prefill_length(res["cfg"], batch)
+
+  def prefill_once():
+    with torch.inference_mode():
+      steps.make_prefill_step(res["cfg"], s + 2)(model, batch)
+
+  wall, busy, top, _ = profile(prefill_once)
+  simt_ms = sum(ms for name, ms, _ in top if "attention_simt" in name)
+  simt_n = sum(n for name, _, n in top if "attention_simt" in name)
+  share_text = ("not measured (no profiler session recorded device time)"
+                if busy is None else
+                f"{simt_ms:.3f} ms in {simt_n} launches of the {busy:.2f} ms "
+                f"busy ({simt_ms / busy:.1%}), wall {wall:.2f} ms")
+  lines.append(f"times: serve {DENSE_ARCH} f32 prefill {SERVE_BATCH}x{s}: "
+               f"{SIMT}'s device time in one profiled prefill {share_text} "
+               f"[{name_limit}]")
+  row = {"arch": DENSE_ARCH, "dtype": "float32", "q_shape": list(shape[0]),
+         "kv_shape": list(shape[1]), "launches": launches[SIMT],
+         "max_abs_err": worst["max_abs_err"],
+         "prefill_device_ms": None if busy is None else busy,
+         "kernel_device_ms": None if busy is None else simt_ms}
+  del res, model
+  return launches, row, lines
+
+
 # ---------------------------------------------------------------------------
 # The MoE serving path (grok-1-314b at full width, 6 of 64 layers).
 # ---------------------------------------------------------------------------
@@ -3966,7 +4077,15 @@ F32, BF16 = torch.float32, torch.bfloat16
 # example's --full layers (64, 64) at G 3, bf16 at (96, 96), which the
 # tensor-core kernel is not built for (G 4, a ragged S, causal and not),
 # and at one f32 shape the options: a soft-cap of 30 (q x HOT_Q), queries
-# that continue a cache, a window without ``causal``.
+# that continue a cache, a window without ``causal``.  Then the edges of the
+# kernel's tiles (64 keys; f32 row blocks of 16, 32 or 64 rows, bf16 of 16,
+# 32, 64 or 128 rows whose 4 warps split the keys at 16 and 32): Sq * G no
+# multiple of the row block over Skv != Sq, G 3, 6 and 200, D = 8, (8, 256)
+# and (256, 256) in f32 (one stage), bf16 at (40, 40) and (24, 16), which
+# are multiples of 8 but not of 16, and at (96, 64), the window, soft-cap and
+# query offset on the bf16 (mma) path, and the two prefill shapes of phase 5
+# (llama3.2-1b under --set dtype=float32, and bf16 at (96, 96) with its
+# heads: the 128-row bf16 block).
 SIMT_ATTN_CASES = (
     ("smoke configs", 2, 48, 48, 4, 2, 16, 16, F32, True, 0, 0.0, 0),
     ("smoke configs, window", 2, 48, 48, 4, 2, 16, 16, F32, True, 32, 0.0,
@@ -3981,13 +4100,37 @@ SIMT_ATTN_CASES = (
     ("query offset", 2, 64, 192, 12, 4, 64, 64, F32, True, 0, 0.0, 128),
     ("window without causal", 2, 128, 128, 12, 4, 64, 64, F32, False, 40,
      0.0, 0),
+    ("ragged rows, Skv > Sq", 2, 100, 164, 8, 2, 64, 64, F32, True, 0, 0.0,
+     64),
+    ("G 3, not causal", 2, 77, 90, 6, 2, 32, 32, F32, False, 0, 0.0, 0),
+    ("G 6", 1, 90, 120, 12, 2, 64, 64, F32, True, 0, 0.0, 30),
+    ("G 200, (8, 256)", 1, 50, 50, 200, 1, 8, 256, F32, True, 0, 0.0, 0),
+    ("D 8", 2, 70, 70, 4, 4, 8, 8, F32, True, 0, 0.0, 0),
+    ("(256, 256)", 1, 200, 200, 8, 4, 256, 256, F32, True, 0, 0.0, 0),
+    ("bf16 (40, 40)", 1, 100, 100, 4, 1, 40, 40, BF16, True, 0, 0.0, 0),
+    ("bf16 MLA smoke widths", 2, 48, 48, 4, 4, 24, 16, BF16, True, 0, 0.0,
+     0),
+    ("bf16 (96, 64)", 1, 120, 120, 4, 2, 96, 64, BF16, True, 0, 0.0, 0),
+    ("bf16 window", 1, 333, 400, 4, 1, 96, 96, BF16, True, 100, 0.0, 60),
+    ("bf16 soft-cap", 1, 100, 160, 8, 2, 40, 40, BF16, True, 0, 30.0, 60),
+    ("bf16 query offset", 2, 64, 192, 12, 4, 96, 96, BF16, True, 0, 0.0,
+     128),
+    ("llama3.2-1b f32 prefill", 8, 512, 512, 32, 8, 64, 64, F32, True, 0,
+     0.0, 0),
+    ("bf16 (96, 96) at llama's heads", 8, 512, 512, 32, 8, 96, 96, BF16,
+     True, 0, 0.0, 0),
 )
 # The backward's f32 case (B, S, H, Hkv, D): the robust LM example's
 # layers at 2 sequences.
 SIMT_BWD_CASE = (2, 128, 12, 4, 64)
-# Phase 5's shapes: the non-option cases above.
+# Phase 5's shapes: the paths' own (the smoke configs, MLA's smoke widths,
+# the examples), bf16 (96, 96) over one kv head, and the two prefills above.
+SIMT_TIME_WHATS = ("smoke configs", "smoke configs, window",
+                   "MLA smoke widths", "MoE example", "robust LM --full",
+                   "bf16 unbuilt width", "llama3.2-1b f32 prefill",
+                   "bf16 (96, 96) at llama's heads")
 SIMT_TIME_CASES = tuple(c for c in SIMT_ATTN_CASES
-                        if c[11] == 0.0 and c[12] == 0 and c[9])
+                        if c[0] in SIMT_TIME_WHATS and c[9])
 
 
 def simt_inputs(dev, b, sq, skv, h, hkv, d, dv, dtype, softcap=0.0,
@@ -4100,36 +4243,91 @@ def simt_kernel_checks(dev, fa, kops, max_err) -> None:
 def simt_bound(q, k, v, causal: bool, window: int = 0, softcap: float = 0.0,
                q_offset: int = 0) -> tuple[float, str]:
   """Least time for the CUDA-core kernel: bytes (q, k, v read once, out
-  written once, in their dtype) against its f32 operations at the f32 rate
-  outside the tensor cores: 2 (D + Dv) FLOPs a computed (query, key) pair
-  (the products, as FFMA) plus 5 a score for the softmax (2 more under a
-  soft-cap)."""
+  written once, in their dtype) against its operations: 2 (D + Dv) FLOPs a
+  computed (query, key) pair for the products, at the f32 rate outside the
+  tensor cores for f32 (FFMA) and at the bf16 tensor-core rate for bf16
+  (mma.sync), as ``attn_bound`` counts them, plus 5 f32 operations a score
+  for the softmax (2 more under a soft-cap) at the f32 rate."""
   from repro_torch.kernels.flash_attention import attention_pairs
   b, sq, h, d = q.shape
   skv, dv = k.shape[1], v.shape[-1]
   pairs = b * h * attention_pairs(sq, skv, causal, window, q_offset)
   n_bytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * (
       q.element_size())
-  ops = pairs * (2 * (d + dv) + 5 + (2 if softcap > 0 else 0))
+  products = pairs * 2 * (d + dv)
+  scores = pairs * (5 + (2 if softcap > 0 else 0))
+  product_rate = BF16_OPS_PER_S if q.dtype == BF16 else F32_OPS_PER_S
   bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-  ops_ms = ops / F32_OPS_PER_S * 1e3
+  ops_ms = (products / product_rate + scores / F32_OPS_PER_S) * 1e3
   return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def simt_build_info() -> dict:
+  """Registers and spill bytes of each instantiation of the CUDA-core
+  kernel, from the build's ptxas log: ("ffma", M, NG) or ("mma", NT, MT)
+  -> (registers, spill store bytes, spill load bytes)."""
+  from repro_torch.kernels import _build
+  info, key, spills = {}, None, (0, 0)
+  for line in _build.BUILD_LOG.get(SIMT, "").splitlines():
+    m = re.search(r"attention_simt_(ffma|mma)ILi(\d+)ELi(\d+)E", line)
+    if m and "Compiling entry function" in line:
+      key = (m.group(1), int(m.group(2)), int(m.group(3)))
+      continue
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                  line)
+    if m and key:
+      spills = (int(m.group(1)), int(m.group(2)))
+    m = re.search(r"Used (\d+) registers", line)
+    if m and key:
+      info[key] = (int(m.group(1)), *spills)
+      key, spills = None, (0, 0)
+  return info
+
+
+def simt_plan_text(fa, q, v, build_info) -> tuple[dict, str]:
+  """The launch plan of the CUDA-core kernel at q's and v's shapes
+  (``simt_plan``) with its instantiation's registers and spills."""
+  b, sq, h, d = q.shape
+  hkv, dv = v.shape[2], v.shape[3]
+  plan = fa.simt_plan(q.dtype, b, sq, h, hkv, d, dv)
+  if plan["path"] == "ffma":
+    key = ("ffma", plan["rows"] // 8, -(-dv // 64))
+  else:
+    key = ("mma", (dv // 8 + 1) // 2 * 2, 2 if plan["rows"] == 128 else 1)
+  regs = build_info.get(key)
+  plan = {**plan, "instance": list(key),
+          "registers": None if regs is None else regs[0],
+          "spill_bytes": None if regs is None else list(regs[1:])}
+  text = (f"plan {plan['path']} <{key[1]}, {key[2]}>: {plan['rows']} rows "
+          f"a block, {plan['keys']} keys a tile, {plan['stages']} stages, "
+          f"{plan['smem']} shared bytes, {plan['blocks']} blocks, "
+          + ("registers not in the build log" if regs is None else
+             f"{regs[0]} registers, spills {regs[1]} B stored / {regs[2]} B "
+             "loaded"))
+  return plan, text
 
 
 def simt_times(dev, fa, name_limit) -> tuple[list[dict], list[str]]:
   """Phase 5: the CUDA-core kernel at each shape of ``SIMT_TIME_CASES``:
-  CUDA-event median and the profiler's device time of its kernel, the
-  plain version, scaled_dot_product_attention on the same inputs
+  its launch plan (``simt_plan``, registers and spills from the build
+  log), CUDA-event median and the profiler's device time of its kernel,
+  the plain version, scaled_dot_product_attention on the same inputs
   (``enable_gqa``; under a window a boolean band mask; its backend, which
-  for f32 cannot be flash or cuDNN, named from its longest kernel), and
-  the bound."""
+  for f32 cannot be flash or cuDNN, named from its longest kernel), SDPA's
+  memory-efficient backend on k and v expanded to H heads outside the
+  timed call (the f32 yardstick; neither SDPA call is on the port's path),
+  and the bound."""
+  from torch.nn.attention import SDPBackend, sdpa_kernel
+
+  build_info = simt_build_info()
   rows, lines = [], []
   for (what, b, sq, skv, h, hkv, d, dv, dtype, causal, window, _,
        _) in SIMT_TIME_CASES:
     q, k, v = simt_inputs(dev, b, sq, skv, h, hkv, d, dv, dtype, seed=sq)
+    plan, plan_text = simt_plan_text(fa, q, v, build_info)
     call = lambda: fa.flash_attention(q, k, v, causal, window=window)  # noqa
     ms = median_ms(call, 50, warmup=3)
-    dev_ms = kernel_device_ms(call, "attention_simt_kernel", 50)
+    dev_ms = kernel_device_ms(call, "attention_simt", 50)
     plain_ms = median_ms(lambda: fa.flash_attention_plain(
         q, k, v, causal=causal, window=window), 10)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -4143,24 +4341,42 @@ def simt_times(dev, fa, name_limit) -> tuple[list[dict], list[str]]:
     lib_ms = median_ms(sdpa, 50, warmup=3)
     lib_dev_ms = kernel_device_ms(sdpa, "", 50)
     backend = sdpa_backend(sdpa)
+    kx, vx = (t.repeat_interleave(h // hkv, dim=1) for t in (kt, vt))
+
+    def sdpa_efficient():
+      with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        torch.nn.functional.scaled_dot_product_attention(
+            qt, kx, vx, attn_mask=mask, is_causal=causal and not window)
+
+    try:
+      eff_ms = median_ms(sdpa_efficient, 50, warmup=3)
+      eff_dev_ms = kernel_device_ms(sdpa_efficient, "", 50)
+      eff_text = (f"{eff_ms:.4f} ms (device {ms_text(eff_dev_ms)}, "
+                  "profiler)")
+    except RuntimeError as err:
+      eff_ms = eff_dev_ms = None
+      eff_text = f"refused ({str(err).splitlines()[0][:80]})"
     bound_ms, bound_by = simt_bound(q, k, v, causal, window)
     rows.append({"what": what, "shape": list(q.shape),
                  "kv_shape": list(k.shape), "width": [d, dv],
                  "dtype": str(dtype)[6:], "causal": causal,
-                 "window": window, "ms": ms, "device_ms": dev_ms,
-                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                 "library_device_ms": lib_dev_ms,
-                 "library_backend": backend, "bound_ms": bound_ms,
-                 "bound_by": bound_by})
+                 "window": window, "plan": plan, "ms": ms,
+                 "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                 "library_backend": backend,
+                 "efficient_expanded_ms": eff_ms,
+                 "efficient_expanded_device_ms": eff_dev_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by})
     lines.append(
         f"times: {SIMT} {what} q {tuple(q.shape)} kv {tuple(k.shape)} Dv {dv}"
         f" {str(dtype)[6:]} {'window ' + str(window) if window else 'causal'}"
-        f": kernel {ms:.4f} ms (device {ms_text(dev_ms)} a launch, "
-        f"profiler), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-        f"{lib_ms:.4f} ms (device {ms_text(lib_dev_ms)}, profiler; backend "
-        f"{backend}), bound {bound_ms:.6f} ms ({bound_by}), "
-        f"{share(bound_ms, dev_ms)} of the kernel's device time "
-        f"[{name_limit}]")
+        f": {plan_text}; kernel {ms:.4f} ms (device {ms_text(dev_ms)} a "
+        f"launch, profiler), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms (device "
+        f"{ms_text(lib_dev_ms)}, profiler; backend {backend}), its "
+        f"memory-efficient backend on k, v expanded to {h} heads {eff_text},"
+        f" bound {bound_ms:.6f} ms ({bound_by}), {share(bound_ms, dev_ms)} "
+        f"of the kernel's device time [{name_limit}]")
   return rows, lines
 
 
@@ -4499,7 +4715,7 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     full_rows, audio_row, train_launches, train_rows,
                     engine_runs, engine_rows, option_rows,
                     mesh_launches, simt_rows, smoke_counts,
-                    example_rows) -> list[dict]:
+                    example_rows, simt_serve) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
   ``train_launches`` by model).  ``launches`` is each kernel's main path:
@@ -4602,8 +4818,9 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   kernels.append({
       "name": SIMT, "route": "cuda", "source": SOURCES[SIMT],
       "replaces": REPLACES[SIMT],
-      "launches": sum(r["launches"][SIMT] for r in example_rows.values()),
-      "max_abs_err": max_err[SIMT],
+      "launches": (sum(r["launches"][SIMT] for r in example_rows.values())
+                   + simt_serve["launches"]),
+      "max_abs_err": max(max_err[SIMT], simt_serve["max_abs_err"]),
       **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "shape", "dtype",
                               "library_backend")},
@@ -4611,6 +4828,7 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                            for name, r in example_rows.items()},
       "smoke_launches": {name: {what: c[SIMT] for what, c in runs.items()}
                          for name, runs in smoke_counts.items()},
+      "serve": simt_serve,
       **paths(SIMT), "rows": simt_rows})
   return kernels
 
@@ -4907,6 +5125,13 @@ def main() -> int:
   del dense_res, dense_rec
 
   clock(f"serve {DENSE_ARCH}")
+  gc.collect()
+  torch.cuda.empty_cache()
+  f32_launches, f32_row, f32_lines = dense_f32_serve(dev, serve, kops, st,
+                                                     fa, name_limit)
+  for line in f32_lines:
+    say(line)
+  clock(f"serve {DENSE_ARCH} f32")
   # serve, grok ---------------------------------------------------------------
   # Full width, 6 of 64 layers (58 GiB of weights): the card must be empty.
   gc.collect()
@@ -5006,7 +5231,7 @@ def main() -> int:
       engine_runs=engine_runs, engine_rows=engine_rows,
       option_rows=option_rows, mesh_launches=mesh_launches,
       simt_rows=simt_rows, smoke_counts=smoke_counts,
-      example_rows=example_rows)
+      example_rows=example_rows, simt_serve=f32_row)
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

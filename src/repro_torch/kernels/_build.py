@@ -26,8 +26,11 @@ CHECKOUT = Path(__file__).resolve().parents[3]
 BUILD_DIR = CHECKOUT / "build" / "repro_torch_kernels"
 
 # No --use_fast_math: its expf / log1pf approximations move the kl values.
+# --split-compile=0 optimizes a source's kernels in parallel, one thread a
+# core (flash_attention_simt.cu holds 34 instantiations).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], Callable[..., int]] = {}

@@ -9,10 +9,14 @@ output (B, Sq, H, Dv), with H = G * Hkv (GQA) and scale 1 / sqrt(D).
   tensor, a ``torch.autograd.Function`` whose forward is one of two
   hand-written kernels, chosen by ``route`` from (dtype, D, Dv) alone,
   and whose backward is ``flash_attention_bwd``: bf16 at a width in
-  ``KERNEL_WIDTHS`` runs ``csrc/flash_attention.cu`` (tensor cores, f32
+  ``KERNEL_WIDTHS`` runs ``csrc/flash_attention.cu`` (TMA + wgmma, f32
   softmax state; see the note there); f32, or bf16 at another multiple of
-  8 up to ``SIMT_MAX_WIDTH``, runs ``csrc/flash_attention_simt.cu`` (f32
-  FFMA on the CUDA cores, no TF32); anything else raises before a launch.
+  8 up to ``SIMT_MAX_WIDTH``, runs ``csrc/flash_attention_simt.cu`` under
+  the launch plan ``simt_plan`` picks on the host: f32 on the CUDA cores,
+  register-tiled FFMA with no TF32 (bound by FFMA issue and the shared
+  loads that feed it), bf16 on the tensor cores with mma.sync (bound by
+  bytes, or by the tensor cores for long rows); anything else raises
+  before a launch.
   Both take every option of the reference: the causal mask's sliding
   window (``window``, the ``local`` layers' attention; a window is causal
   whatever ``causal`` says), the logit soft-cap (``softcap``) and the
@@ -67,6 +71,14 @@ SIMT_MAX_WIDTH = 256
 # Query rows of one block's tile: a work item takes 128 // G query positions
 # of G heads each (at G = 6, 21 positions, 126 rows), so G is at most 128.
 ROWS_PER_BLOCK = 128
+# The CUDA-core kernel's launch plan (``simt_plan``): keys a K/V tile, the
+# shared memory a block may take on the H100 (227 KB), the SM count whose
+# blocks the row block is cut to fill, and its row blocks by path, the
+# largest first (see ``simt_row_blocks``).
+SIMT_KEYS = 64
+SIMT_SMEM_LIMIT = 232_448
+SIMT_SMS = 132
+SIMT_ROWS = {"ffma": (64, 32, 16), "mma": (128, 64, 32, 16)}
 
 _NEG_INF = -1e30
 
@@ -91,6 +103,75 @@ def route(dtype: torch.dtype, d: int, dv: int) -> str:
       f"flash_attention on the card takes f32 or bf16 with D and Dv "
       f"multiples of 8 up to {SIMT_MAX_WIDTH}; got {dtype} at (D, Dv) = "
       f"{(d, dv)}")
+
+
+def simt_smem_bytes(path: str, rows: int, stages: int, d: int,
+                    dv: int) -> int:
+  """Shared bytes of a block of ``csrc/flash_attention_simt.cu`` (its
+  ``smem_bytes`` counts the same; the launch refuses a plan whose count
+  differs).  ffma, f32: Q rows padded to D + 4 floats, ``stages`` K tiles
+  (D + 4) and V tiles (Dv) of ``SIMT_KEYS`` keys, P (rows x 68).  mma,
+  bf16: Q and K rows of D rounded up to 16, plus 8 (so an ldmatrix's 8 rows
+  fall in distinct banks), V rows of Dv, plus 8 where Dv / 8 is even; the
+  block's 4 warps are rows / (16 MT) row groups (MT = 2 m16 tiles a warp
+  at 128 rows, else 1) x 64 MT / rows key splits, so a stage holds one
+  64-key tile a split, and the splits' merge (each lane's O fragments,
+  Dv / 8 rounded up to even n8 tiles, m and l in f32) reuses the ring or,
+  where larger, extends it; 16 bytes more for the last V read of an odd
+  Dv / 8."""
+  if path == "mma":
+    qk = -(-d // 16) * 16 + 8
+    vs = dv if (dv // 8) % 2 else dv + 8
+    mt = 2 if rows == 128 else 1
+    splits = SIMT_KEYS * mt // rows
+    ring = stages * SIMT_KEYS * splits * (qk + vs)
+    o_tiles = (dv // 8 + 1) // 2 * 2
+    merge = (2 * rows // (16 * mt) * (splits - 1) * 32 * mt
+             * (4 * o_tiles + 4))
+    return 2 * (rows * qk + max(ring, merge)) + 16
+  return 4 * (rows * (d + 4) + stages * SIMT_KEYS * (d + 4 + dv)
+              + rows * (SIMT_KEYS + 4))
+
+
+def simt_row_blocks(path: str, dv: int) -> tuple[int, ...]:
+  """The row blocks a path takes at width Dv, the largest first: the
+  largest of each (ffma 64 rows: 8 a thread; mma 128: two m16 tiles a
+  warp) only where Dv <= 128, for the O registers."""
+  rows = SIMT_ROWS[path]
+  return rows if dv <= 128 else rows[1:]
+
+
+def simt_plan(dtype: torch.dtype, b: int, sq: int, h: int, hkv: int, d: int,
+              dv: int) -> dict:
+  """The launch plan of ``csrc/flash_attention_simt.cu`` for q (b, sq, h,
+  d) over hkv kv heads of width (d, dv): ``path`` ("ffma" for f32, "mma"
+  for bf16), ``rows`` (query rows a block: (position, group) pairs),
+  ``keys`` (a K/V tile), ``stages`` (tiles in flight: 2 where they fit in
+  ``SIMT_SMEM_LIMIT``, else 1), ``smem`` (shared bytes) and ``blocks``.
+  The row block is the largest of ``simt_row_blocks`` that fits and still
+  gives at least ``SIMT_SMS`` blocks, else the smallest that fits, so that
+  small grids spread over the card (bf16 blocks of 32 and 16 rows split
+  the keys between their warps).  Raises ``ValueError`` where ``route``
+  would not pick the kernel."""
+  if route(dtype, d, dv) != "simt":
+    raise ValueError(f"simt_plan: {dtype} at (D, Dv) = {(d, dv)} runs the "
+                     "tensor-core kernel")
+  path = "mma" if dtype == torch.bfloat16 else "ffma"
+  fits = []
+  for rows in simt_row_blocks(path, dv):
+    stages = next((s for s in (2, 1) if simt_smem_bytes(
+        path, rows, s, d, dv) <= SIMT_SMEM_LIMIT), None)
+    if stages is not None:
+      fits.append((rows, stages))
+  pairs = b * hkv
+  g = h // hkv
+  def blocks(rows):
+    return -(-sq * g // rows) * pairs
+  rows, stages = next(((r, s) for r, s in fits if blocks(r) >= SIMT_SMS),
+                      fits[-1])
+  return {"path": path, "rows": rows, "keys": SIMT_KEYS, "stages": stages,
+          "smem": simt_smem_bytes(path, rows, stages, d, dv),
+          "blocks": blocks(rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -262,36 +343,42 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: int, softcap: float,
             q_offset: int) -> torch.Tensor:
   """One launch of the forward kernel that ``route`` picks (``window`` > 0
-  with ``causal`` only, 0: none; ``softcap`` 0: none) on CUDA tensors that
-  its check passes (the tensor-core kernel's also 16-byte aligned).  Its
-  fake implementation gives the output's shape, with no check: a trace
-  holds the launch at any width, whichever kernel runs it."""
+  with ``causal`` only, 0: none; ``softcap`` 0: none; the CUDA-core
+  kernel under ``simt_plan``'s plan) on 16-byte aligned CUDA tensors that
+  its check passes.  Its fake implementation gives the output's shape,
+  with no check: a trace holds the launch at any width, whichever kernel
+  runs it."""
   if q.device.type != "cuda":
     raise ValueError(f"the flash_attention kernel runs on CUDA tensors; got "
                      f"{q.device}")
   b, sq, h, d = q.shape
   _, skv, hkv, dv = v.shape
+  plan_args = []
   if route(q.dtype, d, dv) == "wgmma":
     _check(q, k, v, window=window, q_offset=q_offset)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-      if t.data_ptr() % 16:
-        raise ValueError(f"flash_attention takes 16-byte aligned tensors; "
-                         f"{name} is not")
     name, dtype_arg = "flash_attention", []
   else:
     _check_simt(q, k, v, window=window, q_offset=q_offset)
     name, dtype_arg = "flash_attention_simt", [int(q.dtype == torch.bfloat16)]
+    plan = simt_plan(q.dtype, b, sq, h, hkv, d, dv)
+    plan_args = [plan["rows"], plan["keys"], plan["stages"], plan["smem"]]
+  for t_name, t in (("q", q), ("k", k), ("v", v)):
+    if t.data_ptr() % 16:
+      raise ValueError(f"flash_attention takes 16-byte aligned tensors; "
+                       f"{t_name} is not")
   # Each kernel is csrc/<name>.cu with the entry point <name>_launch.
   launch = _build.entry(
       name, f"{name}_launch",
       [ctypes.c_void_p] * 4 + [ctypes.c_int] * (10 + len(dtype_arg))
-      + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+      + [ctypes.c_float] * 2 + [ctypes.c_int] * len(plan_args)
+      + [ctypes.c_void_p])
   out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
   with _build.on_device(q.device):
     err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dtype_arg,
         b, sq, skv, h, hkv, d, dv, int(causal), int(window), int(q_offset),
-        1.0 / math.sqrt(d), float(softcap), _build.current_stream(q.device))
+        1.0 / math.sqrt(d), float(softcap), *plan_args,
+        _build.current_stream(q.device))
   if err != 0:
     raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
   LAUNCHES[name] += 1

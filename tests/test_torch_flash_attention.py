@@ -882,7 +882,13 @@ def test_cuda_gradients_reach_q_k_and_v(shape, cuda_device):
 # LM example's --full shape (64, 64) at G 3, bf16 at (96, 96) with G 4 and
 # a ragged S, causal and not, the soft-cap with q x 10, a query offset and
 # a window without ``causal``, and G = 200 (past the tensor-core kernel's
-# 128).
+# 128); then the edges of the kernel's tiles (64 keys; f32 blocks of 16, 32
+# or 64 rows, bf16 of 16 to 128 whose warps split the keys below 64 rows):
+# Sq * G no multiple of the row block over Skv != Sq, G 3 and 6, D = 8 and
+# (256, 256) in f32, bf16 at (40, 40) and (24, 16) (multiples of 8, not of
+# 16) and (96, 64), the window, soft-cap and query offset on the bf16 path,
+# and the two prefill shapes (f32 at llama3.2-1b's heads, bf16 (96, 96) in
+# 128-row blocks).
 SIMT_CUDA_SHAPES = [
     (2, 48, 48, 4, 2, 16, 16, torch.float32, dict()),
     (2, 48, 48, 4, 2, 16, 16, torch.float32, dict(window=32)),
@@ -896,6 +902,21 @@ SIMT_CUDA_SHAPES = [
     (2, 40, 90, 4, 2, 64, 64, torch.float32,
      dict(window=25, causal=False, q_offset=50)),
     (1, 50, 50, 200, 1, 8, 256, torch.float32, dict()),
+    (2, 100, 164, 8, 2, 64, 64, torch.float32, dict(q_offset=64)),
+    (2, 77, 90, 6, 2, 32, 32, torch.float32, dict(causal=False)),
+    (1, 90, 120, 12, 2, 64, 64, torch.float32, dict(q_offset=30)),
+    (2, 70, 70, 4, 4, 8, 8, torch.float32, dict()),
+    (1, 200, 200, 8, 4, 256, 256, torch.float32, dict()),
+    (1, 100, 100, 4, 1, 40, 40, torch.bfloat16, dict()),
+    (2, 48, 48, 4, 4, 24, 16, torch.bfloat16, dict()),
+    (1, 120, 120, 4, 2, 96, 64, torch.bfloat16, dict()),
+    (1, 333, 400, 4, 1, 96, 96, torch.bfloat16,
+     dict(window=100, q_offset=60)),
+    (1, 100, 160, 8, 2, 40, 40, torch.bfloat16,
+     dict(softcap=30.0, q_offset=60)),
+    (2, 64, 192, 12, 4, 96, 96, torch.bfloat16, dict(q_offset=128)),
+    (2, 512, 512, 32, 8, 64, 64, torch.float32, dict()),
+    (2, 512, 512, 32, 8, 96, 96, torch.bfloat16, dict()),
 ]
 
 
@@ -921,6 +942,48 @@ def test_cuda_simt_kernel_matches_plain_version(shape, cuda_device):
   assert cmp["finite"]
   assert cmp["tol_ratio"] <= 1.0, cmp
   assert cmp["rel_frob"] <= cmp["rel_frob_limit"], cmp
+
+
+@pytest.mark.requires_cuda
+def test_cuda_simt_entry_refuses_a_plan_it_cannot_run(cuda_device):
+  """The C entry point recounts the plan's shared bytes and refuses one
+  that differs, a row block its path lacks, or a fourth stage, with
+  cudaErrorInvalidValue (1) and no launch; the plan ``simt_plan`` gives
+  runs.  Misaligned tensors raise in the wrapper before any launch."""
+  import ctypes
+
+  from repro_torch.kernels import _build
+  q, k, v = (as_torch(x).to(cuda_device)
+             for x in _inputs(1, 64, 64, 4, 2, 32, 32))
+  out = torch.empty_like(q)
+  launch = _build.entry(
+      "flash_attention_simt", "flash_attention_simt_launch",
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
+      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+  plan = fa.simt_plan(q.dtype, 1, 64, 4, 2, 32, 32)
+
+  def run(rows, keys, stages, smem):
+    return launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  0, 1, 64, 64, 4, 2, 32, 32, 1, 0, 0, 32 ** -0.5, 0.0,
+                  rows, keys, stages, smem,
+                  _build.current_stream(q.device))
+
+  good = (plan["rows"], plan["keys"], plan["stages"], plan["smem"])
+  assert run(*good) == 0
+  torch.cuda.synchronize()
+  for bad in ((good[0], good[1], good[2], good[3] + 16),
+              (128, good[1], good[2],
+               fa.simt_smem_bytes("ffma", 128, good[2], 32, 32)),
+              (good[0], 32, good[2], good[3]),
+              (good[0], good[1], 3,
+               fa.simt_smem_bytes("ffma", good[0], 3, 32, 32))):
+    assert run(*bad) == 1, bad
+  flat = torch.zeros(q.numel() + 1, device=cuda_device)
+  shifted = flat[1:].view(q.shape)
+  before = dict(fa.LAUNCHES)
+  with pytest.raises(ValueError, match="16-byte aligned"):
+    fa.flash_attention(shifted, k, v)
+  assert fa.LAUNCHES == before
 
 
 @pytest.mark.requires_cuda
