@@ -141,3 +141,11 @@ def registered() -> list[str]:
 ASSIGNED = ("gemma3-12b", "stablelm-3b", "llama3.2-1b", "tinyllama-1.1b",
             "deepseek-v2-lite-16b", "grok-1-314b", "llava-next-mistral-7b",
             "recurrentgemma-2b", "xlstm-350m", "musicgen-large")
+
+
+def all_assigned() -> list[str]:
+  """The assigned architectures, ``ASSIGNED`` as a list, each registered
+  (its module imported) on the way."""
+  for name in ASSIGNED:
+    get_config(name)
+  return list(ASSIGNED)

@@ -20,6 +20,11 @@ def argsort_descending(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
   return torch.sort(x.detach(), dim=dim, descending=True, stable=True).indices
 
 
+def argsort_ascending(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+  """Non-differentiable ascending argsort (stable, int64)."""
+  return torch.sort(x.detach(), dim=dim, stable=True).indices
+
+
 def sort_descending(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
   """Differentiable descending sort along the last axis.
 

@@ -50,8 +50,18 @@ platform, dtype, shape, per-call plan); the memo is dropped whenever the
 active or the default plan changes.  Every resolution records
 ``dispatch_resolve`` / ``dispatch_bwd_resolve`` / ``projection_resolve``
 ``{op,regularization,backend,source}`` and, when a plan decided,
-``plan_decide{kind,backend,source,plan}`` (``repro_torch.obs.metrics``):
-counts of calls, not of traces.
+``plan_decide{kind,backend,source,plan}`` (``repro_torch.obs.metrics``).
+Every call records the reference's per-call counters, with the port's
+backend names: ``dispatch_calls{op,regularization,backend}`` and
+``dispatch_shape{op,bucket}`` (``metrics.shape_bucket`` of the flattened
+(rows, n)) a forward, ``dispatch_bwd_calls{op,regularization,backend}`` a
+backward, and a projection ``dispatch_calls{op=projection,...}`` with the
+path as its backend, plus ``projection_fused_calls{regularization}`` on
+the fused path.  All are counts of calls, not of traces.  Each flattened
+name is formatted once: kept with a plan's decision in its memo, or, for
+a backend from an argument or the environment, memoized by (kind, op,
+regularization, backend, rows, n); with metrics off a call adds one
+``enabled()`` test.
 """
 
 from __future__ import annotations
@@ -144,17 +154,70 @@ def dtype_name(dtype: torch.dtype) -> str:
   return str(dtype).removeprefix("torch.")
 
 
-# Memo of plan decisions: query -> (backend, counter keys).  Bounded, and
-# dropped when a plan changes.
+# Memo of plan decisions: query -> (backend, resolution counter keys,
+# per-call counter keys).  Bounded, and dropped when a plan changes.
 MEMO_CAP = 4096
-_MEMO: dict[tuple, tuple[str, str, str]] = {}
+_MEMO: dict[tuple, tuple[str, tuple[str, ...], tuple[str, ...] | None]] = {}
 _plan.on_plan_change(_MEMO.clear)
+# Per-call counter keys of backends named by an argument or the
+# environment: (kind, op, regularization, backend[, rows, n]) -> keys.
+# Bounded, and dropped with the registry (metrics.reset).
+_CALL_KEYS: dict[tuple, tuple[str, ...]] = {}
+_metrics.on_reset(_CALL_KEYS.clear)
+
+
+def _rows_n(shape) -> tuple[int, int]:
+  """The flattened (rows, n) of a call's shape, as the reference counts
+  it (0 rows when n is 0)."""
+  n = shape[-1]
+  return (torch.Size(shape[:-1]).numel() if n else 0), n
+
+
+def _format_call_keys(kind: str, op: str, regularization: str, backend: str,
+                      shape) -> tuple[str, ...]:
+  """The flattened names of the counters one call records."""
+  if kind == "forward":
+    rows, n = _rows_n(shape)
+    return (_metrics.key("dispatch_calls", op=op,
+                         regularization=regularization, backend=backend),
+            _metrics.key("dispatch_shape", op=op,
+                         bucket=_metrics.shape_bucket(rows, n)))
+  if kind == "backward":
+    return (_metrics.key("dispatch_bwd_calls", op=op,
+                         regularization=regularization, backend=backend),)
+  keys = (_metrics.key("dispatch_calls", op=op,
+                       regularization=regularization, backend=backend),)
+  if backend == "fused":
+    keys += (_metrics.key("projection_fused_calls",
+                          regularization=regularization),)
+  return keys
+
+
+def _count_call(kind: str, op: str, regularization: str, backend: str,
+                shape, keys: tuple[str, ...] | None) -> None:
+  """Record one call: ``keys`` when a plan decided (memoized with the
+  decision), else the memoized keys of (kind, op, regularization,
+  backend[, rows, n])."""
+  if keys is None:
+    if not _metrics.enabled():
+      return
+    memo = (kind, op, regularization, backend)
+    if kind == "forward":
+      memo += _rows_n(shape)
+    keys = _CALL_KEYS.get(memo)
+    if keys is None:
+      keys = _format_call_keys(kind, op, regularization, backend, shape)
+      if len(_CALL_KEYS) >= MEMO_CAP:
+        _CALL_KEYS.clear()
+      _CALL_KEYS[memo] = keys
+  _metrics.bump(*keys)
 
 
 def _decide(kind: str, op: str, regularization: str, platform: str,
-            dtype: str, shape, plan) -> str:
-  """The plan chain's backend for one query, memoized; records the
-  resolution and ``plan_decide`` counters."""
+            dtype: str, shape, plan) -> tuple[str, tuple[str, ...] | None]:
+  """The plan chain's backend for one query, memoized with its counter
+  keys; records the resolution and ``plan_decide`` counters.  Returns the
+  backend and the per-call keys (None without a shape)."""
   key = (kind, op, regularization, platform, dtype, shape, plan)
   hit = _MEMO.get(key)
   if hit is None:
@@ -163,21 +226,25 @@ def _decide(kind: str, op: str, regularization: str, platform: str,
         shape=shape, plan=plan)
     counter = _KIND_SPECS[kind][2]
     hit = (backend,
-           _metrics.key(counter, op=op, regularization=regularization,
-                        backend=backend, source=source),
-           _metrics.key("plan_decide", kind=kind, backend=backend,
-                        source=source, plan=name))
+           (_metrics.key(counter, op=op, regularization=regularization,
+                         backend=backend, source=source),
+            _metrics.key("plan_decide", kind=kind, backend=backend,
+                         source=source, plan=name)),
+           None if shape is None else _format_call_keys(
+               kind, op, regularization, backend, shape))
     if len(_MEMO) >= MEMO_CAP:
       _MEMO.clear()
     _MEMO[key] = hit
-  _metrics.bump(hit[1])
-  _metrics.bump(hit[2])
-  return hit[0]
+  _metrics.bump(*hit[1])
+  return hit[0], hit[2]
 
 
 def _resolve(kind: str, op: str, regularization: str, request: str | None,
-             platform: str, dtype: str, shape, plan) -> str:
-  """THE precedence chain: request > environment > plans."""
+             platform: str, dtype: str, shape,
+             plan) -> tuple[str, tuple[str, ...] | None]:
+  """THE precedence chain: request > environment > plans.  Returns the
+  backend and, where a plan decided, the per-call counter keys memoized
+  with the decision (None otherwise)."""
   env_var, allowed, counter = _KIND_SPECS[kind]
   if request and request != "auto":
     source = "arg"
@@ -189,7 +256,37 @@ def _resolve(kind: str, op: str, regularization: str, request: str | None,
       return _decide(kind, op, regularization, platform, dtype, shape, plan)
   _metrics.counter_inc(counter, op=op, regularization=regularization,
                        backend=backend, source=source)
-  return backend
+  return backend, None
+
+
+def _platform(device) -> str:
+  return "cpu" if device is None else torch.device(device).type
+
+
+def _registered(kind, op, regularization, request, device, dtype, shape,
+                plan):
+  """``resolve`` (kind "forward") or ``resolve_backward`` ("backward")
+  with the per-call counter keys; raises for a backend the kind's
+  registry lacks."""
+  backend, keys = _resolve(kind, op, regularization, request,
+                           _platform(device), dtype, shape, plan)
+  registry = _REGISTRY if kind == "forward" else _BWD_REGISTRY
+  if (op, regularization, backend) not in registry:
+    have = tuple(b for (o, r, b) in registry
+                 if o == op and r == regularization)
+    raise ValueError(
+        f"no {kind} backend {backend!r} registered for op={op!r}, "
+        f"regularization={regularization!r}; have {have}")
+  return backend, keys
+
+
+def _projection(path, regularization, device, dtype, shape, plan):
+  """``resolve_projection`` with the per-call counter keys."""
+  if path and path != "auto" and path not in PROJECTION_PATHS:
+    raise ValueError(f"projection path must be one of {PROJECTION_PATHS}, "
+                     f"got {path!r}")
+  return _resolve("projection", "projection", regularization, path,
+                  _platform(device), dtype, shape, plan)
 
 
 def resolve(op: str, regularization: str, request: str | None = None,
@@ -197,15 +294,8 @@ def resolve(op: str, regularization: str, request: str | None = None,
             shape=None, plan: ExecutionPlan | None = None) -> str:
   """Forward backend for a tensor on ``device`` (its type is the plans'
   platform): ``impl=`` > ``REPRO_TORCH_BACKEND`` > plans."""
-  platform = "cpu" if device is None else torch.device(device).type
-  backend = _resolve("forward", op, regularization, request, platform,
-                     dtype, shape, plan)
-  if (op, regularization, backend) not in _REGISTRY:
-    raise ValueError(
-        f"no forward backend {backend!r} registered for op={op!r}, "
-        f"regularization={regularization!r}; have "
-        f"{registered_backends(op, regularization)}")
-  return backend
+  return _registered("forward", op, regularization, request, device, dtype,
+                     shape, plan)[0]
 
 
 def resolve_backward(op: str, regularization: str,
@@ -214,15 +304,8 @@ def resolve_backward(op: str, regularization: str,
                      dtype: str = "*", shape=None,
                      plan: ExecutionPlan | None = None) -> str:
   """Backward backend: ``backend=`` > ``REPRO_TORCH_BACKWARD`` > plans."""
-  platform = "cpu" if device is None else torch.device(device).type
-  backend = _resolve("backward", op, regularization, request, platform,
-                     dtype, shape, plan)
-  if (op, regularization, backend) not in _BWD_REGISTRY:
-    raise ValueError(
-        f"no backward backend {backend!r} registered for op={op!r}, "
-        f"regularization={regularization!r}; have "
-        f"{registered_backward_backends(op, regularization)}")
-  return backend
+  return _registered("backward", op, regularization, request, device,
+                     dtype, shape, plan)[0]
 
 
 def resolve_projection(path: str | None = None,
@@ -231,12 +314,7 @@ def resolve_projection(path: str | None = None,
                        dtype: str = "*", shape=None,
                        plan: ExecutionPlan | None = None) -> str:
   """Projection path: ``path=`` > ``REPRO_TORCH_PROJECTION`` > plans."""
-  if path and path != "auto" and path not in PROJECTION_PATHS:
-    raise ValueError(f"projection path must be one of {PROJECTION_PATHS}, "
-                     f"got {path!r}")
-  platform = "cpu" if device is None else torch.device(device).type
-  return _resolve("projection", "projection", regularization, path,
-                  platform, dtype, shape, plan)
+  return _projection(path, regularization, device, dtype, shape, plan)[0]
 
 
 def resolve_backend(op: str, regularization: str,
@@ -371,8 +449,9 @@ def dispatch(op: str, regularization: str, backend: str | None,
   """
   x = args[0]
   shape = x.shape
-  b = resolve(op, regularization, backend, x.device,
-              dtype=dtype_name(x.dtype), shape=shape, plan=plan)
+  b, keys = _registered("forward", op, regularization, backend, x.device,
+                        dtype_name(x.dtype), shape, plan)
+  _count_call("forward", op, regularization, b, shape, keys)
   flat, orig_dtype = _promote_flat(args, shape[-1])
   with _tracing.backend_scope(op, regularization, b):
     out = _REGISTRY[(op, regularization, b)](*flat)
@@ -390,8 +469,9 @@ def dispatch_backward(op: str, regularization: str, backend: str | None,
   """
   x = args[0]
   shape = x.shape
-  b = resolve_backward(op, regularization, backend, x.device,
-                       dtype=dtype_name(x.dtype), shape=shape, plan=plan)
+  b, keys = _registered("backward", op, regularization, backend,
+                        x.device, dtype_name(x.dtype), shape, plan)
+  _count_call("backward", op, regularization, b, shape, keys)
   flat, orig_dtype = _promote_flat(args, shape[-1])
   with _tracing.backend_scope(f"{op}_bwd", regularization, b):
     out = _BWD_REGISTRY[(op, regularization, b)](*flat)
@@ -408,14 +488,15 @@ def dispatch_projection(z: torch.Tensor, w: torch.Tensor, regularization: str,
   ``w`` once for the whole batch), so ``z`` and ``w`` pass unflattened;
   ``kwargs`` carry the sortedness hints and precomputed permutations.
   """
-  p = resolve_projection(path, regularization, z.device,
-                         dtype=dtype_name(z.dtype), shape=z.shape, plan=plan)
+  p, keys = _projection(path, regularization, z.device,
+                        dtype_name(z.dtype), z.shape, plan)
   fn = _REGISTRY.get(("projection", regularization, p))
   if fn is None:
     raise ValueError(
         f"no projection path {p!r} registered for "
         f"regularization={regularization!r} (import "
         f"repro_torch.core.projection)")
+  _count_call("projection", "projection", regularization, p, z.shape, keys)
   with _tracing.backend_scope("projection", regularization, p):
     return fn(z, w, impl, plan=plan, **kwargs)
 

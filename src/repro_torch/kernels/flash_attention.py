@@ -202,6 +202,15 @@ def _merge(m1, l1, o1, m2, l2, o2):
   return m, l, o
 
 
+def _chunk_of(s: int, chunk: int) -> int:
+  """The plain version's chunk over ``s`` positions: the largest divisor
+  of ``s`` at most ``chunk``."""
+  chunk = min(chunk, s)
+  while s % chunk:
+    chunk -= 1
+  return chunk
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           q_chunk: int = 512, kv_chunk: int = 1024,
@@ -219,12 +228,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   dv = v.shape[-1]
   g = h // hkv
   scale = 1.0 / math.sqrt(d)
-  q_chunk = min(q_chunk, sq)
-  kv_chunk = min(kv_chunk, skv)
-  while sq % q_chunk:
-    q_chunk -= 1
-  while skv % kv_chunk:
-    kv_chunk -= 1
+  q_chunk, kv_chunk = _chunk_of(sq, q_chunk), _chunk_of(skv, kv_chunk)
   nq, nkv = sq // q_chunk, skv // kv_chunk
   qg = q.reshape(b, sq, hkv, g, d)
   dev = q.device
@@ -635,6 +639,15 @@ def _row_terms(q, k, causal: bool, window: int, softcap: float,
   return sigma, n[None, :, None, None]
 
 
+def _f32_tiles(n: torch.Tensor, skv: int) -> torch.Tensor:
+  """t = n // c + 2: the most key tiles or chunks a row seeing n keys
+  spans, and so the most times its running max rescales, c the shorter of
+  the CUDA-core kernel's tiles (``SIMT_KEYS``) and the plain version's
+  key chunk over ``skv`` (which can be shorter where 1024 does not divide
+  Skv)."""
+  return torch.floor(n / min(SIMT_KEYS, _chunk_of(skv, 1024))) + 2
+
+
 def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, causal: bool, window: int = 0,
                        softcap: float = 0.0,
@@ -657,9 +670,10 @@ def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
   f32 output (the CUDA-core kernel on f32 inputs, FFMA throughout): the
   kernel and the plain version each round every step in f32 (u =
   F32_U), so each is within E of the exact result and they differ by at
-  most 2 E.  For row i seeing n_i keys in t_i = n_i // 32 + 2 tiles or
-  chunks at most (the kernel's tiles are 32 keys, the plain version's
-  chunks longer), with sigma_i the largest scale * sum_d |q_id k_jd|:
+  most 2 E.  For row i seeing n_i keys in t_i = n_i // c + 2 tiles or
+  chunks at most (``_f32_tiles``: c the shorter of the kernel's tiles,
+  ``SIMT_KEYS`` = 64 keys, and the plain version's key chunk over Skv),
+  with sigma_i the largest scale * sum_d |q_id k_jd|:
     * a score is a dot product of D terms, then scaled: off by at most
       (D + 1) u sigma_i; the soft-cap's division, tanh (2 ulp) and
       product add at most 4 u sigma_i, its slope at most 1: e_s =
@@ -686,7 +700,7 @@ def compare_with_plain(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
   err = (out.float() - ref).abs()
   if out.dtype == torch.float32:
     sigma, n = _row_terms(q, k, causal, window, softcap, q_offset)
-    t = torch.floor(n / 32) + 2
+    t = _f32_tiles(n, k.shape[1])
     tol = 2 * F32_U * (((2 * q.shape[-1] + 12 + 2 * t) * sigma + 2 * n
                         + 3 * t + 3) * a + ref.abs())
     limit = F32_REL_FROB_LIMIT
@@ -752,32 +766,65 @@ def compare_bwd_with_plain(grads, q: torch.Tensor, k: torch.Tensor,
   f32 on the same inputs and options, by the error model of the forward
   carried through the backward.
 
-  ``flash_attention_bwd`` computes in f32 from the kernel's bf16 output O,
-  which is within 2 * BF16_U * (|O| + A) of the exact one; through
-  D = rowsum(dO * O) that moves each gradient by at most 2 * BF16_U times
-  its term over absolute values (``_magnitudes``: A_dq, A_dk, A_dv), and
-  the cast of the result to bf16 adds BF16_U * |grad|.  So, as for the
-  forward, element (i, c) of each gradient is held within 2 * BF16_U *
-  (|ref_ic| + A_ic) (``tol_ratio`` at most 1) and the relative Frobenius
-  error within REL_FROB_LIMIT.  Returns, by gradient name, the keys of
-  ``compare_with_plain``.
+  bf16 gradients: ``flash_attention_bwd`` computes in f32 from the
+  kernel's bf16 output O, which is within 2 * BF16_U * (|O| + A) of the
+  exact one; through D = rowsum(dO * O) that moves each gradient by at
+  most 2 * BF16_U times its term over absolute values (``_magnitudes``:
+  A_dq, A_dk, A_dv), and the cast of the result to bf16 adds BF16_U *
+  |grad|.  So, as for the forward, element (i, c) of each gradient is held
+  within 2 * BF16_U * (|ref_ic| + A_ic) (``tol_ratio`` at most 1) and the
+  relative Frobenius error within REL_FROB_LIMIT.
+
+  f32 gradients (the CUDA-core kernel's f32 output): both the backward and
+  the plain version's autograd round every step in f32 (u = F32_U), so,
+  as for the f32 forward, they differ by at most 2 E with E_ic <= u
+  (kappa A_ic + |ref_ic|).  A term of a gradient is a product with a
+  normalized weight P_ij, whose relative error is the forward's, (2 D +
+  12 + 2 t) sigma + n + 3 t + 3 units of u (t = ``_f32_tiles``: every
+  chunk of the plain version, every tile of the kernel's forward that gave
+  O); dP_ij sums Dv products (Dv u), D_i's error from O and its own sum is
+  in A_D (``_magnitudes``); dS = P (dP - D), the scale, and the sum of the
+  terms: n_i of them for dq's row i, up to G * Sq (every query row and
+  head of the group) for an element of dk or dv.  So kappa = (2 D + 12 +
+  2 t_i) sigma_i + 2 n_i + 3 t_i + Dv + 6 for dq, row by row, and for dk
+  and dv the same at the largest sigma, n and t, with G * Sq in place of
+  one n; the relative Frobenius error is held to F32_REL_FROB_LIMIT.  A
+  key masked wrongly moves a row's terms by about 1 / n_i, far above
+  this, and within the bf16 model at large n.
+
+  Returns, by gradient name, the keys of ``compare_with_plain``.
   """
   xs = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
   ref = flash_attention_plain(*xs, causal=causal, window=window,
                               softcap=softcap, q_offset=q_offset)
   refs = torch.autograd.grad(ref, xs, do.float())
+  f32 = grads[0].dtype == torch.float32
+  if f32:
+    sigma, n = _row_terms(q, k, causal, window, softcap, q_offset)
+    t = _f32_tiles(n, k.shape[1])
+    d, dv, g = q.shape[-1], v.shape[-1], q.shape[2] // k.shape[2]
+    kappa_dq = (2 * d + 12 + 2 * t) * sigma + 2 * n + 3 * t + dv + 6
+    s_max, n_max, t_max = (float(x.max()) for x in (sigma, n, t))
+    kappa_kv = ((2 * d + 12 + 2 * t_max) * s_max + n_max + g * q.shape[1]
+                + 3 * t_max + dv + 6)
+    kappas = (kappa_dq, kappa_kv, kappa_kv)
   out = {}
-  for name, got, want, a in zip(("dq", "dk", "dv"), grads, refs,
-                                _magnitudes(q, k, v, do, causal, window,
-                                            softcap, q_offset)):
+  for i, (name, got, want, a) in enumerate(zip(
+      ("dq", "dk", "dv"), grads, refs,
+      _magnitudes(q, k, v, do, causal, window, softcap, q_offset))):
     err = (got.float() - want).abs()
-    tol = torch.clamp(2 * BF16_U * (want.abs() + a), min=1e-30)
+    if f32:
+      tol = 2 * F32_U * (kappas[i] * a + want.abs())
+    else:
+      tol = 2 * BF16_U * (want.abs() + a)
+    tol = torch.clamp(tol, min=1e-30)
     out[name] = {
         "finite": bool(torch.isfinite(got).all()),
         "max_abs_err": float(err.max()),
         "tol_ratio": float((err / tol).max()),
         "rel_frob": float(torch.linalg.vector_norm(err)
                           / torch.linalg.vector_norm(want)),
+        "rel_frob_limit": F32_REL_FROB_LIMIT if f32 else REL_FROB_LIMIT,
         "median_ref": float(want.abs().median()),
     }
   return out

@@ -305,6 +305,13 @@ def attn_init_cache(cfg, batch: int, max_len: int, dtype,
 # ---------------------------------------------------------------------------
 
 
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
+               device) -> Params:
+  """The embedding table (vocab, d), N(0, 0.02^2) from ``gen``, as the
+  reference's ``embed_init`` draws it."""
+  return {"table": normal(gen, (vocab, d), 0.02, dtype, device)}
+
+
 def _embed_on_blocks(table: DTensor, tokens: torch.Tensor) -> DTensor:
   """``table[tokens]`` of a DTensor table (Megatron's vocab-parallel
   embedding): the table keeps its vocabulary blocks and gathers its

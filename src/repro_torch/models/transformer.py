@@ -336,7 +336,7 @@ def init_params(cfg, seed: int = 0, device="cpu") -> Transformer:
   params = {}
   for name in head_names(cfg):
     if name == "embed":
-      params[name] = {"table": L.normal(gen, (v, d), 0.02, dtype, device)}
+      params[name] = L.embed_init(gen, v, d, dtype, device)
     elif name == "final_norm":
       params[name] = L.norm_init(d, cfg.norm, device)
     else:

@@ -5,7 +5,12 @@ Counterpart of ``repro.obs.metrics``, a copy in the standard library only
 (or ``false`` / ``off`` / ``no``) turns every recording call into one
 predicate check that keeps no state.  A metric instance is named
 ``name{k=v,...}`` with its label keys sorted, so snapshots are stable
-across runs.  The trainer observes ``train_step_us``.
+across runs.  The trainer observes ``train_step_us``; the dispatch layer
+counts every call (``dispatch_calls``, ``dispatch_shape`` by
+``shape_bucket``, ``dispatch_bwd_calls``, ``projection_fused_calls``) and
+every resolution.  Modules that keep state beside the registry (the
+dispatch layer's memo of counter names) register an ``on_reset`` hook,
+so that a disabled process keeps nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import math
 import os
 import threading
+from typing import Callable
 
 ENV_VAR = "REPRO_TORCH_METRICS"
 
@@ -23,6 +29,9 @@ _counters: dict[str, int] = {}
 _histograms: dict[str, dict] = {}
 # None -> consult the environment on each call; True/False -> forced.
 _enabled_override: bool | None = None
+# Run by reset() (and so by set_enabled(False)): state that other modules
+# keep beside the registry.
+_reset_hooks: list[Callable[[], None]] = []
 
 
 def enabled() -> bool:
@@ -42,11 +51,18 @@ def set_enabled(on: bool | None) -> None:
     reset()
 
 
+def on_reset(hook: Callable[[], None]) -> None:
+  """Register ``hook`` to run on every ``reset()``."""
+  _reset_hooks.append(hook)
+
+
 def reset() -> None:
-  """Clear every counter and histogram."""
+  """Clear every counter and histogram, and run the ``on_reset`` hooks."""
   with _lock:
     _counters.clear()
     _histograms.clear()
+  for hook in _reset_hooks:
+    hook()
 
 
 def _key(name: str, labels: dict) -> str:
@@ -61,13 +77,14 @@ def key(name: str, /, **labels) -> str:
   return _key(name, labels)
 
 
-def bump(flat_key: str) -> None:
-  """Increment the counter whose flattened name (``key``) was formatted
-  once beforehand: the dispatch hot path's ``counter_inc``."""
+def bump(*flat_keys: str) -> None:
+  """Increment by one each counter whose flattened name (``key``) was
+  formatted once beforehand: the dispatch hot path's ``counter_inc``."""
   if not enabled():
     return
   with _lock:
-    _counters[flat_key] = _counters.get(flat_key, 0) + 1
+    for k in flat_keys:
+      _counters[k] = _counters.get(k, 0) + 1
 
 
 def counter_inc(name: str, value: int = 1, /, **labels) -> None:
@@ -90,6 +107,13 @@ def pow2_bucket(value: float) -> str:
   if v <= 1.0:
     return "<=2^0"
   return f"<=2^{math.ceil(math.log2(v))}"
+
+
+def shape_bucket(rows: int, n: int) -> str:
+  """A label for a flattened (rows, n) problem shape, few and stable:
+  ``r2^3_n2^7`` for at most 8 rows of n <= 128 (no commas, which separate
+  labels in a flattened name)."""
+  return f"r{pow2_bucket(rows)[2:]}_n{pow2_bucket(n)[2:]}"
 
 
 def observe(name: str, value: float, /, **labels) -> None:

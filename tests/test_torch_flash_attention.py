@@ -467,14 +467,15 @@ def test_error_model_holds_rounding_and_catches_a_window_edge_error():
                                    (8, 128, 12, 4, 64, 64, 0)])
 def test_f32_error_model_holds_rounding_and_catches_a_mask_error(shape):
   """The f32 model of ``compare_with_plain`` on the CPU: the plain version
-  at 32-key chunks (the CUDA-core kernel's tiles, f32 throughout) and the
-  f64 result rounded to f32 both pass at a small fraction of the limits;
-  the output with a window one key wider, or without the causal mask,
-  breaks both."""
+  at 64-key chunks (the CUDA-core kernel's tiles, ``SIMT_KEYS``, f32
+  throughout) and the f64 result rounded to f32 both pass at a small
+  fraction of the limits; the output with a window one key wider, or
+  without the causal mask, breaks both."""
   b, s_, h, hkv, d, dv, window = shape
   q, k, v = (as_torch(x) for x in _inputs(b, s_, s_, h, hkv, d, dv))
-  for good in (fa.flash_attention_plain(q, k, v, window=window, q_chunk=32,
-                                        kv_chunk=32),
+  for good in (fa.flash_attention_plain(q, k, v, window=window,
+                                        q_chunk=fa.SIMT_KEYS,
+                                        kv_chunk=fa.SIMT_KEYS),
                fa.flash_attention_plain(q.double(), k.double(), v.double(),
                                         window=window).float()):
     cmp = fa.compare_with_plain(good, q, k, v, True, window=window)
@@ -686,6 +687,59 @@ def test_windowed_backward_bf16_within_error_model_and_catches_no_window():
                                              8).items():
     assert cmp["tol_ratio"] > 1.0 and cmp["rel_frob"] > fa.REL_FROB_LIMIT, (
         name, cmp)
+
+
+@pytest.mark.parametrize("n, skv, want", [
+    (1, 512, 2), (63, 512, 2), (64, 512, 3), (512, 512, 10),
+    (512, 2048, 10), (100, 1031, 102), (7, 48, 2), (48, 48, 3)])
+def test_f32_models_count_the_tiles_of_the_kernel_and_the_chunks(n, skv,
+                                                                 want):
+  """t = n // c + 2 rescales of a row's running max: c the CUDA-core
+  kernel's 64-key tiles, or the plain version's key chunk where that is
+  shorter (1031 keys, prime, are chunked one by one; 48 keys in one)."""
+  assert fa.SIMT_KEYS == 64
+  t = fa._f32_tiles(torch.tensor([float(n)]), skv)
+  assert float(t) == want
+
+
+def _dense_attention(q, k, v, mask):
+  """Attention in f32 under a boolean (Sq, Skv) mask, as one softmax."""
+  g = q.shape[2] // k.shape[2]
+  kh, vh = (x.repeat_interleave(g, dim=2) for x in (k, v))
+  s = torch.einsum("bqhd,bkhd->bhqk", q, kh) / math.sqrt(q.shape[-1])
+  p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+  return torch.einsum("bhqk,bkhc->bqhc", p, vh)
+
+
+def test_f32_backward_model_catches_a_one_key_mask_error():
+  """At the f32 llama3.2-1b prefill's n (512 positions, G 4, D 64; one
+  sequence and 4 heads here): ``flash_attention_bwd``'s f32 gradients
+  pass the f32 backward model at a small fraction of it; gradients of the
+  same attention with one key (the first) hidden from the last query row,
+  which sees 512, fail it, and pass the bf16 model that held every dtype
+  before (2 * BF16_U * (|ref| + A))."""
+  q, k, v = (as_torch(x) for x in _inputs(1, 512, 512, 4, 1, 64, 64))
+  do = as_torch(rng.normal(size=(1, 512, 4, 64)))
+  out = fa.flash_attention_plain(q, k, v)
+  good = fa.flash_attention_bwd(q, k, v, out, do, True)
+  for name, cmp in fa.compare_bwd_with_plain(good, q, k, v, do,
+                                             True).items():
+    assert cmp["rel_frob_limit"] == fa.F32_REL_FROB_LIMIT
+    assert cmp["tol_ratio"] <= 0.1, (name, cmp)
+    assert cmp["rel_frob"] <= fa.F32_REL_FROB_LIMIT / 10, (name, cmp)
+  mask = torch.ones(512, 512).tril().bool()
+  mask[511, 0] = False
+  xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+  bad = torch.autograd.grad(_dense_attention(*xs, mask), xs, do)
+  cmps = fa.compare_bwd_with_plain(bad, q, k, v, do, True)
+  assert max(c["tol_ratio"] for c in cmps.values()) > 1.0, cmps
+  xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+  refs = torch.autograd.grad(fa.flash_attention_plain(*xs), xs, do)
+  for got, want, a in zip(bad, refs, fa._magnitudes(q, k, v, do, True)):
+    old = (got - want).abs() / (2 * fa.BF16_U * (want.abs() + a))
+    assert float(old.max()) <= 1.0
+    assert float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want)) <= fa.REL_FROB_LIMIT
 
 
 def test_backward_error_model_catches_a_mask_error():
