@@ -329,6 +329,21 @@ its own lines; any failure raises and the script exits non-zero:
             loss and expert-load CV, the sampled tokens); wall seconds,
             steps/s, peak memory, and every kernel's launches, held to the
             counts from the code.
+   experiments (after the examples) the paper's three quality
+            experiments (``repro_torch.experiments``: Figure 4's top-k
+            losses, Table 1's label ranking, Figures 6-7's soft LTS) at the
+            reference's sizes and steps through their ``main``; the PAV
+            kernels held bit for bit to their plain versions on the
+            first and the last of the run's own solves at each shape;
+            every row held to the same program on the CPU workers (the
+            divide and conquer, submitted before phase 4) within
+            ``repro_torch.experiments.BANDS``: each training's final
+            weights within 1e-4 * (1 + max|cpu|), Fig. 6 within 1e-5 *
+            (1 + |cpu|), R^2 and rho within 1e-4, accuracy within one
+            test sample, every row finite; wall seconds, steps/s, peak
+            memory, the PAV launches held to the counts from the code;
+            then one line on the paper's four claims, each reproduced or
+            not (a finding, not a check).
 6. train    the servers' models freed, ``repro_torch.launch.train``'s
             ``main`` on each of ``TRAIN_RUNS``, one after the other:
             deepseek-v2-lite-16b at full width and 4 of 27 layers (the
@@ -400,7 +415,8 @@ mesh        the sharded main path on a one-rank NCCL group: meshes (1, 1)
             G 1 and tinyllama's (64, 64) at G 8 at their prefills, with
             their train launches; the gates'
             grok shapes under ``shapes``; the mesh phase's launches under
-            ``mesh_launches``; ``flash_attention_simt`` with its launches
+            ``mesh_launches``, the experiments' under
+            ``experiment_launches``; ``flash_attention_simt`` with its launches
             by example program and smoke config and its rows by shape),
             then the device line last.
 
@@ -410,6 +426,7 @@ JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1106,7 +1123,9 @@ def engine_times(serve, pav, pav_scan, segment_vjp, dev, rng, record,
     bytes_ms = n_el * BYTES_PER_ELEM[kname] / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / F32_OPS_PER_S * 1e3
     ms = median_ms(lambda: kernel(*args), 20)
-    dev_ms = kernel_device_ms(lambda: kernel(*args), DEVICE_NAMES[kname], 20)
+    dev_ms = kernel_device_ms(lambda: kernel(*args), DEVICE_NAMES[kname], 20,
+                              max(bytes_ms, ops_ms),
+                              pav.kernels_a_call(*rows_n))
     plain = getattr(pav_scan, f"{kname}_scan")
     plain_ms = median_ms(lambda: plain(*args), 3)
     held = hold(kname, f"{rows_n} soft_rank input", out, plain(*args),
@@ -1917,6 +1936,44 @@ def attn_bound(q, k, v, causal: bool, window: int = 0, softcap: float = 0.0,
 # session (CUPTI); a reading is taken again up to this many times, and if
 # none shows device time it is reported as not measured.
 PROFILER_TRIES = 3
+# Once the script has started and ended other processes (its CPU workers),
+# every profiler session on the card loses the records of its first 2 to 6
+# kernel launches, whatever it waits for: a 20-launch session holds 14-18
+# of them and a one-launch session none (NVIDIA H100 80GB HBM3).  So each
+# session opens with this many launches of the pad kernel,
+# ``torch.cuda._sleep``'s ``spin_kernel``, for the loss to take; readings
+# leave them out.
+PROFILER_PAD = 16
+PAD_KERNEL = "spin_kernel"
+
+
+# The CUDA kernel that each port kernel's wrapper launches first, once a
+# launch, as the profiler names it (every part in the name): a profiled
+# call's records of them are held to the wrappers' launch counts.
+FIRST_KERNELS = {"pav_l2": ("tile_kernel", "L2Algebra"),
+                 "pav_kl": ("tile_kernel", "KlAlgebra"),
+                 "soft_topk_gates": ("soft_topk_kernel",),
+                 "flash_attention": ("flash_kernel",),
+                 "flash_attention_simt": ("attention_simt",)}
+NOT_PROFILED = "not measured (no profiler session recorded every launch)"
+
+
+@contextlib.contextmanager
+def padded_profile():
+  """A torch.profiler session (CPU and CUDA) that opens with
+  ``PROFILER_PAD`` pad kernels (a microsecond each) and closes once the
+  device has finished."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as torch_profile
+
+  torch.cuda.synchronize()
+  with torch_profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILER_PAD):
+      torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    yield prof
+    torch.cuda.synchronize()
 
 
 def read_profile(prof, ranges=()) -> tuple[dict, dict]:
@@ -1929,7 +1986,7 @@ def read_profile(prof, ranges=()) -> tuple[dict, dict]:
   one (as torch's own reading pairs them), and to a range when that op
   started inside the range on the range's thread.  The ranges (all named
   repro_...) also show as CUDA events spanning their kernels: not kernels
-  themselves."""
+  themselves; nor are the session's pad kernels (``padded_profile``)."""
   from torch.autograd import DeviceType
 
   kernels: dict[str, list] = {}
@@ -1939,7 +1996,7 @@ def read_profile(prof, ranges=()) -> tuple[dict, dict]:
     name = e.name()
     if e.device_type() == DeviceType.CUDA:
       ms = e.duration_ns() / 1e6
-      if name.startswith("repro_"):
+      if name.startswith("repro_") or PAD_KERNEL in name:
         if name in spans:
           spans[name][1] += ms
         continue
@@ -1965,27 +2022,45 @@ def read_profile(prof, ranges=()) -> tuple[dict, dict]:
   return kernels, spans
 
 
+def unrecorded(kernels: dict, launched: dict[str, int]) -> str:
+  """Which port kernels a profile's ``kernels`` (name: [device ms,
+  launches]) hold fewer or more launches of than their wrappers counted
+  (``launched``, by kernel, as ``ops.all_launches`` names them), as
+  "pav_l2 3 of 4, ..."; "" when every count is met."""
+  short = []
+  for kname, want in launched.items():
+    parts = FIRST_KERNELS[kname]
+    got = sum(n for name, (_, n) in kernels.items()
+              if all(p in name for p in parts))
+    if got != want:
+      short.append(f"{kname} {got} of {want}")
+  return ", ".join(short)
+
+
 def profile(fn, ranges=()) -> tuple[float, float | None,
                                     list[tuple[str, float, int]], dict]:
-  """One call of ``fn`` under torch.profiler: (wall ms, device busy ms or
-  None if no session recorded device time, every kernel with its device
-  ms and launch count, the most device time first, and for each name in
-  ``ranges`` (a ``record_function`` range) [its host ms, its device span
-  from its first kernel's start to its last kernel's end, the device ms
-  of the kernels launched inside it and their count], each summed over
-  its occurrences).  Busy time is the sum of the kernels' own device times
-  (one stream: they do not overlap)."""
-  from torch.profiler import ProfilerActivity
-  from torch.profiler import profile as torch_profile
+  """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
+  every kernel with its device ms and launch count, the most device time
+  first, and for each name in ``ranges`` (a ``record_function`` range)
+  [its host ms, its device span from its first kernel's start to its last
+  kernel's end, the device ms of the kernels launched inside it and their
+  count], each summed over its occurrences).  Busy time is the sum of the
+  kernels' own device times (one stream: they do not overlap).  A session
+  counts only if it recorded every launch of the port's kernels that
+  their wrappers counted in the call (``unrecorded``); if none of
+  ``PROFILER_TRIES`` does, busy is None, with a line that says why, and
+  nothing else of the profile is returned: never a partial sum."""
+  from repro_torch.kernels import ops as kops
 
+  why = []
   for _ in range(PROFILER_TRIES):
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
+      before = kops.all_launches()
       t0 = time.perf_counter()
       fn()
       torch.cuda.synchronize()
       wall = (time.perf_counter() - t0) * 1e3
+      launched = {k: n - before[k] for k, n in kops.all_launches().items()}
       t1 = time.perf_counter()
     t2 = time.perf_counter()
     kernels, spans = read_profile(prof, ranges)
@@ -1993,36 +2068,82 @@ def profile(fn, ranges=()) -> tuple[float, float | None,
     say(f"clock: profiled {wall / 1e3:.1f} s of work; the profiler's own "
         f"stop {t2 - t1:.1f} s, reading its events "
         f"{time.perf_counter() - t2:.1f} s")
-    if busy > 0:
+    lost = unrecorded(kernels, launched) if busy > 0 else "no device time"
+    if not lost:
+      if why:
+        say(f"profiler: a profiled call measured on try {len(why) + 1} "
+            f"after: {'; '.join(why)}")
       top = sorted(((name, ms, n) for name, (ms, n) in kernels.items()),
                    key=lambda t: -t[1])
       return wall, busy, top, spans
+    why.append(f"recorded {lost}")
+  say(f"profiler: a profiled call not measured: {'; '.join(why)}")
   return wall, None, [], {}
 
 
-def kernel_device_ms(fn, name, calls: int = 20) -> float | None:
+def device_reading(entries, names, calls: int, per_call: int,
+                   bound_ms: float | None = None
+                   ) -> tuple[float | None, str]:
+  """Device ms per call from a profile's ``key_averages()`` entries of
+  ``calls`` calls, summed over the CUDA entries whose keys contain one of
+  ``names`` (``""`` matches every kernel), or None and the reason: the
+  profile must hold every launch, ``calls * per_call`` of them (a session
+  that loses events would give a partial sum), and where the caller knows
+  the kernel's bound, a reading under it is not a time the card can take."""
+  from torch.autograd import DeviceType
+
+  matched = [e for e in entries if e.device_type == DeviceType.CUDA
+             and PAD_KERNEL not in e.key and any(n in e.key for n in names)]
+  count = sum(e.count for e in matched)
+  want = calls * per_call
+  if count != want:
+    return None, f"{count} of {want} launches recorded"
+  ms = sum(e.self_device_time_total for e in matched) / 1e3 / calls
+  if bound_ms is not None and ms < bound_ms:
+    return None, f"{ms:.5f} ms a call, below its bound {bound_ms:.5f} ms"
+  return ms, ""
+
+
+def kernel_device_ms(fn, name, calls: int = 20,
+                     bound_ms: float | None = None,
+                     launches: int = 1) -> float | None:
   """Device time per call of the CUDA kernels whose names contain
   ``name`` (or one of a tuple of names; ``""``: every kernel ``fn`` runs),
   from torch.profiler over ``calls`` calls of ``fn``: their own time,
-  whatever the host spends around them.  None if no session recorded it."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity
-  from torch.profiler import profile as torch_profile
+  whatever the host spends around them.  One call makes ``launches`` of
+  the named kernels (a PAV call as many as ``pav.kernels_a_call`` says);
+  of ``""`` the launches are counted in a profile of one call, each try
+  anew.  The reading must hold ``calls`` times as many
+  (``device_reading``; with the bound, where the caller gives it).  None,
+  with a line that says why, if no try of ``PROFILER_TRIES`` gives such a
+  reading: never a partial sum."""
+
+  def entries(n: int):
+    with padded_profile() as prof:
+      for _ in range(n):
+        fn()
+    return prof.key_averages()
 
   fn()
   names = (name,) if isinstance(name, str) else name
+  why = []
   for _ in range(PROFILER_TRIES):
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-      for _ in range(calls):
-        fn()
-      torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and any(n in e.key for n in names))
-    if total > 0:
-      return total / 1e3 / calls
+    per_call = launches if names != ("",) else sum(
+        e.count for e in entries(1)
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and PAD_KERNEL not in e.key)
+    if per_call == 0:
+      why.append("no launch recorded in the one-call profile")
+      continue
+    ms, reason = device_reading(entries(calls), names, calls, per_call,
+                                bound_ms)
+    if ms is not None:
+      if why:
+        say(f"profiler: kernels {names!r} measured on try {len(why) + 1} "
+            f"after: {'; '.join(why)}")
+      return ms
+    why.append(f"{reason} ({per_call} a call)")
+  say(f"profiler: kernels {names!r} not measured: {'; '.join(why)}")
   return None
 
 
@@ -2040,18 +2161,14 @@ def sdpa_backend(fn) -> str:
   efficient (memory-efficient, CUTLASS fmha), or math (plain products and
   a softmax)."""
   from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity
-  from torch.profiler import profile as torch_profile
 
   fn()
   for _ in range(PROFILER_TRIES):
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
       fn()
-      torch.cuda.synchronize()
     kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+                      if e.device_type == DeviceType.CUDA
+                      and PAD_KERNEL not in e.key),
                      key=lambda e: -e.self_device_time_total)
     if kernels:
       name = kernels[0].key
@@ -2081,11 +2198,12 @@ def attn_times(q, kx, v, causal: bool, fa, name_limit,
   a window SDPA takes an explicit boolean (S, S) band mask, which none of
   its fused causal paths takes: its backend is named, and its work is the
   whole masked product, not the band's."""
+  bound_ms, bound_by = attn_bound(q, kx, v, causal, window)
   ms = median_ms(lambda: fa.flash_attention(q, kx, v, causal,
                                             window=window), 20)
   dev_ms = kernel_device_ms(lambda: fa.flash_attention(q, kx, v, causal,
                                                        window=window),
-                            "flash_kernel")
+                            "flash_kernel", bound_ms=bound_ms)
   plain_ms = median_ms(lambda: fa.flash_attention_plain(
       q, kx, v, causal=causal, window=window), 5)
   qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, v))
@@ -2098,9 +2216,9 @@ def attn_times(q, kx, v, causal: bool, fa, name_limit,
         enable_gqa=gqa)
 
   lib_ms = median_ms(sdpa, 20)
-  lib_dev_ms = kernel_device_ms(sdpa, "")   # every kernel of the call
+  # every kernel of the call, the same work
+  lib_dev_ms = kernel_device_ms(sdpa, "", bound_ms=bound_ms)
   backend = sdpa_backend(sdpa)
-  bound_ms, bound_by = attn_bound(q, kx, v, causal, window)
   row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": lib_ms, "shape": list(q.shape),
          "width": [q.shape[-1], v.shape[-1]], "device_ms": dev_ms,
@@ -2152,9 +2270,9 @@ def attn_option_times(dev, fa, name_limit) -> tuple[list[str], list[dict]]:
         (f"window {s // 4}, causal False", q, False, dict(window=s // 4)),
         (f"window {s // 4}, causal True", q, True, dict(window=s // 4))):
       call = lambda: fa.flash_attention(qx, k, v, causal, **opts)  # noqa
-      ms = median_ms(call, 20)
-      dev_ms = kernel_device_ms(call, "flash_kernel")
       bound_ms, bound_by = attn_bound(qx, k, v, causal, **opts)
+      ms = median_ms(call, 20)
+      dev_ms = kernel_device_ms(call, "flash_kernel", bound_ms=bound_ms)
       rows.append({"shape": list(qx.shape), "width": [d, d],
                    "causal": causal, **opts, "ms": ms, "device_ms": dev_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by})
@@ -2177,7 +2295,7 @@ def range_share_text(wall, busy, top, spans, names) -> str:
   of the wall, device ms of their kernels of the busy time, their launches
   of all launches."""
   if busy is None or any(n not in spans for n in names):
-    return "not measured (no profiler session recorded device time)"
+    return NOT_PROFILED
   launches = sum(n for _, _, n in top)
   host = sum(spans[n][0] for n in names)
   dev = sum(spans[n][2] for n in names)
@@ -2197,7 +2315,7 @@ def profile_line(cfg, name, fn, name_limit) -> str:
   slstm = "slstm" in cfg.layer_kinds()
   wall, busy, top, spans = profile(fn, SLSTM_RANGES if slstm else ())
   kernels = "; ".join(f"{key[:60]} {ms:.2f}" for key, ms, _ in top[:5])
-  busy_text = ("not measured (no profiler session recorded device time)"
+  busy_text = (NOT_PROFILED
                if busy is None else
                f"{busy:.2f} ms ({100 * (1 - busy / wall):.0f}% idle) in "
                f"{sum(n for _, _, n in top)} launches")
@@ -2256,11 +2374,11 @@ def gates_times(cfg, rec, st, name_limit) -> tuple[list[dict], list[str]]:
   rows, lines = [], []
   k, eps = cfg.experts_per_token, cfg.router_eps
   for logits in (rec.gates[0][0], rec.gates[-1][0]):
+    bound_ms, bound_by = gates_bound(logits, k, eps, st)
     ms = median_ms(lambda: st.soft_topk_gates(logits, k, eps), 20)
     dev_ms = kernel_device_ms(lambda: st.soft_topk_gates(logits, k, eps),
-                              "soft_topk_kernel")
+                              "soft_topk_kernel", bound_ms=bound_ms)
     plain_ms = median_ms(lambda: st.soft_topk_gates_plain(logits, k, eps), 3)
-    bound_ms, bound_by = gates_bound(logits, k, eps, st)
     shape = tuple(logits.shape)
     rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": None,
@@ -2463,7 +2581,7 @@ def dense_f32_serve(dev, serve, ops, st, fa, name_limit):
   wall, busy, top, _ = profile(prefill_once)
   simt_ms = sum(ms for name, ms, _ in top if "attention_simt" in name)
   simt_n = sum(n for name, _, n in top if "attention_simt" in name)
-  share_text = ("not measured (no profiler session recorded device time)"
+  share_text = (NOT_PROFILED
                 if busy is None else
                 f"{simt_ms:.3f} ms in {simt_n} launches of the {busy:.2f} ms "
                 f"busy ({simt_ms / busy:.1%}), wall {wall:.2f} ms")
@@ -3768,7 +3886,7 @@ def train_times(res, rec, captured, fa, name_limit,
                  if any(p in key for p in pats)), "other")] += ms
   group_text = ", ".join(f"{g} {ms:.1f}" for g, ms in groups.items())
   launches = sum(n for _, _, n in top)
-  busy_text = ("not measured (no profiler session recorded device time)"
+  busy_text = (NOT_PROFILED
                if busy is None else
                f"{busy:.1f} ms ({100 * (1 - busy / wall):.0f}% idle) in "
                f"{launches} kernel launches; by kind (ms): {group_text}")
@@ -3796,9 +3914,10 @@ def train_attn_times(captured, fa, name_limit, arch: str):
   out, do, window = captured["out"], captured["do"], captured["window"]
   fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v, True,
                                                 window=window), 20)
+  bound_ms, bound_by = attn_bound(q, k, v, True, window)
   fwd_dev = kernel_device_ms(lambda: fa.flash_attention(q, k, v, True,
                                                         window=window),
-                             "flash_kernel")
+                             "flash_kernel", bound_ms=bound_ms)
   plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                         window=window), 3)
   bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
@@ -3825,7 +3944,6 @@ def train_attn_times(captured, fa, name_limit, arch: str):
   lib_fwd = median_ms(sdpa_fwd, 20)
   lib_fb = median_ms(sdpa_fwd_bwd, 10)
   lib_fb_dev = kernel_device_ms(sdpa_fwd_bwd, "", calls=5)
-  bound_ms, bound_by = attn_bound(q, k, v, True, window)
   row = {"ms": fwd_ms, "device_ms": fwd_dev, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_fwd,
          "shape": list(q.shape), "width": [q.shape[-1], v.shape[-1]],
@@ -4441,8 +4559,9 @@ def simt_times(dev, fa, name_limit) -> tuple[list[dict], list[str]]:
     q, k, v = simt_inputs(dev, b, sq, skv, h, hkv, d, dv, dtype, seed=sq)
     plan, plan_text = simt_plan_text(fa, q, v, build_info)
     call = lambda: fa.flash_attention(q, k, v, causal, window=window)  # noqa
+    bound_ms, bound_by = simt_bound(q, k, v, causal, window)
     ms = median_ms(call, 50, warmup=3)
-    dev_ms = kernel_device_ms(call, "attention_simt", 50)
+    dev_ms = kernel_device_ms(call, "attention_simt", 50, bound_ms)
     plain_ms = median_ms(lambda: fa.flash_attention_plain(
         q, k, v, causal=causal, window=window), 10)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -4454,7 +4573,7 @@ def simt_times(dev, fa, name_limit) -> tuple[list[dict], list[str]]:
           enable_gqa=h != hkv)
 
     lib_ms = median_ms(sdpa, 50, warmup=3)
-    lib_dev_ms = kernel_device_ms(sdpa, "", 50)
+    lib_dev_ms = kernel_device_ms(sdpa, "", 50, bound_ms)
     backend = sdpa_backend(sdpa)
     kx, vx = (t.repeat_interleave(h // hkv, dim=1) for t in (kt, vt))
 
@@ -4465,13 +4584,12 @@ def simt_times(dev, fa, name_limit) -> tuple[list[dict], list[str]]:
 
     try:
       eff_ms = median_ms(sdpa_efficient, 50, warmup=3)
-      eff_dev_ms = kernel_device_ms(sdpa_efficient, "", 50)
+      eff_dev_ms = kernel_device_ms(sdpa_efficient, "", 50, bound_ms)
       eff_text = (f"{eff_ms:.4f} ms (device {ms_text(eff_dev_ms)}, "
                   "profiler)")
     except RuntimeError as err:
       eff_ms = eff_dev_ms = None
       eff_text = f"refused ({str(err).splitlines()[0][:80]})"
-    bound_ms, bound_by = simt_bound(q, k, v, causal, window)
     rows.append({"what": what, "shape": list(q.shape),
                  "kv_shape": list(k.shape), "width": [d, dv],
                  "dtype": str(dtype)[6:], "causal": causal,
@@ -4825,12 +4943,261 @@ def examples_phase(dev, kops, name_limit) -> tuple[list[str], dict]:
   return lines, rows
 
 
+# The paper's quality experiments, in the reference's order
+# (``benchmarks/run.py``); how far a row may part between the card and the
+# CPU is ``repro_torch.experiments.BANDS``, as in the tests.
+EXPERIMENTS = ("bench_topk", "bench_label_ranking", "bench_lts")
+# Each experiment's losses that make one isotonic solve a step, and which.
+EXPERIMENT_SOLVES = {"hard_lts": "pav_l2", "soft_lts": "pav_l2",
+                     "soft_rank_q": "pav_l2", "soft_rank_e": "pav_kl",
+                     "kl_direct": "pav_kl", "soft_topk_q": "pav_l2",
+                     "soft_topk_e": "pav_kl"}
+
+
+def experiment_on_cpu(name: str, kinds: tuple[str, ...] | None = None):
+  """Worker process: the experiment ``name`` as ``main(["--device",
+  "cpu"])`` runs it (with ``kinds``, only those losses of the top-k
+  experiment), its isotonic solves by the divide and conquer (``scan``,
+  the kernels' plain version), its CSV rows not printed.  Returns the rows
+  and the seconds it took."""
+  import importlib
+  import io
+  sys.path.insert(0, str(ROOT / "src"))
+  from repro_torch.core import use_impl
+  torch.set_num_threads(1)
+  mod = importlib.import_module(f"repro_torch.experiments.{name}")
+  t0 = time.perf_counter()
+  with use_impl("scan"), contextlib.redirect_stdout(io.StringIO()):
+    rows = (mod.run(torch.device("cpu"), kinds) if kinds
+            else mod.main(["--device", "cpu"]))
+  return rows, time.perf_counter() - t0
+
+
+def experiment_cpu_jobs(pool) -> dict[str, list]:
+  """The three experiments on the CPU workers, the top-k one a job per
+  loss (its all-pairs loss alone takes about 2 minutes of one core), the
+  longest first."""
+  topk = ("allpairs", "soft_topk_e", "soft_topk_q", "cross_entropy")
+  jobs = {"bench_topk": [pool.submit(experiment_on_cpu, "bench_topk",
+                                     (kind,)) for kind in topk]}
+  for name in ("bench_lts", "bench_label_ranking"):
+    jobs[name] = [pool.submit(experiment_on_cpu, name)]
+  return jobs
+
+
+def experiment_metrics(row: dict) -> tuple[str, ...]:
+  return (("objective", "frac_to_LS") if "objective" in row else
+          tuple(m for m in ("r2", "spearman_rho", "test_acc") if m in row))
+
+
+def experiment_launches(name: str, rows: list[dict]) -> dict[str, int]:
+  """Each kernel's launches in one run of an experiment on the card,
+  counted from its code and its rows: one isotonic solve a step of the
+  losses in ``EXPERIMENT_SOLVES`` (the forward's; the Lemma 2 backward
+  solves none), ``pav_l2`` for the quadratic ones and ``pav_kl`` for the
+  entropic ones and r~_E; Fig. 6 one ``pav_l2`` an eps and one for its
+  hard-LTS endpoint; least squares, Huber, no projection, cross-entropy
+  and all-pairs none."""
+  counts = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
+            "flash_attention": 0, SIMT: 0}
+  for row in rows:
+    kind = row["name"].split("/")[1]
+    if row["name"].startswith("fig6_"):
+      counts["pav_l2"] += 1
+    elif kind in EXPERIMENT_SOLVES:
+      counts[EXPERIMENT_SOLVES[kind]] += row["steps"]
+  if name == "bench_lts":
+    counts["pav_l2"] += 1
+  return counts
+
+
+@contextlib.contextmanager
+def captured_solves(dispatch):
+  """The card's isotonic solves (``dispatch``'s ``cuda`` entries, the PAV
+  kernels' wrappers) with copies kept of the inputs and output of the
+  first and the last call at each (kernel, shape).  Yields them as
+  {(kernel, shape): [first, last]}, each (inputs, output)."""
+  seen: dict = {}
+  saved = {}
+  for reg in ("l2", "kl"):
+    key = ("isotonic", reg, "cuda")
+    fn = saved[key] = dispatch._REGISTRY[key]
+
+    def solve(*args, _fn=fn, _kname=f"pav_{reg}"):
+      out = _fn(*args)
+      copy = (tuple(a.clone() for a in args), out.clone())
+      seen.setdefault((_kname, tuple(out.shape)), [copy, copy])[1] = copy
+      return out
+
+    dispatch._REGISTRY[key] = solve
+  try:
+    yield seen
+  finally:
+    dispatch._REGISTRY.update(saved)
+
+
+def experiments_phase(dev, kops, pav_scan, record,
+                      name_limit) -> dict[str, dict]:
+  """The paper's three experiments on the card through their ``main`` at
+  the reference's sizes and steps (their CSV rows printed as the reference
+  prints them), the launch counts set to 0 before each and read after
+  (held to ``experiment_launches``); every row finite; wall seconds,
+  steps/s and peak memory (above what was allocated before).  The PAV
+  kernels are held on the run's own solves: the first and the last call
+  at each shape against ``pav_l2_scan`` / ``pav_kl_scan`` on the same
+  inputs, as phase 3 holds them (bit for bit, the same blocks).  Keeping
+  those copies adds a few copy launches to each step's wall."""
+  import importlib
+
+  from repro_torch.kernels import dispatch
+
+  out = {}
+  for name in EXPERIMENTS:
+    mod = importlib.import_module(f"repro_torch.experiments.{name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kops.reset_all_launches()
+    with captured_solves(dispatch) as solves:
+      t0 = time.perf_counter()
+      rows = mod.main(["--device", "cuda"])
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+    launches = kops.all_launches()
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+    want = experiment_launches(name, rows)
+    check(launches == want, f"{name}: launches {launches}, counted from "
+          f"the code {want}")
+    check(all(math.isfinite(row[m]) for row in rows
+              for m in ("us_per_call", *experiment_metrics(row))),
+          f"{name}: a row is not finite")
+    check(all(np.isfinite(v).all() for row in rows
+              for v in row.get("weights", {}).values()),
+          f"{name}: a row's weights are not finite")
+    check(sorted(k for k, n in want.items() if n) ==
+          sorted({k for k, _ in solves}),
+          f"{name}: solves captured {sorted(solves)}, launches {want}")
+    held_text = []
+    for (kname, shape), calls in sorted(solves.items()):
+      plain = getattr(pav_scan, f"{kname}_scan")
+      for which, (args, got) in zip(("first", "last"), calls):
+        reason = KL_ON_CARD if kname == "pav_kl" else None
+        held_text.append(
+            f"{kname} {shape} {which} call: " +
+            hold(kname, f"{name} {shape} {which}", got, plain(*args),
+                 record, reason))
+    steps = sum(row.get("steps", 0) for row in rows)
+    out[name] = {"rows": rows, "wall_s": wall, "steps": steps,
+                 "steps_per_s": steps / wall, "peak_gib": peak,
+                 "launches": launches}
+    text = "; ".join(
+        row["name"].split("/", 1)[1] + " " + ", ".join(
+            f"{m} {row[m]:.6f}" for m in experiment_metrics(row))
+        for row in rows)
+    say(f"experiments: {name} on the card: {text}; wall {wall:.2f} s, "
+        f"{steps} steps, {steps / wall:.1f} steps/s, peak {peak:.4f} GiB; "
+        f"launches {launches} [{name_limit}]")
+    say(f"experiments: {name}'s own solves, kernel against the plain "
+        f"divide and conquer on the card: {'; '.join(held_text)}")
+  return out
+
+
+def experiments_cpu_checks(card: dict[str, dict], futures) -> None:
+  """Every row of the card's runs against the same row of the CPU's, each
+  metric and the final weights within ``repro_torch.experiments``'s
+  ``band``."""
+  from repro_torch.experiments import BANDS, band, weights_apart
+
+  for name, jobs in futures.items():
+    cpu, seconds = {}, []
+    for job in jobs:
+      rows, sec = job.result()
+      cpu.update((row["name"], row) for row in rows)
+      seconds.append(sec)
+    rows = card[name]["rows"]
+    check(sorted(cpu) == sorted(row["name"] for row in rows),
+          f"{name}: the CPU's rows are not the card's")
+    worst: dict[str, float] = {}
+    for row in rows:
+      ref = cpu[row["name"]]
+      for m in experiment_metrics(row):
+        err = abs(row[m] - ref[m])
+        check(math.isfinite(ref[m])
+              and err <= band(m, ref[m], row.get("n_test")),
+              f"{name} {row['name']} {m}: card {row[m]!r}, cpu {ref[m]!r}")
+        worst[m] = max(worst.get(m, 0.0), err)
+      if "weights" in row:
+        err, tol = weights_apart(row["weights"], ref["weights"])
+        check(err <= tol, f"{name} {row['name']} weights: max |card - cpu| "
+              f"{err:.3e}, band {tol:.3e}")
+        rel = err / (tol / BANDS["weights"])
+        worst["weights / (1 + max|cpu|)"] = max(
+            worst.get("weights / (1 + max|cpu|)", 0.0), rel)
+    say(f"experiments: {name} card against the CPU (divide and conquer, "
+        f"{len(jobs)} worker job(s), {' + '.join(f'{s:.1f}' for s in seconds)}"
+        f" s of one core): every row and its final weights within their "
+        f"bands; worst |card - cpu| "
+        + ", ".join(f"{m} {e:.3e}" for m, e in worst.items()))
+
+
+def paper_claims(card: dict[str, dict]) -> str:
+  """The paper's four claims on the card's rows, each reproduced or not:
+  Table 1, a soft-rank loss above no projection at both noise levels;
+  Fig. 6, frac_to_LS within 0.1 of 0 at eps 1e-4 and of 1 at 1e5; Fig. 7,
+  hard and soft LTS above least squares' R^2 at every outlier fraction
+  from 0.1; Fig. 4, each soft top-k loss's accuracy within 5 points of
+  cross-entropy's at both class counts."""
+  rows = {row["name"]: row for run in card.values() for row in run["rows"]}
+
+  def verdict(ok: bool) -> str:
+    return "reproduced" if ok else "NOT reproduced"
+
+  parts = []
+  t1 = []
+  for noise in (0.25, 1.0):
+    base = rows[f"table1_label_ranking/no_projection/noise={noise}"]
+    soft = {k: rows[f"table1_label_ranking/{k}/noise={noise}"]
+            ["spearman_rho"] for k in ("soft_rank_q", "soft_rank_e",
+                                        "kl_direct")}
+    best = max(soft, key=soft.get)
+    t1.append((soft[best] > base["spearman_rho"],
+               f"noise {noise}: {best} {soft[best]:.4f} against "
+               f"{base['spearman_rho']:.4f}"))
+  parts.append(f"Table 1 {verdict(all(ok for ok, _ in t1))} ("
+               + "; ".join(text for _, text in t1) + ")")
+  lo = rows["fig6_interpolation/eps=0.0001"]["frac_to_LS"]
+  hi = rows["fig6_interpolation/eps=100000"]["frac_to_LS"]
+  parts.append(f"Fig. 6 {verdict(lo < 0.1 and hi > 0.9)} (frac_to_LS "
+               f"{lo:.4f} at eps 1e-4, {hi:.4f} at 1e5)")
+  f7 = []
+  for frac in (0.1, 0.2, 0.3, 0.4):
+    r = {k: rows[f"fig7_robust_regression/{k}/outliers={frac}"]["r2"]
+         for k in ("least_squares", "hard_lts", "soft_lts")}
+    f7.append((r["hard_lts"] > r["least_squares"]
+               and r["soft_lts"] > r["least_squares"],
+               f"{frac}: hard {r['hard_lts']:.4f}, soft {r['soft_lts']:.4f},"
+               f" LS {r['least_squares']:.4f}"))
+  parts.append(f"Fig. 7 {verdict(all(ok for ok, _ in f7))} ("
+               + "; ".join(text for _, text in f7) + ")")
+  f4 = []
+  for n in (10, 100):
+    ce = rows[f"fig4_topk/cross_entropy/classes={n}"]["test_acc"]
+    for k in ("soft_topk_q", "soft_topk_e"):
+      acc = rows[f"fig4_topk/{k}/classes={n}"]["test_acc"]
+      f4.append((ce - acc <= 0.05, f"{k} {acc:.4f} at {n} classes"))
+    f4[-1] = (f4[-1][0], f4[-1][1] + f" (cross-entropy {ce:.4f})")
+  parts.append(f"Fig. 4 {verdict(all(ok for ok, _ in f4))} ("
+               + "; ".join(text for _, text in f4) + ")")
+  return "experiments: the paper's claims on the card: " + "; ".join(parts)
+
+
 def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     serve_rows, dense_row, grok_row, grok_gate_rows,
                     full_rows, audio_row, train_launches, train_rows,
                     engine_runs, engine_rows, option_rows,
                     mesh_launches, simt_rows, smoke_counts,
-                    example_rows, simt_serve) -> list[dict]:
+                    example_rows, simt_serve, experiment_runs) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
   ``train_launches`` by model).  ``launches`` is each kernel's main path:
@@ -4845,7 +5212,8 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   musicgen's (64, 64) at G = 1 and tinyllama's (64, 64) at G = 8 at their
   prefills; xlstm has no attention)
   ``mesh_launches`` counts each kernel's launches in the mesh phase's
-  sharded runs, by run.  ``widths`` gives each width
+  sharded runs, by run, ``experiment_launches`` in the paper's
+  experiments, by experiment.  ``widths`` gives each width
   with its own launches, error and training shape's times (none for grok,
   which is not trained; recurrentgemma's and llava's, whose train runs are
   checks only, the attention alone; gemma's at its first, windowed,
@@ -4869,7 +5237,9 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
             "engine_launches": engine_runs["default"]["launches"][kname],
             "engine_all_ops_launches":
                 engine_runs["all ops"]["launches"][kname],
-            "mesh_launches": by_arch(mesh_launches, kname)}
+            "mesh_launches": by_arch(mesh_launches, kname),
+            "experiment_launches": {name: run["launches"][kname] for
+                                    name, run in experiment_runs.items()}}
 
   kernels = []
   for kname in ("pav_l2", "pav_kl"):
@@ -5057,6 +5427,7 @@ def main() -> int:
     # The engine's streams as unpadded calls on the CPU go first: the
     # engine phase's comparisons wait for them.
     engine_futures = engine_cpu_jobs(pool)
+    experiment_futures = experiment_cpu_jobs(pool)
     futures = [pool.submit(plain_on_cpu, job[4], job[5]) for job in jobs]
     token_future = pool.submit(token_loss_on_cpu, tokens_np)
     say(f"kernels: {len(jobs)} comparisons at (1, {TOKENS}) and (128, 10000)"
@@ -5085,6 +5456,9 @@ def main() -> int:
     # (their peaks are their own, above what the server holds).
     _, example_rows = examples_phase(dev, kops, name_limit)
     clock("examples")
+    experiment_runs = experiments_phase(dev, kops, pav_scan, record,
+                                        name_limit)
+    clock("experiments")
     t0 = time.perf_counter()
     for (kname, what, shape, out, fn_name, _), future in zip(jobs, futures):
       ref, seconds = future.result()
@@ -5106,6 +5480,8 @@ def main() -> int:
         f"{e_out:.3e}, gradients {e_grad:.3e} (tol 1e-5 * (1 + max|CPU|); "
         f"CPU {seconds:.1f} s)")
     engine_cpu_checks(engine_runs, engine_futures)
+    experiments_cpu_checks(experiment_runs, experiment_futures)
+    say(paper_claims(experiment_runs))
     say(f"kernels: waited {time.perf_counter() - t0:.1f} s for the CPU "
         "workers after phase 4")
     for kname in ("pav_l2", "pav_kl"):
@@ -5154,7 +5530,8 @@ def main() -> int:
       dev_text = ""
       if kind == "main":
         dev_ms = kernel_device_ms(lambda: kernel(*args), DEVICE_NAMES[kname],
-                                  reps)
+                                  reps, bound_ms,
+                                  pav.kernels_a_call(rows, n))
         dev_text = f" (device {ms_text(dev_ms)}, profiler)"
       plain_ms = None
       if kind == "main":
@@ -5348,7 +5725,8 @@ def main() -> int:
       engine_runs=engine_runs, engine_rows=engine_rows,
       option_rows=option_rows, mesh_launches=mesh_launches,
       simt_rows=simt_rows, smoke_counts=smoke_counts,
-      example_rows=example_rows, simt_serve=f32_row)
+      example_rows=example_rows, simt_serve=f32_row,
+      experiment_runs=experiment_runs)
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

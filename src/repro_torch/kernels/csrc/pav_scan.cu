@@ -442,6 +442,13 @@ struct Work {
 
 int64_t n_tiles_of(int64_t n) { return (n + kTile - 1) / kTile; }
 
+// Merge levels above the tile: log2(n) rounded up, less kTileLog.
+int levels_above_tile(int64_t n) {
+  int levels = 0;
+  while ((int64_t{1} << (kTileLog + levels)) < n) ++levels;
+  return levels;
+}
+
 size_t work_bytes(int64_t rows, int64_t n) {
   if (n <= kTile) return 0;
   const int64_t nseg0 = n_tiles_of(n);
@@ -495,7 +502,8 @@ int launch(const float* x0, const float* x1, float* out, void* work,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int cur = 0;
-  for (int lvl = kTileLog; (int64_t{1} << lvl) < n; ++lvl) {
+  const int top = kTileLog + levels_above_tile(n);
+  for (int lvl = kTileLog; lvl < top; ++lvl) {
     const int64_t npairs = (n + (int64_t{2} << lvl) - 1) >> (lvl + 1);
     const dim3 mgrid(static_cast<unsigned>((npairs * 32 + 255) / 256),
                      static_cast<unsigned>(rows));
@@ -524,6 +532,14 @@ int launch(const float* x0, const float* x1, float* out, void* work,
 // f32, C-contiguous, on the current device; `work` holds at least
 // pav_scan_<reg>_work_bytes(rows, n) bytes, 16-byte aligned (none when
 // n <= 16384).  Returns the first launch's cudaError_t that is not 0.
+// CUDA kernels one launch makes on rows of n (either instantiation): the
+// tile kernel alone where a row fits one tile, else the tile kernel, a
+// merge and a move kernel for each level above the tile, and the expand
+// kernel.
+extern "C" int pav_scan_kernels(int64_t n) {
+  return n <= kTile ? 1 : 2 + 2 * levels_above_tile(n);
+}
+
 extern "C" int64_t pav_scan_l2_work_bytes(int64_t rows, int64_t n) {
   return static_cast<int64_t>(work_bytes(rows, n));
 }

@@ -209,6 +209,14 @@ def _launch_slices(kname: str, reg: str, ins: list[torch.Tensor],
       LAUNCHES[kname] += 1
 
 
+def kernels_a_call(rows: int, n: int) -> int:
+  """CUDA kernels that one call of ``pav_l2`` or ``pav_kl`` makes on a
+  (rows, n) batch: each row slice's launch makes as many as
+  ``csrc/pav_scan.cu`` counts (a profiler reading is held to them)."""
+  per_launch = _build.entry("pav_scan", "pav_scan_kernels", [_I64])(n)
+  return len(row_slices(rows)) * per_launch
+
+
 def pav_l2(y: torch.Tensor) -> torch.Tensor:
   """Batched isotonic regression (non-increasing), CUDA (B, N) -> (B, N):
   the divide-and-conquer kernel of ``csrc/pav_scan.cu``."""

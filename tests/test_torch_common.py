@@ -23,6 +23,10 @@ primitive per shape and costs seconds) and run with
 
 from __future__ import annotations
 
+import concurrent.futures
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -34,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 CONTRACT = 1e-5
 CONTRACT_F64 = 1e-10
 CONTRACT_BF16 = 5e-2
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -130,3 +135,113 @@ def assert_vjp_parity(jax_fn, torch_fns, args, cot, *, f64: bool = False):
     for g, wg in zip(got_g, want_g):
       assert_close(g, wg, *args, cot, contract=contract)
   return got, got_g
+
+
+@pytest.fixture
+def reference_bench(composed_ref, monkeypatch):
+  """A loader of the reference's ``benchmarks/<name>.py`` as a module, run
+  unchanged: on the composed projection (fault R1) with the ``lax``
+  backend (the reference's stack machine, the quickest to compile here),
+  and with the repo's root on ``sys.path`` for its ``from
+  benchmarks.common import emit``."""
+  monkeypatch.setenv("REPRO_BACKEND", "lax")
+  monkeypatch.syspath_prepend(str(ROOT))
+
+  def load(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"reference_{name}", ROOT / "benchmarks" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+  return load
+
+
+@pytest.fixture
+def one_thread():
+  """PyTorch on one CPU thread for the test.  The port's eager training
+  loops run thousands of small ops, and a thread pool in each of several
+  worker processes spins them against each other: a 150-step top-k
+  training at 10 classes took 80 s instead of 1 s beside three such
+  processes on 8 cores."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def port_scan(one_thread):
+  """The port's isotonic solves on the CPU by the divide and conquer
+  (``scan``), on one thread: the kernels' plain version, which the card's
+  l2 kernel equals bit for bit, and which does not drift in f32 where the
+  stack machine can (``tests/test_torch_pav_precision.py``)."""
+  from repro_torch.core import use_impl
+  with use_impl("scan"):
+    yield
+
+
+def reference_topk_train(ref, kind: str, n_classes: int, xtr, ytr,
+                         steps: int):
+  """``benchmarks/bench_topk.py::run``'s training of one loss, from its
+  ``mlp_init(PRNGKey(0))``: (initial, final) weights as numpy."""
+  loss_fn = ref.losses(n_classes)[kind]
+  params = ref.mlp_init(jax.random.PRNGKey(0), n_classes)
+
+  @jax.jit
+  def step(p, lr=0.05):
+    g = jax.grad(lambda q: loss_fn(ref.mlp_apply(q, xtr), ytr))(p)
+    return jax.tree.map(lambda a, b: a - lr * b, p, g)
+
+  final = params
+  for _ in range(steps):
+    final = step(final)
+  return ({k: np.asarray(v) for k, v in params.items()},
+          {k: np.asarray(v) for k, v in final.items()})
+
+
+def lts_datasets(ref):
+  """``benchmarks/bench_lts.py``'s datasets, Fig. 6's and the five outlier
+  fractions', each as (the reference's, the port's), from one
+  ``default_rng(0)`` each in the scripts' order."""
+  from repro_torch.experiments import bench_lts
+  rr, rp = np.random.default_rng(0), np.random.default_rng(0)
+  return [(ref.make_data(rr, frac), bench_lts.make_data(rp, frac))
+          for frac in (0.2, *bench_lts.OUTLIER_FRACS)]
+
+
+def topk_datasets(ref):
+  """(n_classes, the reference's (x, y), the port's), in the script's
+  order from one rng each."""
+  from repro_torch.experiments import bench_topk
+  rr, rp = np.random.default_rng(0), np.random.default_rng(0)
+  return [(n, ref.make_data(rr, n), bench_topk.make_data(rp, n))
+          for n in bench_topk.CLASSES]
+
+
+def full_length_accuracy(ref, kind: str, n_classes: int) -> None:
+  """Both trainings of ``kind`` at ``n_classes`` for the full 150 steps
+  from the reference's initial weights: accuracy within one test sample,
+  both weights within their band."""
+  from repro_torch.experiments import band, bench_topk, weights_apart
+  (_, (jx, jy), (x, y)), = [d for d in topk_datasets(ref)
+                            if d[0] == n_classes]
+  n = int(len(x) * 0.8)
+  init, _ = reference_topk_train(ref, kind, n_classes, jx[:n], jy[:n], 0)
+  # The reference's training runs in a thread beside the port's (XLA lets
+  # go of the interpreter while it computes): the test takes the longer
+  # of the two, not their sum.
+  with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    job = pool.submit(reference_topk_train, ref, kind, n_classes, jx[:n],
+                      jy[:n], ref.STEPS)
+    params = bench_topk.train(bench_topk.losses()[kind],
+                              bench_topk.mlp_from_numpy(**init), x[:n],
+                              y[:n])
+    _, final = job.result()
+  want = float(ref.topk_accuracy(ref.mlp_apply(final, jx[n:]), jy[n:], 1))
+  got = float(bench_topk.topk_accuracy(bench_topk.mlp_apply(params, x[n:]),
+                                       y[n:], 1))
+  assert abs(got - want) <= band("test_acc", want, len(x) - n), (kind, got,
+                                                                 want)
+  err, tol = weights_apart(params, final)
+  assert err <= tol, (kind, err, tol)

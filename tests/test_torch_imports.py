@@ -70,6 +70,10 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import repro_torch.examples.label_ranking\n"
       "import repro_torch.examples.robust_lm_training\n"
       "import repro_torch.examples.moe_soft_router\n"
+      "import repro_torch.experiments, repro_torch.experiments.bench_lts\n"
+      "import repro_torch.experiments.bench_label_ranking\n"
+      "import repro_torch.experiments.bench_topk\n"
+      "import repro_torch.experiments.__main__\n"
       "bad = sorted(m for m in sys.modules\n"
       "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
       "print(bad)\n"
