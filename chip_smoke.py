@@ -124,7 +124,26 @@ its own lines; any failure raises and the script exits non-zero:
             across the two devices.  Fault F2's check: soft_rank /
             soft_sort (l2, kl) on f64 tensors on the card (the built-in
             plan's scan route) against the CPU at 1e-10, values and
-            gradients, with no PAV launch.
+            gradients, with no PAV launch.  Every phase runs under the
+            packaged plan (``src/repro_torch/plan/default_plan.json``,
+            measured on the card), so the counters and launches are
+            derived from the plan chain's decision at each call's shape.
+   plan     the smoke tier of ``repro_torch.tools.sweeps`` (soft_rank by
+            backend at (64, 1024) x (1, 8), the projection paths at
+            (8, 1024)) on the card into a temporary directory: every row
+            finite or skipped with its reason (the stack machine past a
+            2 s budget); at (8, 1024) every backend that ran within 1e-5
+            * (1 + max|cuda|) of the cuda kernel in value and in the VJP
+            of a random cotangent, and the kernels bit for bit their plain
+            versions on soft_rank's solver inputs; a plan derived from
+            those artifacts passes check 5; checks 1, 2, 3 and 5
+            (``repro_torch.tools.check_backends``) pass on the committed
+            plan, its evidence and the README; then the packaged plan's
+            hash, its decision and source at the main path's shapes (the
+            operators', the router's, soft-LTS's, the engine's; an f64
+            solve must resolve to ``scan``), the shapes it routes away
+            from the built-in plan with both backends' times from the
+            evidence, and the phase's seconds.
    engine   ``repro_torch.launch.serve.main(["--engine", ...])`` with the
             reference's defaults (500 requests of n 64 to 4096 from seed
             0, max batch 32, max wait 2 ms, queue 1024, soft_rank and
@@ -132,12 +151,15 @@ its own lines; any failure raises and the script exits non-zero:
             ``repro_torch.obs.artifacts`` validates; then 500 requests over
             the 12 desc or undirected ops (l2 and kl).  Each with the PAV
             counters from 0: no shed, no error, ``aot_cache_miss`` 0 after
-            warm-up, every cell on the cuda backend, and ``pav_l2`` /
-            ``pav_kl`` launched once per executed l2 / kl batch plus once
-            per warmed cell, as many as ``dispatch_calls`` counts cuda
-            solves (the counters printed beside ``dispatch_resolve``).
-            Every vector result equals the unpadded port
-            call on the card bit for bit (scalars within 1e-5 relative),
+            warm-up, every cell on the backend the plan chain decides at
+            its (rows, bucket) (``cuda`` at every cell under the packaged
+            plan), one solve per executed batch plus one per warmed cell,
+            and ``pav_l2`` / ``pav_kl`` launched as many times as
+            ``dispatch_calls`` counts cuda solves (the counters printed
+            beside ``dispatch_resolve``).  Every vector result equals the
+            unpadded port call on the card bit for bit (the packaged plan
+            bounds no rule by rows, so a cell and its unpadded calls
+            resolve alike), scalars within 1e-5 relative,
             and every result is within 1e-5 * (1 + max|CPU|) of the
             unpadded port call on the CPU (computed by the CPU workers).
             Padding at the buckets' edges (n = 64, 65, 2048, 2049, 4096,
@@ -289,7 +311,7 @@ its own lines; any failure raises and the script exits non-zero:
             the PAV kernels at its largest cell (32, 4096); the fused
             projection's two Lemma 2 backwards, ``segscan`` and
             ``scatter``, at the train step's and the operators' shapes,
-            against the built-in plan's cuda backward rule; the attention
+            against the plan chain's cuda backward rule; the attention
             kernel with each option (soft-cap 30, a query offset, a window
             without ``causal``) beside the same shape without it, at the
             llama, grok and gemma prefills; the CUDA-core kernel at the
@@ -711,24 +733,52 @@ def run(op, x_np, t_np, g_np, device):
   return out.detach(), grad
 
 
-def dispatch_counts_wanted(calls: dict[str, int]) -> dict[str, int]:
+def card_decision(kind: str, op: str, reg: str, shape,
+                  dtype: str = "float32") -> tuple[str, str]:
+  """The plan chain's (backend, source) for a query on the card: the
+  packaged plan where it has a rule, else the built-in plan."""
+  from repro_torch import plan as plan_mod
+  backend, source, _, _ = plan_mod.decide(kind, op, reg, platform="cuda",
+                                          dtype=dtype, shape=shape)
+  return backend, source
+
+
+def dispatch_counts_wanted(calls: list[tuple[str, tuple[int, ...]]]
+                           ) -> dict[str, int]:
   """Every ``dispatch_calls`` / ``dispatch_bwd_calls`` /
-  ``projection_fused_calls`` counter that ``calls`` operator calls (by
-  kernel) record on the card: each one projection on the built-in plan's
-  fused path, one cuda solve and one scatter backward."""
-  want = {}
-  for kname, n in calls.items():
-    reg = kname.removeprefix("pav_")
-    if not n:
-      continue
-    want.update({
-        f"dispatch_calls{{backend=cuda,op=isotonic,regularization={reg}}}": n,
-        f"dispatch_calls{{backend=fused,op=projection,regularization={reg}}}":
-            n,
-        f"dispatch_bwd_calls{{backend=scatter,op=projection,"
-        f"regularization={reg}}}": n,
-        f"projection_fused_calls{{regularization={reg}}}": n})
+  ``projection_fused_calls`` counter that operator calls on the card
+  (``calls``: the regularization and the solve's shape of each, f32)
+  record: each one projection on the path that the plan chain decides at
+  its shape, one solve on the forward backend it decides there, and one
+  backward on its backward formulation."""
+  want: dict[str, int] = {}
+
+  def bump(key):
+    want[key] = want.get(key, 0) + 1
+
+  for reg, shape in calls:
+    path, _ = card_decision("projection", "projection", reg, shape)
+    fwd, _ = card_decision("forward", "isotonic", reg, shape)
+    bwd_op = "projection" if path == "fused" else "isotonic"
+    bwd, _ = card_decision("backward", bwd_op, reg, shape)
+    bump(f"dispatch_calls{{backend={fwd},op=isotonic,regularization={reg}}}")
+    bump(f"dispatch_calls{{backend={path},op=projection,"
+         f"regularization={reg}}}")
+    bump(f"dispatch_bwd_calls{{backend={bwd},op={bwd_op},"
+         f"regularization={reg}}}")
+    if path == "fused":
+      bump(f"projection_fused_calls{{regularization={reg}}}")
   return want
+
+
+def kernel_calls(calls: list[tuple[str, tuple[int, ...]]]) -> dict[str, int]:
+  """The PAV launches that ``calls`` make: one a solve that the plan
+  chain sends to the ``cuda`` backend."""
+  out = {"pav_l2": 0, "pav_kl": 0}
+  for reg, shape in calls:
+    if card_decision("forward", "isotonic", reg, shape)[0] == "cuda":
+      out[f"pav_{reg}"] += 1
+  return out
 
 
 def main_path(rt, pav, dev, theta_np, target_np, cot_np, tokens_np):
@@ -736,10 +786,11 @@ def main_path(rt, pav, dev, theta_np, target_np, cot_np, tokens_np):
   launches and the (out, grad) of every call.  The PAV launches and the
   dispatch layer's per-call counters (``dispatch_calls``,
   ``dispatch_bwd_calls``, ``projection_fused_calls``) must equal the
-  operator calls made."""
+  operator calls made, each routed as the plan chain decides at its
+  shape."""
   from repro_torch.obs import metrics
   ops = operators(rt)
-  calls = {"pav_l2": 0, "pav_kl": 0}
+  solves = []          # (regularization, the solve's shape) a call
   pav.reset_launches()
   metrics.set_enabled(True)
   metrics.reset()
@@ -748,10 +799,11 @@ def main_path(rt, pav, dev, theta_np, target_np, cot_np, tokens_np):
     for opname in OPERATORS:
       results[(opname, shape)] = run(ops[opname], theta_np[shape],
                                      target_np[shape], cot_np[shape], dev)
-      calls["pav_kl" if opname.endswith("_kl") else "pav_l2"] += 1
+      solves.append(("kl" if opname.endswith("_kl") else "l2", shape))
   results[("soft_trimmed_token_loss", tokens_np.shape)] = run(
       ops["soft_trimmed_token_loss"], tokens_np, None, None, dev)
-  calls["pav_l2"] += 1
+  solves.append(("l2", (tokens_np.size,)))
+  calls = kernel_calls(solves)
   torch.cuda.synchronize()
   launches = dict(pav.LAUNCHES)
   counted = {k: v for name in ("dispatch_calls", "dispatch_bwd_calls",
@@ -765,11 +817,11 @@ def main_path(rt, pav, dev, theta_np, target_np, cot_np, tokens_np):
     check(launches[kname] > 0, f"{kname} was not launched on the main path")
     check(launches[kname] == calls[kname],
           f"{kname}: {launches[kname]} launches for {calls[kname]} calls")
-  want = dispatch_counts_wanted(calls)
+  want = dispatch_counts_wanted(solves)
   check(counted == want, f"dispatch counters {counted}, for the calls made "
         f"{want}")
-  check(sum(shapes.values()) == sum(calls.values()),
-        f"dispatch_shape {shapes} for {sum(calls.values())} forward calls")
+  check(sum(shapes.values()) == len(solves),
+        f"dispatch_shape {shapes} for {len(solves)} forward calls")
 
   for (opname, shape), (out, grad) in results.items():
     want = () if opname.endswith("loss") else shape
@@ -833,6 +885,167 @@ def f64_on_the_card(rt, pav, dev, rng) -> list[str]:
                    f"{e_grad:.2e}")
   torch.cuda.synchronize()
   check(dict(pav.LAUNCHES) == before, "f64 on the card launched a PAV kernel")
+  return lines
+
+
+# ---------------------------------------------------------------------------
+# The execution plan on the card (repro_torch.tools, repro_torch.plan).
+# ---------------------------------------------------------------------------
+
+# The smoke sweep's budget for a stack-machine cell: its (8, 1024) cells
+# (~0.5 s a call on the card) are skipped with the reason, its n = 64 ones
+# run.
+PLAN_STACK_BUDGET_S = 2.0
+PLAN_CHECK_SHAPE = (8, 1024)
+# The main path's solves, by where they come from.
+PLAN_SHAPES = (("operators", (128, 1000)), ("operators", (128, 10000)),
+               ("router", (4096, 64)), ("router", (2048, 64)),
+               ("soft-LTS", (1, 2048)), ("soft-LTS", (1, 4096)),
+               ("engine", (32, 4096)), ("main path's token loss", (1, TOKENS)))
+
+
+def plan_agreement(rt, pav, pav_scan, dev, ran: set[str], record) -> str:
+  """At ``PLAN_CHECK_SHAPE``: soft_rank's value and its VJP with a random
+  cotangent (the form of the reference's cross-backend tests) by every
+  backend that ran there, against the cuda kernel's, within 1e-5 * (1 +
+  max|cuda|); the kernels on soft_rank's solver inputs bit for bit their
+  plain versions (kl: an ulp, as in phase 3).  Not the sweep's loss,
+  sum(r**2): its cotangent 2r is ~n at every position, the block sums of
+  the scatter backward round in the order of the card's atomics, and on an
+  H100 the l2 gradients of one forward part by ~7e-6 of their size from
+  call to call, near the contract."""
+  rng = np.random.default_rng([SEED, 28])
+  x_np = rng.normal(size=PLAN_CHECK_SHAPE)
+  cot = to_dev(rng.normal(size=PLAN_CHECK_SHAPE), dev)
+  parts = []
+  for reg in ("l2", "kl"):
+    res = {}
+    for backend in sorted(ran):
+      x = to_dev(x_np, dev).requires_grad_(True)
+      r = rt.soft_rank(x, EPS, reg, impl=backend)
+      (g,) = torch.autograd.grad(r, x, cot)
+      res[backend] = (r.detach(), g)
+    errs = {b: (close(v, res["cuda"][0]), close(g, res["cuda"][1]))
+            for b, (v, g) in res.items() if b != "cuda"}
+    parts.append(f"{reg}: " + ", ".join(
+        f"{b} values {e[0]:.2e} gradients {e[1]:.2e}"
+        for b, e in errs.items()))
+  s, w = main_solver_inputs(to_dev(x_np, dev), None)
+  for kname, args in (("pav_l2", ((s - w).contiguous(),)),
+                      ("pav_kl", (s, w))):
+    out = getattr(pav, kname)(*args)
+    plain = getattr(pav_scan, f"{kname}_scan")(*args)
+    parts.append(f"{kname} on soft_rank's solver input: " + hold(
+        kname, f"{PLAN_CHECK_SHAPE} plan phase", out, plain, record,
+        KL_ON_CARD if kname == "pav_kl" else None))
+  return "; ".join(parts)
+
+
+def evidence_times(runtime: dict, reg: str, n: int, rows: int) -> str:
+  """Each backend's fwd+bwd time in the committed backend sweep at the
+  measured cell nearest (rows, n) (log distance), for a line that names a
+  shape the packaged plan routes away from the built-in plan."""
+  ran = [r for r in runtime["results"]
+         if r.get("regularization") == reg and "skipped" not in r]
+  cells = {(r["n"], r["batch"]) for r in ran}
+  cn, cb = min(cells, key=lambda c: (abs(math.log(c[0] / n)),
+                                      abs(math.log(c[1] / rows))))
+  return f"nearest cell (n {cn}, batch {cb}): " + ", ".join(
+      f"{r['backend']} {r['fwd_bwd_us']:.1f} us" for r in ran
+      if (r["n"], r["batch"]) == (cn, cb))
+
+
+def plan_phase(rt, pav, pav_scan, dev, record, name_limit) -> list[str]:
+  """The "plan" phase: the smoke tier of both sweeps on the card, every
+  row finite or skipped with its reason and every backend that ran at
+  ``PLAN_CHECK_SHAPE`` held to the kernel; a plan derived from them and
+  check 5 on it; checks 1, 2, 3 and 5 on the committed plan and its
+  evidence; the packaged plan's decisions at the main path's shapes beside
+  the built-in plan's (an f64 solve must go to ``scan``)."""
+  from repro_torch import plan as plan_mod
+  from repro_torch.obs import artifacts
+  from repro_torch.tools import autotune, check_backends as cb, sweeps
+  t0 = time.perf_counter()
+  lines = []
+  with tempfile.TemporaryDirectory() as tmp:
+    runtime_path = str(Path(tmp) / "runtime.json")
+    projection_path = str(Path(tmp) / "projection.json")
+    runtime = sweeps.run_backend_sweep(
+        smoke=True, out_path=runtime_path, device=dev,
+        stack_budget_s=PLAN_STACK_BUDGET_S)
+    projection = sweeps.run_projection(smoke=True,
+                                       out_path=projection_path, device=dev)
+    for path in (runtime_path, projection_path):
+      errors = artifacts.validate_file(path)
+      check(not errors, f"plan: the smoke sweep's artifact: {errors}")
+    rows = runtime["results"] + projection["results"]
+    skipped = [r for r in rows if "skipped" in r]
+    check(all(r["skipped"] for r in skipped), "plan: a skip without reason")
+    check(not [r for r in skipped if r["backend"] == "cuda"],
+          "plan: a cuda row was skipped on the card")
+    ran_at = {r["backend"] for r in runtime["results"]
+              if "skipped" not in r
+              and (r["batch"], r["n"]) == PLAN_CHECK_SHAPE}
+    check("cuda" in ran_at, f"plan: cuda did not run at {PLAN_CHECK_SHAPE}")
+    lines.append(
+        f"plan: smoke sweeps on the card: {len(rows)} rows, "
+        f"{len(skipped)} skipped (" + "; ".join(sorted(
+            {f"{r['backend']}: {r['skipped']}" for r in skipped})[:4])
+        + f"), the rest finite; at {PLAN_CHECK_SHAPE} against cuda: "
+        + plan_agreement(rt, pav, pav_scan, dev, ran_at, record))
+    derived = autotune.build_plan(runtime, projection)
+    derived_path = str(Path(tmp) / "plan.json")
+    derived.save(derived_path)
+    problems = cb.check_plan(derived_path, [runtime_path, projection_path])
+    check(not problems, f"plan: check 5 on the smoke plan: {problems}")
+    lines.append(f"plan: derived from the smoke sweeps: {len(derived.rules)}"
+                 f" rules ({', '.join(sorted({r.backend for r in derived.rules}))}),"
+                 f" hash {derived.plan_hash()}; check 5 passes")
+
+  problems = (cb.check_docs_coverage()
+              + cb.check_bench_artifact(autotune.DEFAULT_BENCH)
+              + cb.check_projection_artifact(autotune.DEFAULT_BENCH_PROJECTION)
+              + cb.check_plan(plan_mod.DEFAULT_PLAN_PATH,
+                              [autotune.DEFAULT_BENCH,
+                               autotune.DEFAULT_BENCH_PROJECTION]))
+  check(not problems, f"plan: checks on the committed plan: {problems}")
+  packaged = plan_mod.default_plan()
+  check(packaged is not None, "plan: no packaged plan loaded")
+  # The engine holds each result bit for bit to the unpadded call, which
+  # resolves at (1, n) where its cell resolved at (rows, bucket).
+  check(all(r.min_rows is None and r.max_rows is None
+            for r in packaged.rules),
+        "plan: a rule bounds rows; the engine's bitwise check would compare "
+        "two backends")
+  lines.append(f"plan: the packaged plan {packaged.name} hash "
+               f"{packaged.plan_hash()}, {len(packaged.rules)} rules; checks "
+               "1, 2, 3 and 5 pass on it and its evidence")
+
+  with open(autotune.DEFAULT_BENCH, encoding="utf-8") as f:
+    evidence = json.load(f)
+  decisions, moved = [], []
+  for what, shape in PLAN_SHAPES:
+    for reg in ("l2", "kl"):
+      backend, source = card_decision("forward", "isotonic", reg, shape)
+      builtin = plan_mod.builtin_plan().decide(
+          "forward", "isotonic", reg, platform="cuda", dtype="float32",
+          shape=shape).backend
+      decisions.append(f"{what} {shape} {reg} -> {backend} ({source})")
+      if backend != builtin:
+        moved.append(f"{what} {shape} {reg}: {backend} (packaged) against "
+                     f"{builtin} (built-in); {evidence_times(evidence, reg, shape[-1], math.prod(shape[:-1]))}")
+  for kind, op in (("backward", "projection"), ("projection", "projection")):
+    backend, source = card_decision(kind, op, "l2", (128, 1000))
+    decisions.append(f"{kind} (128, 1000) -> {backend} ({source})")
+  f64, f64_source = card_decision("forward", "isotonic", "l2", (128, 1000),
+                                  dtype="float64")
+  check(f64 == "scan", f"plan: an f64 solve on the card goes to {f64}")
+  decisions.append(f"f64 (128, 1000) -> {f64} ({f64_source})")
+  lines.append("plan: decisions on the card: " + "; ".join(decisions))
+  lines.append("plan: shapes the packaged plan routes away from the "
+               "built-in plan: " + ("; ".join(moved) if moved else "none"))
+  lines.append(f"plan: the phase took {time.perf_counter() - t0:.1f} s "
+               f"[{name_limit}]")
   return lines
 
 
@@ -901,9 +1114,10 @@ def engine_cpu_jobs(pool):
 def engine_run_checks(name, rt, dev, engine, requests, results, cells,
                       launches, metrics) -> dict:
   """One stream's checks on the card: no shed and no error, no cell built
-  on the request path, every cell on the cuda backend, one PAV launch a
-  batch and a warmed cell, and every vector result bit for bit the
-  unpadded port call on the card (scalars within 1e-5 * (1 + |card|))."""
+  on the request path, every cell on the plan chain's backend, one solve a
+  batch and a warmed cell and a PAV launch a cuda solve, and every vector
+  result bit for bit the unpadded port call on the card (scalars within
+  1e-5 * (1 + |card|))."""
   from repro_torch.serving import SERVING_OPS, STATUS_ERROR, STATUS_OK
   statuses = [r.status for r in results]
   check(STATUS_ERROR not in statuses,
@@ -916,34 +1130,46 @@ def engine_run_checks(name, rt, dev, engine, requests, results, cells,
   misses = metrics.counter_value("aot_cache_miss")
   check(misses == 0, f"engine {name}: aot_cache_miss {misses} after warm-up")
   keys = engine.cache.keys()
-  backends = {k[1] for k in keys}
-  check(backends == {"cuda"}, f"engine {name}: cells on {backends}")
   check(len(keys) == cells, f"engine {name}: {len(keys)} cells, {cells} warmed")
+  # Every cell on the backend the plan chain decides at its (rows, bucket).
+  planned = {k: card_decision("forward", "isotonic",
+                              SERVING_OPS[k[0]].regularization,
+                              (k[2], k[3]))[0] for k in keys}
+  off = [k for k in keys if k[1] != planned[k]]
+  check(not off, f"engine {name}: cells {off[:3]} not on the plan's backend")
+  backends = sorted({k[1] for k in keys})
   cells_by = {"l2": 0, "kl": 0}
   for k in keys:
     cells_by[SERVING_OPS[k[0]].regularization] += 1
   batches = {reg: sum(v for key, v in metrics.counters(
       "serving_batch_exec").items() if f"regularization={reg}" in key)
       for reg in ("l2", "kl")}
+  # The dispatch layer's counters: a solve a batch and a warmed cell, a
+  # cuda solve a launch.
+  solves = {kname: metrics.counter_value(
+      "dispatch_calls", op="isotonic", regularization=reg, backend="cuda")
+      for reg, kname in (("l2", "pav_l2"), ("kl", "pav_kl"))}
   for reg, kname in (("l2", "pav_l2"), ("kl", "pav_kl")):
     want = cells_by[reg] + batches[reg]
-    check(launches[kname] == want,
-          f"engine {name}: {kname} {launches[kname]} launches for "
+    every = sum(v for key, v in metrics.counters("dispatch_calls{").items()
+                if f"op=isotonic,regularization={reg}}}" in key)
+    check(every == want, f"engine {name}: {every} {reg} solves for "
           f"{batches[reg]} batches + {cells_by[reg]} warm-up cells")
+    if backends == ["cuda"]:
+      check(launches[kname] == want,
+            f"engine {name}: {kname} {launches[kname]} launches for "
+            f"{batches[reg]} batches + {cells_by[reg]} warm-up cells")
+  check(all(solves[k] == launches[k] for k in solves),
+        f"engine {name}: dispatch_calls of the cuda solves {solves}, "
+        f"launches {launches}")
   for kname in ("soft_topk_gates", "flash_attention",
                 "flash_attention_simt"):
     check(launches[kname] == 0,
           f"engine {name}: {kname} {launches[kname]} launches")
   say(f"engine: {name}: launches {launches} = executed batches {batches} + "
-      f"warm-up cells {cells_by}; 0 shed, 0 errors, aot_cache_miss 0; every "
-      "cell on the cuda backend")
-  # The dispatch layer's counters: a cuda solve a launch.
-  solves = {kname: metrics.counter_value(
-      "dispatch_calls", op="isotonic", regularization=reg, backend="cuda")
-      for reg, kname in (("l2", "pav_l2"), ("kl", "pav_kl"))}
-  check(all(solves[k] == launches[k] for k in solves),
-        f"engine {name}: dispatch_calls of the cuda solves {solves}, "
-        f"launches {launches}")
+      f"warm-up cells {cells_by} on the cuda cells; 0 shed, 0 errors, "
+      f"aot_cache_miss 0; every cell on the plan chain's backend "
+      f"({', '.join(backends)})")
   total = {c: sum(metrics.counters(c + "{").values())
            for c in ("dispatch_resolve", "dispatch_calls", "dispatch_shape",
                      "dispatch_bwd_calls", "projection_fused_calls",
@@ -970,15 +1196,20 @@ def engine_run_checks(name, rt, dev, engine, requests, results, cells,
 
 def engine_edges(rt, dev, rng) -> None:
   """Padding at the buckets' edges on the card: each vector op (l2 and kl)
-  on one padded row of n = 64, 65, 2048, 2049 and 4096, random and with
-  ties, bit for bit the unpadded call."""
+  on one padded row of n = 64, 65, 2048, 2049 and 4096, and at each n-edge
+  that the plan chain splices into the ladder and one past it, random and
+  with ties, bit for bit the unpadded call."""
+  from repro_torch import plan as plan_mod
   from repro_torch.serving import Request
   from repro_torch.serving.bucketing import BucketPolicy
   from repro_torch.serving.ops import SERVING_OPS, bound_op
-  policy = BucketPolicy.pow2(64, 4096, 1)
+  policy = BucketPolicy.from_plan(None, min_n=64, max_n=4096, max_batch=1)
+  spliced = [e for e in plan_mod.shape_breakpoints() if 64 <= e < 4096]
+  sizes = sorted(set(ENGINE_EDGES) | set(spliced)
+                 | {e + 1 for e in spliced})
   keys = [k for k in engine_all_ops() if SERVING_OPS[k].output == "vector"]
   checked = 0
-  for n in ENGINE_EDGES:
+  for n in sizes:
     bucket = policy.bucket_for(n)
     for kind in ("random", "ties"):
       v = rng.normal(size=n).astype(np.float32) * 3
@@ -1005,9 +1236,9 @@ def engine_edges(rt, dev, rng) -> None:
               f"engine: {key} n {n} {kind}: padded differs from unpadded "
               f"by {float((got - want).abs().max()):.3e}")
         checked += 1
-  say(f"engine: {checked} padded rows at n = {ENGINE_EDGES} (random and "
-      "ties, every vector op, l2 and kl) bit for bit the unpadded call on "
-      "the card")
+  say(f"engine: {checked} padded rows at n = {tuple(sizes)} (random and "
+      "ties, every vector op, l2 and kl; buckets "
+      f"{policy.sizes}) bit for bit the unpadded call on the card")
 
 
 def engine_path(rt, dev, serve, kops, rng) -> dict:
@@ -1144,8 +1375,9 @@ def backward_times(pav, dispatch, dev, rng, name_limit):
   """Phase 5: the two Lemma 2 backwards of the fused projection,
   ``segscan`` and ``scatter``, at the train step's and the operators'
   shapes (CUDA-event medians), held to each other within 1e-5 * (1 +
-  max|scatter|); the built-in plan's cuda backward rule must be the
-  faster one wherever one is faster by a quarter or more."""
+  max|scatter|); the plan chain's cuda backward rule (the packaged
+  plan's) must be the faster one wherever one is faster by a quarter or
+  more."""
   from repro_torch import plan as plan_mod
   from repro_torch.kernels import segment_vjp
   lines, slower = [], []
@@ -1175,18 +1407,19 @@ def backward_times(pav, dispatch, dev, rng, name_limit):
                    f"segscan {times['segscan']:.4f} ms, scatter "
                    f"{times['scatter']:.4f} ms (segscan / scatter "
                    f"{ratio:.2f}) [{name_limit}]")
-  rule, _, _ = plan_mod.resolve_via_plans(
+  rule, source, _ = plan_mod.resolve_via_plans(
       "backward", "projection", "l2", platform="cuda", dtype="float32",
-      shape=(128, 1000), plan=plan_mod.builtin_plan())
+      shape=(128, 1000))
   decisive = [r for r in slower if r >= 1.25 or r <= 0.8]
   faster = "scatter" if sum(r > 1 for r in decisive) > len(decisive) / 2 \
       else "segscan"
   if decisive:
-    check(rule == faster, f"the built-in cuda backward rule is {rule}, but "
-          f"{faster} is faster at {len(decisive)} of {len(slower)} shapes")
+    check(rule == faster, f"the plan chain's cuda backward rule ({source}) "
+          f"is {rule}, but {faster} is faster at {len(decisive)} of "
+          f"{len(slower)} shapes")
   lines.append(f"times: projection backward: segscan / scatter "
-               f"{min(slower):.2f}-{max(slower):.2f}; the built-in plan's "
-               f"cuda rule: {rule} [{name_limit}]")
+               f"{min(slower):.2f}-{max(slower):.2f}; the plan chain's "
+               f"cuda rule: {rule} ({source}) [{name_limit}]")
   return lines
 
 
@@ -5441,6 +5674,12 @@ def main() -> int:
     say("main: f64 on the card (the scan backend) vs the CPU, within 1e-10 "
         "* (1 + max|CPU|), no PAV launch: " + "; ".join(
             f64_on_the_card(rt, pav, dev, np.random.default_rng([SEED, 2]))))
+    clock("phase 4")
+
+    # plan --------------------------------------------------------------------
+    for line in plan_phase(rt, pav, pav_scan, dev, record, name_limit):
+      say(line)
+    clock("plan")
 
     # engine ------------------------------------------------------------------
     engine_rng = np.random.default_rng([SEED, 16])

@@ -9,12 +9,14 @@ selected by ``path=`` > ``REPRO_TORCH_PROJECTION`` > the execution plans,
 which resolve to ``"fused"``):
 
 ``"fused"`` (default)
-    One ``torch.autograd.Function`` around sort + isotonic solve + gather.
-    When a gradient is wanted, the forward saves sigma, sigma^{-1},
-    tau^{-1} and the solver's block starts (``segscan`` derives each
-    position's block start/end indices from them in the backward); the
-    backward is gather -> Lemma 2 segment algebra -> gather, with no
-    re-sort.
+    One ``torch.autograd.Function`` around sort + isotonic solve +
+    un-permute.  sigma^{-1} is not formed: the solution goes back to the
+    unsorted order by a scatter through sigma (a gather where the caller
+    supplied sigma^{-1}).  When a gradient is wanted, the forward saves
+    sigma, tau^{-1} and the solver's block starts (``segscan`` derives
+    each position's block start/end indices from them in the backward);
+    the backward is gather -> Lemma 2 segment algebra -> scatter, with no
+    re-sort, and forms no w cotangent unless w requires one.
     Without autograd (``no_grad``, ``inference_mode``) the forward saves
     nothing.  ``z_is_sorted`` / ``w_is_sorted`` skip sorts the caller
     guarantees, and ``z_perm`` / ``w_perm`` supply precomputed
@@ -145,6 +147,15 @@ def _gather(x: torch.Tensor, idx: torch.Tensor | None) -> torch.Tensor:
   return x if idx is None else torch.gather(x, -1, idx)
 
 
+def _unpermute(x: torch.Tensor, sigma: torch.Tensor | None,
+               sigma_inv: torch.Tensor | None) -> torch.Tensor:
+  """x_{sigma^{-1}}: a gather by sigma^{-1} where the caller supplied it,
+  else a scatter by sigma (x itself when z came sorted)."""
+  if sigma_inv is not None or sigma is None:
+    return _gather(x, sigma_inv)
+  return torch.empty_like(x).scatter_(-1, sigma, x)
+
+
 class _FusedProjection(torch.autograd.Function):
 
   @staticmethod
@@ -157,9 +168,11 @@ class _FusedProjection(torch.autograd.Function):
       sigma, sigma_inv = z_perm
       s = torch.gather(z, -1, sigma)
     else:
+      # sigma^{-1} is not formed: out and the z cotangent scatter by
+      # sigma instead of gathering by its inverse (one launch less each).
       sigma = argsort_descending(z)
       s = torch.gather(z, -1, sigma)
-      sigma_inv = inverse_permutation(sigma)
+      sigma_inv = None
 
     ws = w
     if ws.dim() > 1 and ws.shape != z.shape:
@@ -184,7 +197,7 @@ class _FusedProjection(torch.autograd.Function):
     else:
       w_b = w_sorted.expand(s.shape)
       v = _dispatch.dispatch("isotonic", "kl", impl, s, w_b, plan=plan)
-    out = z - _gather(v, sigma_inv)
+    out = z - _unpermute(v, sigma, sigma_inv)
     if not save:
       return out
 
@@ -202,20 +215,26 @@ class _FusedProjection(torch.autograd.Function):
     # flattens every argument the same way.
     sigma, sigma_inv, tau_inv, starts, s, w_b = ctx.saved_tensors
 
-    # d out / d v is -I composed with the sigma^{-1} gather: permute the
-    # cotangent into sorted order.
-    g_v = -_gather(g, sigma)
+    # d out / d v is -I composed with the sigma^{-1} gather: the cotangent
+    # of v is -g in sorted order.  The Lemma 2 VJPs are linear in it, so
+    # they take g in sorted order and their results change sign once.
+    g_sorted = _gather(g, sigma)
+    want_w = ctx.needs_input_grad[1]
     if ctx.regularization == "l2":
-      g_y = _dispatch.dispatch_backward("projection", "l2", None, g_v,
-                                        starts, plan=ctx.plan)
-      g_s, g_ws = g_y, -g_y
+      neg_g_s = _dispatch.dispatch_backward("projection", "l2", None,
+                                            g_sorted, starts, plan=ctx.plan)
+      g_ws = neg_g_s        # d(s - w) / dw = -I
     else:
-      g_s, g_ws = _dispatch.dispatch_backward(
-          "projection", "kl", None, s, w_b, g_v, starts, plan=ctx.plan)
+      neg_g_s, neg_g_ws = _dispatch.dispatch_backward(
+          "projection", "kl", None, s, w_b, g_sorted, starts, plan=ctx.plan,
+          want_w=want_w)
+      g_ws = -neg_g_ws if want_w else None
 
-    # z cotangent: identity term plus the solve term mapped back through
-    # sigma^{-1} (a gather: sigma^{-1} is already a residual).
-    g_z = g + _gather(g_s, sigma_inv)
+    # z cotangent: identity term plus the solve term mapped back to the
+    # unsorted order.
+    g_z = g - _unpermute(neg_g_s, sigma, sigma_inv)
+    if not want_w:
+      return g_z, None, None, None, None, None, None, None, None, None
 
     # w cotangent: back from sorted order via tau^{-1}, then un-broadcast
     # (sum) onto the original weight shape.

@@ -33,7 +33,8 @@ backend, backward backend, projection path)::
       > environment (REPRO_TORCH_BACKEND / REPRO_TORCH_BACKWARD /
         REPRO_TORCH_PROJECTION)
       > execution plan (per-call ``plan=``, else the active plan)
-      > packaged default plan (none ships yet)
+      > packaged default plan (``plan/default_plan.json``: the card's
+        f32 solves, measured on the H100)
       > built-in plan (``repro_torch.plan.builtin_plan``: f64 on the card
         -> scan, the card -> cuda, otherwise stack; scatter on the card,
         segscan otherwise; fused)
@@ -431,6 +432,8 @@ def _promote_flat(args: tuple[torch.Tensor, ...], n: int):
 
 
 def _restore(out, shape, orig_dtype):
+  if out is None:
+    return None
   if isinstance(out, tuple):
     return tuple(_restore(o, shape, orig_dtype) for o in out)
   if orig_dtype is not None:
@@ -460,12 +463,14 @@ def dispatch(op: str, regularization: str, backend: str | None,
 
 def dispatch_backward(op: str, regularization: str, backend: str | None,
                       *args: torch.Tensor,
-                      plan: ExecutionPlan | None = None):
+                      plan: ExecutionPlan | None = None, **options):
   """Route a batched VJP to the resolved backward backend.
 
   Same flattening and promote/demote contract as ``dispatch``; the impl
-  may return one gradient or a tuple of them, each restored to the batch
-  shape.  Runs under a ``repro_<op>_bwd_<reg>_<backend>`` range.
+  may return one gradient or a tuple of them (None where ``options`` say
+  a gradient is not wanted), each restored to the batch shape.
+  ``options`` pass to the impl as keywords.  Runs under a
+  ``repro_<op>_bwd_<reg>_<backend>`` range.
   """
   x = args[0]
   shape = x.shape
@@ -474,7 +479,7 @@ def dispatch_backward(op: str, regularization: str, backend: str | None,
   _count_call("backward", op, regularization, b, shape, keys)
   flat, orig_dtype = _promote_flat(args, shape[-1])
   with _tracing.backend_scope(f"{op}_bwd", regularization, b):
-    out = _BWD_REGISTRY[(op, regularization, b)](*flat)
+    out = _BWD_REGISTRY[(op, regularization, b)](*flat, **options)
   return _restore(out, shape, orig_dtype)
 
 

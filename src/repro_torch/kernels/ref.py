@@ -75,20 +75,31 @@ def pav_l2_ref(y: torch.Tensor) -> torch.Tensor:
 
 
 def pav_kl_ref(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-  """Entropic isotonic optimization via minimax on LSE-difference gammas."""
+  """Entropic isotonic optimization via minimax on LSE-difference gammas.
+
+  The gammas are formed in f64 and the result is returned in the input's
+  dtype.  In f32 a gamma, the difference of two log-sum-exps of the size
+  of n / eps, carries an error of a few ulps of that size: near-tied
+  intervals then give the positions of one block values an ulp apart, and
+  the Lemma 2 backward, which reads blocks from runs of equal outputs,
+  splits them (soft_rank's gradient at (256, 100), eps 0.1, off by 24%).
+  In f64 a block's positions take the same value, which rounds to one f32.
+  """
   n = s.shape[-1]
   _, _, upper = _interval_masks(n, s.device)
+  wide = torch.promote_types(s.dtype, torch.float64)
 
   def interval_lse(x: torch.Tensor) -> torch.Tensor:
     # interval_lse[..., j, k] = LSE(x[j..k]) via a masked logaddexp scan
     # along k.  A cumsum-of-exp difference would cancel for intervals far
     # below the row max (the regime soft sort hits: x = rho/eps spans
     # n/eps); pairwise logaddexp is stable at any dynamic range.
+    x = x.to(wide)
     xk = x[..., None, :].expand(x.shape[:-1] + (n, n))
     g = torch.where(upper, xk, torch.full_like(xk, _NEG))
     return _pairwise_scan(g, torch.logaddexp)
 
-  return _minimax(interval_lse(s) - interval_lse(w))
+  return _minimax(interval_lse(s) - interval_lse(w)).to(s.dtype)
 
 
 def soft_topk_gates_ref(logits: torch.Tensor, k: int,

@@ -12,7 +12,11 @@ registered in the backward table of ``repro_torch.kernels.dispatch``:
   log2(n) passes of tensor ops, carrying a reset flag at block starts)
   read at the block's end position.  No scatter; the reference's default.
 * ``"scatter"``: per-row block ids are offset into one global id space and
-  reduced with ``scatter_add_`` and ``scatter_reduce_(..., "amax")``.
+  reduced with ``scatter_add_`` and ``scatter_reduce_(..., "amax")``.  The
+  projection backwards, which the fused pipeline calls on every operator
+  backward, number the blocks of the whole batch with one running count
+  of the saved starts and take every block sum they need in one
+  ``scatter_add_`` (the fewest launches: the card runs them host-bound).
 
 Both are exact up to the order of the additions.  Block sums are never
 taken as differences of cumulative sums, which cancel at soft-sort dynamic
@@ -137,6 +141,21 @@ def scatter_mean_bcast(g: torch.Tensor, bid: torch.Tensor) -> torch.Tensor:
   return (gsum / torch.clamp(cnt, min=1))[gid].reshape(g.shape)
 
 
+def _global_ids(starts: torch.Tensor) -> torch.Tensor:
+  """Block ids over the flattened batch, (B * n,), from 1: every row's
+  first position starts a block, so one running count of the starts
+  numbers the blocks of all rows apart (rows never mix).  A buffer of
+  B * n + 1 slots holds them (slot 0 unused)."""
+  return torch.cumsum(starts.reshape(-1), 0, dtype=torch.int64)
+
+
+def _block_sums(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """Within-block sums of every row of ``x`` (k, B * n) in one scatter,
+  at the block ids ``idx`` (``_global_ids`` expanded to k rows)."""
+  k, m = x.shape
+  return x.new_zeros((k, m + 1)).scatter_add_(1, idx, x)
+
+
 def scatter_softmax(x: torch.Tensor, bid: torch.Tensor) -> torch.Tensor:
   """Softmax within each block (exact, stable); x, bid: (B, n)."""
   gid = _flat_ids(bid)
@@ -199,20 +218,42 @@ def projection_l2_bwd_segscan(g: torch.Tensor,
 
 def projection_l2_bwd_scatter(g: torch.Tensor,
                               starts: torch.Tensor) -> torch.Tensor:
-  return scatter_mean_bcast(g, _ids_from_starts(starts))
+  """Lemma 2 (Q) with precomputed blocks: within-block mean of g, the
+  block sums of g and of ones in one scatter over global block ids."""
+  gid = _global_ids(starts)
+  flat = g.reshape(1, -1)
+  x = torch.cat([flat, torch.ones_like(flat)])
+  sums = _block_sums(x, gid.expand_as(x))
+  return (sums[0] / sums[1])[gid].reshape(g.shape)
 
 
 def projection_kl_bwd_segscan(s: torch.Tensor, w: torch.Tensor,
-                              g: torch.Tensor, starts: torch.Tensor):
-  """Lemma 2 (E) with precomputed blocks: softmax-weighted block sums."""
+                              g: torch.Tensor, starts: torch.Tensor,
+                              want_w: bool = True):
+  """Lemma 2 (E) with precomputed blocks: softmax-weighted block sums
+  (the w gradient None unless ``want_w``)."""
   _, end_idx = start_end_indices(starts)
   gs = seg_sum_bcast(g, starts, end_idx)
   return (seg_softmax(s, starts, end_idx) * gs,
-          -seg_softmax(w, starts, end_idx) * gs)
+          -seg_softmax(w, starts, end_idx) * gs if want_w else None)
 
 
 def projection_kl_bwd_scatter(s: torch.Tensor, w: torch.Tensor,
-                              g: torch.Tensor, starts: torch.Tensor):
-  bid = _ids_from_starts(starts)
-  gs = scatter_sum_bcast(g, bid)
-  return scatter_softmax(s, bid) * gs, -scatter_softmax(w, bid) * gs
+                              g: torch.Tensor, starts: torch.Tensor,
+                              want_w: bool = True):
+  """Lemma 2 (E) with precomputed blocks: grad_s = e_s * sum(g_B) /
+  sum(e_B), e = exp(s - max(s_B)), and grad_w the same of w, negated (None
+  unless ``want_w``).  The block maxima of s (and w) come from one
+  ``scatter_reduce_``, the block sums of g and the exponentials from one
+  ``scatter_add_``, over global block ids."""
+  gid = _global_ids(starts)
+  x = torch.stack((s, w) if want_w else (s,)).reshape(1 + want_w, -1)
+  idx = gid.expand_as(x)
+  slots = (x.shape[0], x.shape[1] + 1)
+  top = x.new_full(slots, float("-inf")).scatter_reduce_(1, idx, x, "amax")
+  ex = torch.exp(x - top.gather(1, idx))
+  sums = _block_sums(torch.cat([g.reshape(1, -1), ex]),
+                     gid.expand(2 + want_w, -1))
+  weights = ex * (sums[0] / sums[1:]).gather(1, idx)
+  g_s = weights[0].reshape(s.shape)
+  return g_s, (-weights[1].reshape(w.shape) if want_w else None)

@@ -72,6 +72,36 @@ def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 5,
   return times[len(times) // 2] * 1e6
 
 
+def time_fns(calls: dict[str, tuple[Callable, tuple]], *, warmup: int = 2,
+             iters: int = 5, name: str | None = None) -> dict[str, float]:
+  """Median wall time per call in microseconds of each ``fn(*args)`` of
+  ``calls`` (key -> (fn, args)), their calls alternating: every fn's
+  ``warmup`` calls, then ``iters`` rounds that time each fn once in turn.
+
+  A change of the host's load between rounds lands on every fn alike, so
+  the ratios of the medians hold where medians taken one fn after another
+  drift apart (eager calls on the card are host-bound).  When ``name`` is
+  given and metrics are on, each measured call is observed into
+  ``bench_us{name=<name>/<key>}``.
+  """
+  for fn, args in calls.values():
+    for _ in range(warmup):
+      block_until_ready(fn(*args))
+  times: dict[str, list[float]] = {key: [] for key in calls}
+  with trace_annotation(f"repro_bench_{name}" if name else "repro_bench"):
+    for _ in range(iters):
+      for key, (fn, args) in calls.items():
+        times[key].append(timed(fn, *args)[1])
+  out = {}
+  for key, samples in times.items():
+    if name is not None:
+      for dt in samples:
+        metrics.observe("bench_us", dt * 1e6, name=f"{name}/{key}")
+    samples.sort()
+    out[key] = samples[len(samples) // 2] * 1e6
+  return out
+
+
 def percentiles(samples, qs=(50, 95, 99)) -> tuple[float, ...]:
   """Nearest-rank percentiles of a sample list (sorted or not): observed
   values, no interpolation.  Empty input gives zeros."""

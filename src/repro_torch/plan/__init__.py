@@ -24,11 +24,15 @@ kinds::
 
 The active plan is installed per process (:func:`set_active_plan`, the
 ``--plan plan.json`` launch flag) or per scope (:func:`use_plan`).  The
-packaged default plan is ``src/repro_torch/plan/default_plan.json``; none
-ships yet (a ``platform="cuda"`` plan derived from H100 sweeps waits for a
-port of ``tools/autotune.py``), so :func:`default_plan` returns None.  The
-built-in plan is total and encodes the port's own choices (see
-:func:`builtin_plan`).  Dispatch memoizes decisions per query and drops
+packaged default plan is ``src/repro_torch/plan/default_plan.json``,
+measured on the H100: ``python -m repro_torch.tools.autotune --run``
+derives it from the speed sweeps it writes beside it
+(``plan/evidence/runtime.json``, ``plan/evidence/projection.json``), and
+``python -m repro_torch.tools.check_backends --plan`` holds every rule to
+the timing rows it cites.  Its rules are keyed ``platform="cuda"``,
+``dtype="float32"``: on the CPU, and for any other dtype on the card, it
+is silent.  The built-in plan is total and encodes the port's own choices
+(see :func:`builtin_plan`).  Dispatch memoizes decisions per query and drops
 the memo whenever the active or default plan changes
 (:func:`on_plan_change`).
 """

@@ -53,6 +53,32 @@ def composed_ref(monkeypatch):
 
 
 @pytest.fixture
+def packaged_plan(monkeypatch):
+  """Isolate the chain's packaged plan: ``use(path)`` makes the file at
+  ``path`` the packaged plan (None: no packaged plan) and drops the cached
+  one; the cache is dropped again after the test, so later tests load the
+  shipped file."""
+  from repro_torch import plan as plan_mod
+  shipped = plan_mod.DEFAULT_PLAN_PATH
+
+  def use(path):
+    monkeypatch.setattr(plan_mod, "DEFAULT_PLAN_PATH", str(
+        path if path is not None else ROOT / "tests" / "no_such_plan.json"))
+    plan_mod.invalidate_default_plan_cache()
+
+  yield use
+  monkeypatch.setattr(plan_mod, "DEFAULT_PLAN_PATH", shipped)
+  plan_mod.invalidate_default_plan_cache()
+
+
+@pytest.fixture
+def no_packaged_plan(packaged_plan):
+  """The chain without a packaged plan: the active and built-in plans
+  only."""
+  packaged_plan(None)
+
+
+@pytest.fixture
 def cuda_device():
   """The first CUDA device; skips where there is none."""
   if not torch.cuda.is_available():

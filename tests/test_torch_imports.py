@@ -74,6 +74,8 @@ def test_importing_the_port_loads_no_jax_or_reference():
       "import repro_torch.experiments.bench_label_ranking\n"
       "import repro_torch.experiments.bench_topk\n"
       "import repro_torch.experiments.__main__\n"
+      "import repro_torch.tools, repro_torch.tools.sweeps\n"
+      "import repro_torch.tools.autotune, repro_torch.tools.check_backends\n"
       "bad = sorted(m for m in sys.modules\n"
       "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
       "print(bad)\n"

@@ -22,7 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_common import as_torch, assert_close  # noqa: E402
+from test_torch_common import (  # noqa: E402,F401
+    as_torch, assert_close, no_packaged_plan, packaged_plan)
 
 from repro import plan as jplan  # noqa: E402
 from repro_torch import plan as plan_mod  # noqa: E402
@@ -73,11 +74,107 @@ def _pin(kind: str, backend: str, name: str = "pinned"):
     ("projection", "projection", "l2", "cuda", "float32", "fused"),
     ("projection", "projection", "kl", "cpu", "float64", "fused"),
 ])
-def test_builtin_plan_routes(kind, op, reg, platform, dtype, want):
+def test_builtin_plan_routes(no_packaged_plan, kind, op, reg, platform,
+                            dtype, want):
   backend, source, _ = plan_mod.resolve_via_plans(
       kind, op, reg, platform=platform, dtype=dtype, shape=(128, 1000))
   assert (backend, source) == (want, "builtin")
-  assert plan_mod.default_plan() is None        # none ships yet
+  assert plan_mod.default_plan() is None        # isolated: none packaged
+
+
+PACKAGED_SHAPES = [(1, 64), (128, 1000), (4096, 64), (2048, 64), (1, 2048),
+                   (32, 4096), (128, 10000), None]
+
+
+def test_packaged_plan_loads_with_card_f32_rules_only():
+  """The shipped plan parses strictly (the chain's loader swallows
+  errors, so load it directly) and keys every rule to the card's f32
+  solves, each citing measured rows."""
+  packaged = plan_mod.load_plan(plan_mod.DEFAULT_PLAN_PATH)
+  assert plan_mod.default_plan() == packaged
+  assert packaged.name == "autotuned-cuda"
+  assert packaged.meta["platform"] == "cuda"
+  assert {r.kind for r in packaged.rules} == set(plan_mod.KINDS)
+  for rule in packaged.rules:
+    assert (rule.platform, rule.dtype) == ("cuda", "float32"), rule
+    assert rule.evidence, rule
+
+
+@pytest.mark.parametrize("kind,op,reg,platform,dtype,want", [
+    ("forward", "isotonic", "l2", "cuda", "float64", "scan"),   # F2
+    ("forward", "isotonic", "kl", "cuda", "float64", "scan"),
+    ("forward", "isotonic", "kl", "cuda", "bfloat16", "cuda"),
+    ("forward", "isotonic", "l2", "cuda", "*", "cuda"),
+    ("forward", "isotonic", "l2", "cpu", "float32", "stack"),
+    ("forward", "isotonic", "kl", "cpu", "float64", "stack"),
+    ("backward", "isotonic", "l2", "cpu", "float32", "segscan"),
+    ("backward", "projection", "kl", "cuda", "float64", "scatter"),
+    ("projection", "projection", "kl", "cpu", "float32", "fused"),
+    ("projection", "projection", "l2", "cuda", "float64", "fused"),
+])
+def test_packaged_plan_leaves_cpu_and_other_dtypes_as_before(
+    kind, op, reg, platform, dtype, want):
+  """Every query the packaged plan does not key (the CPU, f64 and bf16 on
+  the card) resolves as the built-in plan does, at every shape."""
+  assert plan_mod.default_plan() is not None
+  for shape in PACKAGED_SHAPES:
+    backend, source, _ = plan_mod.resolve_via_plans(
+        kind, op, reg, platform=platform, dtype=dtype, shape=shape)
+    assert (backend, source) == (want, "builtin"), shape
+
+
+@pytest.mark.parametrize("kind,op", [("forward", "isotonic"),
+                                     ("backward", "projection"),
+                                     ("backward", "isotonic"),
+                                     ("projection", "projection")])
+@pytest.mark.parametrize("reg", ["l2", "kl"])
+def test_packaged_plan_decides_the_cards_f32_queries(kind, op, reg):
+  """An f32 query on the card takes the packaged plan's first matching
+  rule; where no rule matches (a shapeless query and its shape-bound
+  rules, a minimax cap) the built-in plan answers."""
+  packaged = plan_mod.default_plan()
+  for shape in PACKAGED_SHAPES:
+    rule = packaged.decide(kind, op, reg, platform="cuda", dtype="float32",
+                           shape=shape)
+    backend, source, _ = plan_mod.resolve_via_plans(
+        kind, op, reg, platform="cuda", dtype="float32", shape=shape)
+    if rule is None:
+      assert source == "builtin", shape
+    else:
+      assert (backend, source) == (rule.backend, "default_plan"), shape
+  # D.resolve reads the plan through dispatch's memo.
+  if kind == "forward":
+    want = plan_mod.decide(kind, op, reg, platform="cuda", dtype="float32",
+                           shape=(128, 1000))[0]
+    assert D.resolve(op, reg, None, GPU, dtype="float32",
+                     shape=(128, 1000)) == want
+
+
+def test_packaged_plan_provenance_and_breakpoints(packaged_plan, tmp_path):
+  """The packaged plan names itself in artifacts' meta; its n-edges join
+  the chain's breakpoints, and a plan installed in its place is read."""
+  packaged = plan_mod.default_plan()
+  assert plan_mod.plan_provenance() == {
+      "plan_name": packaged.name, "plan_hash": packaged.plan_hash(),
+      "plan_source": "default_plan"}
+  assert plan_mod.shape_breakpoints() == plan_mod.shape_breakpoints(packaged)
+  edges = {e for r in packaged.rules
+           for e in (r.max_n, None if r.min_n is None else r.min_n - 1)
+           if e is not None and e >= 1}
+  assert set(plan_mod.shape_breakpoints()) == edges
+  other = plan_mod.ExecutionPlan(name="edged", rules=(
+      plan_mod.PlanRule("forward", "scan", platform="cuda", max_n=300,
+                        evidence=("x",)),))
+  other.save(str(tmp_path / "plan.json"))
+  packaged_plan(tmp_path / "plan.json")
+  assert plan_mod.default_plan() == other
+  assert plan_mod.shape_breakpoints() == (300,)
+  assert D.resolve("isotonic", "l2", None, GPU, dtype="float32",
+                   shape=(8, 300)) == "scan"
+  packaged_plan(None)
+  assert plan_mod.default_plan() is None
+  assert D.resolve("isotonic", "l2", None, GPU, dtype="float32",
+                   shape=(8, 300)) == "cuda"
 
 
 def test_f64_on_the_card_resolves_to_scan_through_dispatch():
@@ -96,7 +193,8 @@ def test_f64_on_the_card_resolves_to_scan_through_dispatch():
 # ---------------------------------------------------------------------------
 
 
-def test_reference_default_plan_parses_to_the_same_rules_and_hash():
+def test_reference_default_plan_parses_to_the_same_rules_and_hash(
+    no_packaged_plan):
   text = REFERENCE_PLAN.read_text()
   got, want = plan_mod.ExecutionPlan.from_json(text), jplan.load_plan(
       str(REFERENCE_PLAN))
@@ -205,7 +303,8 @@ def test_decisions_breakpoints_and_grid_match_the_reference():
   assert metrics.counters("plan_decide") == {}   # enumeration, not dispatch
 
 
-def test_shape_constrained_rules_never_match_shapeless_queries():
+def test_shape_constrained_rules_never_match_shapeless_queries(
+    no_packaged_plan):
   gated = plan_mod.ExecutionPlan(name="gated", rules=(
       plan_mod.PlanRule("forward", "minimax", max_n=64),
       plan_mod.PlanRule("forward", "scan"),
@@ -368,7 +467,7 @@ def test_use_plan_and_the_plan_flag_route_the_same(tmp_path):
          "source=plan}" in snap
 
 
-def test_plan_provenance_names_the_governing_plan():
+def test_plan_provenance_names_the_governing_plan(no_packaged_plan):
   prov = plan_mod.plan_provenance()
   assert prov == {"plan_name": "builtin",
                   "plan_hash": plan_mod.builtin_plan().plan_hash(),

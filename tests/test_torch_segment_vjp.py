@@ -161,3 +161,38 @@ def test_fused_backward_matches_reference(reg, backward, monkeypatch,
   assert metrics.counter_value("dispatch_bwd_resolve", op="projection",
                                regularization=reg, backend=backward,
                                source="env") == 1
+
+
+@pytest.mark.parametrize("n", CASES)
+@pytest.mark.parametrize("fn", [svjp.projection_kl_bwd_scatter,
+                                svjp.projection_kl_bwd_segscan])
+def test_projection_kl_backward_without_the_w_cotangent(n, fn):
+  """``want_w=False`` (the fused backward when w needs no gradient) gives
+  the same s cotangent, bit for bit, and no w cotangent."""
+  v = _block_values(n)
+  s, w, g = (as_torch(rng.normal(size=v.shape)) for _ in range(3))
+  starts = svjp.block_starts(as_torch(v))
+  both = fn(s, w, g, starts)
+  only_s = fn(s, w, g, starts, want_w=False)
+  assert only_s[1] is None
+  assert torch.equal(only_s[0], both[0])
+
+
+@pytest.mark.parametrize("n", CASES)
+def test_projection_scatter_global_ids_match_the_row_ids(n):
+  """The projection backwards number blocks once over the flattened batch
+  (every row opens a block); the block means and softmaxes equal those
+  of the per-row ids of the isotonic backwards."""
+  v = _block_values(n)
+  s, w, g = (as_torch(rng.normal(size=v.shape)) for _ in range(3))
+  vt = as_torch(v)
+  starts = svjp.block_starts(vt)
+  gid = svjp._global_ids(starts)
+  # Consecutive ids 1..blocks, a new one exactly at each start.
+  assert int(gid[0]) == 1 and int(gid[-1]) == int(starts.sum())
+  assert torch.equal(gid[1:] != gid[:-1], starts.reshape(-1)[1:])
+  assert_close(svjp.projection_l2_bwd_scatter(g, starts),
+               svjp.isotonic_l2_bwd_scatter(vt, g), g)
+  for a, b in zip(svjp.projection_kl_bwd_scatter(s, w, g, starts),
+                  svjp.isotonic_kl_bwd_scatter(s, w, vt, g)):
+    assert_close(a, b, s, w, g)

@@ -21,7 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_common import cuda_device  # noqa: E402,F401
+from test_torch_common import (  # noqa: E402,F401
+    cuda_device, no_packaged_plan, packaged_plan)
 
 import repro.serving as jserving  # noqa: E402
 from repro_torch import plan as plan_mod  # noqa: E402
@@ -100,7 +101,7 @@ def test_bucket_policy_matches_reference(min_n, max_n, max_batch):
   assert got.rows_for(max_batch) == max_batch
 
 
-def test_bucket_policy_from_plan_splices_breakpoints():
+def test_bucket_policy_from_plan_splices_breakpoints(no_packaged_plan):
   plan = plan_mod.ExecutionPlan(name="edges", rules=(
       plan_mod.PlanRule("forward", "minimax", max_n=100, max_elems=10**6),
       plan_mod.PlanRule("forward", "scan", min_n=3000),
@@ -108,9 +109,27 @@ def test_bucket_policy_from_plan_splices_breakpoints():
   p = BucketPolicy.from_plan(plan, min_n=64, max_n=4096, max_batch=4)
   assert 100 in p.sizes and 2999 in p.sizes
   assert p.bucket_for(70) == 100 and p.bucket_for(101) == 128
-  # The built-in plan has no size rule: the ladder stays pow2.
+  # The built-in plan has no size rule: without a packaged plan the
+  # ladder stays pow2.
   assert BucketPolicy.from_plan(None, min_n=64, max_n=4096).sizes == \
       BucketPolicy.pow2(64, 4096).sizes
+
+
+def test_bucket_policy_from_plan_splices_the_packaged_plans_edges():
+  """``from_plan(None)`` follows the whole chain, so the packaged plan's
+  n-edges join the ladder on every platform (the CPU's engine too), and
+  the engine warms a cell for each."""
+  edges = [e for e in plan_mod.shape_breakpoints(plan_mod.default_plan())
+           if 64 <= e <= 4096]
+  pow2 = BucketPolicy.pow2(64, 4096, 32)
+  got = BucketPolicy.from_plan(None, min_n=64, max_n=4096, max_batch=32)
+  assert got.sizes == tuple(sorted(set(pow2.sizes) | set(edges)))
+  assert len(got.sizes) == len(pow2.sizes) + len(set(edges) -
+                                                   set(pow2.sizes))
+  eng = ServingEngine(EngineConfig(device="cpu", ops=("soft_rank/l2/desc",),
+                                   max_batch=1))
+  assert eng.policy.sizes == got.sizes
+  assert eng.warmup() == len(got.sizes) * len(eng.policy.row_sizes)
 
 
 # ---------------------------------------------------------------------------
