@@ -1,0 +1,12 @@
+"""Share of the traced training steps in which no operation ran on the card."""
+
+from chipbench import readers
+
+LAYER = "device"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "train_tokens_per_s"
+
+
+def read(facts: dict, trace):
+  return readers.idle_pct(facts, trace, "train")
