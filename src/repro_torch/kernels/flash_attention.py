@@ -52,6 +52,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import _build
+from repro_torch.obs.tracing import span
 from repro_torch.sharding import local as _local
 
 # Launch count of each kernel; only the launch op below increments them.
@@ -552,46 +553,50 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   V^T, dS = P * (dP - D) with D = rowsum(dO * O), times the soft-cap's
   derivative, dQ += dS K * scale and dK += dS^T Q * scale, the G query
   heads of a kv head summed into its dK and dV.  Everything is f32 inside,
-  on any device.
+  on any device.  Runs in the span ``repro_attention_bwd``, on the thread
+  that launches its kernels.
   """
-  b, sq, h, d = q.shape
-  _, skv, hkv, dv = v.shape
-  g = h // hkv
-  scale = 1.0 / math.sqrt(d)
-  causal = causal or window > 0   # the plain version's window is causal
-  f32 = torch.float32
-  qf = q.to(f32).reshape(b, sq, hkv, g, d)
-  kf, vf = k.to(f32), v.to(f32)
-  dof = do.to(f32).reshape(b, sq, hkv, g, dv)
-  delta = torch.einsum("bqhgc,bqhgc->bhgq", dof,
-                       o.to(f32).reshape(b, sq, hkv, g, dv))
-  dq, dk, dvv = (torch.zeros_like(x) for x in (qf, kf, vf))
-  for q0 in range(0, sq, q_chunk):
-    q1 = min(q0 + q_chunk, sq)
-    p0, p1 = q0 + q_offset, q1 + q_offset       # the chunk's positions
-    q_blk, do_blk = qf[:, q0:q1], dof[:, q0:q1]
-    blocks = [(k0, min(k0 + kv_chunk, skv)) for k0 in range(0, skv, kv_chunk)
-              if not causal or (k0 < p1 and (window <= 0 or min(
-                  k0 + kv_chunk, skv) - 1 > p0 - window))]
-    lse = None
-    for k0, k1 in blocks:
-      s, _ = _scores(q_blk, kf[:, k0:k1], p0, k0, scale, causal, window,
-                     softcap)
-      part = torch.logsumexp(s, dim=-1)
-      lse = part if lse is None else torch.logaddexp(lse, part)
-    d_blk = delta[..., q0:q1, None]
-    for k0, k1 in blocks:
-      k_blk, v_blk = kf[:, k0:k1], vf[:, k0:k1]
-      s, dcap = _scores(q_blk, k_blk, p0, k0, scale, causal, window, softcap)
-      p = torch.exp(s - lse[..., None])
-      dvv[:, k0:k1] += torch.einsum("bhgqk,bqhgc->bkhc", p, do_blk)
-      ds = p * (torch.einsum("bqhgc,bkhc->bhgqk", do_blk, v_blk) - d_blk)
-      if dcap is not None:
-        ds = ds * dcap
-      dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk)
-      dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, q_blk)
-  return ((dq * scale).reshape(b, sq, h, d).to(q.dtype),
-          (dk * scale).to(k.dtype), dvv.to(v.dtype))
+  with span("repro_attention_bwd"):
+    b, sq, h, d = q.shape
+    _, skv, hkv, dv = v.shape
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    causal = causal or window > 0   # the plain version's window is causal
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, sq, hkv, g, d)
+    kf, vf = k.to(f32), v.to(f32)
+    dof = do.to(f32).reshape(b, sq, hkv, g, dv)
+    delta = torch.einsum("bqhgc,bqhgc->bhgq", dof,
+                         o.to(f32).reshape(b, sq, hkv, g, dv))
+    dq, dk, dvv = (torch.zeros_like(x) for x in (qf, kf, vf))
+    for q0 in range(0, sq, q_chunk):
+      q1 = min(q0 + q_chunk, sq)
+      p0, p1 = q0 + q_offset, q1 + q_offset       # the chunk's positions
+      q_blk, do_blk = qf[:, q0:q1], dof[:, q0:q1]
+      blocks = [(k0, min(k0 + kv_chunk, skv))
+                for k0 in range(0, skv, kv_chunk)
+                if not causal or (k0 < p1 and (window <= 0 or min(
+                    k0 + kv_chunk, skv) - 1 > p0 - window))]
+      lse = None
+      for k0, k1 in blocks:
+        s, _ = _scores(q_blk, kf[:, k0:k1], p0, k0, scale, causal, window,
+                       softcap)
+        part = torch.logsumexp(s, dim=-1)
+        lse = part if lse is None else torch.logaddexp(lse, part)
+      d_blk = delta[..., q0:q1, None]
+      for k0, k1 in blocks:
+        k_blk, v_blk = kf[:, k0:k1], vf[:, k0:k1]
+        s, dcap = _scores(q_blk, k_blk, p0, k0, scale, causal, window,
+                          softcap)
+        p = torch.exp(s - lse[..., None])
+        dvv[:, k0:k1] += torch.einsum("bhgqk,bqhgc->bkhc", p, do_blk)
+        ds = p * (torch.einsum("bqhgc,bkhc->bhgqk", do_blk, v_blk) - d_blk)
+        if dcap is not None:
+          ds = ds * dcap
+        dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk)
+        dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, q_blk)
+    return ((dq * scale).reshape(b, sq, h, d).to(q.dtype),
+            (dk * scale).to(k.dtype), dvv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

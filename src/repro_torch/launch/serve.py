@@ -61,7 +61,6 @@ from repro_torch.models import transformer as T
 from repro_torch.obs import artifacts as obs_artifacts
 from repro_torch.obs import metrics
 from repro_torch.obs.timing import percentiles
-from repro_torch.obs.tracing import trace_annotation
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -187,8 +186,7 @@ def run_engine(args) -> dict:
       deadline_ms=args.engine_deadline_ms)
   misses_before = sum(metrics.counters("aot_cache_miss").values())
   t0 = time.perf_counter()
-  with trace_annotation("repro_serve_engine"):
-    results = engine.serve(requests)
+  results = engine.serve(requests)
   wall = time.perf_counter() - t0
   ok = [r for r in results if r.ok]
   shed = [r for r in results if not r.ok]

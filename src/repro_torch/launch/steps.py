@@ -9,10 +9,10 @@ from __future__ import annotations
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.profiler import record_function
 
 from repro_torch.core.losses import soft_trimmed_token_loss
 from repro_torch.models import transformer as T
+from repro_torch.obs.tracing import span
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import ef_int8_roundtrip, init_residual
 
@@ -23,10 +23,10 @@ def loss_from_batch(cfg, model, batch: dict):
   loss.  The trim runs over all of the microbatch's tokens as one row:
   ``soft_trimmed_token_loss`` flattens its input, so the (batch, seq)
   reshape does not make it per sequence, as in the reference."""
-  with record_function("repro_forward_train"):
+  with span("repro_forward_train"):
     token_losses, aux = T.forward_train(cfg, model, batch)
   if cfg.loss_trim_fraction > 0:
-    with record_function("repro_soft_lts_loss"):
+    with span("repro_soft_lts_loss"):
       loss = torch.mean(soft_trimmed_token_loss(
           token_losses.reshape(token_losses.shape[0], -1),
           cfg.loss_trim_fraction, cfg.loss_trim_eps))
@@ -103,12 +103,14 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, lr_schedule=None,
       for i in range(accum):
         micro = {k: v[i] for k, v in split.items()}
         metrics, g = grads_of(model, params, micro)
-        for n, acc in gsum.items():
-          acc += g[n].to(acc_dt)
+        with span("repro_grad_accumulate"):
+          for n, acc in gsum.items():
+            acc += g[n].to(acc_dt)
         del g
         lsum = lsum + metrics["loss"]
       dt = T.dtype_of(cfg)
-      grads = {n: (s / accum).to(dt) for n, s in gsum.items()}
+      with span("repro_grad_accumulate"):
+        grads = {n: (s / accum).to(dt) for n, s in gsum.items()}
       del gsum
       metrics = {"loss": lsum / accum,
                  "aux_loss": torch.zeros((), dtype=torch.float32,
@@ -122,7 +124,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, lr_schedule=None,
 
     lr_scale = (lr_schedule(opt_state["adam"]["step"])
                 if lr_schedule else 1.0)
-    with record_function("repro_optimizer_update"):
+    with span("repro_optimizer_update"):
       _, opt_state["adam"], opt_metrics = adamw.update(
           opt_cfg, grads, opt_state["adam"], params, lr_scale,
           decay=T.decay_mask(model))

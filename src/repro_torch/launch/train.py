@@ -37,7 +37,6 @@ import statistics
 import time
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch import plan as repro_plan
 from repro_torch.checkpoint import checkpointer as ckpt
@@ -176,10 +175,9 @@ class Trainer:
       batch = self.batch_at(step)
       _sync(self.device)
       t0 = time.perf_counter()
-      with record_function("repro_train_step"):
-        _, state.opt_state, metrics = self.train_step(
-            state.model, state.opt_state, batch)
-        loss = float(metrics["loss"])
+      _, state.opt_state, metrics = self.train_step(
+          state.model, state.opt_state, batch)
+      loss = float(metrics["loss"])
       dt = time.perf_counter() - t0
       obs_metrics.observe("train_step_us", dt * 1e6)
       self.maybe_flag_straggler(dt)

@@ -28,6 +28,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.obs.tracing import span
 from repro_torch.sharding import local as _local
 from repro_torch.sharding.local import einsum, write_positions
 from repro_torch.sharding.specs import shard_activation
@@ -173,12 +174,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
   the G = H / Hkv query heads of a kv head together; scores in f32 (with
   ``softcap`` c > 0, c * tanh(s / c) before the mask), the weights cast to
   the values' dtype, as in the reference (plain ops there too: no kernel).
+  Runs in the span ``repro_decode_attention``.
   """
-  if isinstance(k_cache, DTensor):
-    return _decode_attention_sharded(q, k_cache, v_cache, cache_len, window,
-                                     softcap)
-  o, _ = _decode_block(q, k_cache, v_cache, 0, cache_len, window, softcap)
-  return o
+  with span("repro_decode_attention"):
+    if isinstance(k_cache, DTensor):
+      return _decode_attention_sharded(q, k_cache, v_cache, cache_len,
+                                       window, softcap)
+    o, _ = _decode_block(q, k_cache, v_cache, 0, cache_len, window, softcap)
+    return o
 
 
 def _decode_block(q, k, v, lo: int, cache_len: int, window: int,

@@ -31,6 +31,12 @@ the activation dtype.  Parameters keep the JAX layouts: ``router`` (d, E)
 f32, ``we_in`` / ``we_gate`` (E, d, f), ``we_out`` (E, f, d), ``shared``
 (a SwiGLU MLP of width f * num_shared_experts, only where the config has
 shared experts); ``moe_init`` draws them with the reference's scales.
+
+``moe_apply`` runs in three spans: ``repro_moe_dispatch`` (the dispatch
+mask and the tokens sent to their slots), ``repro_moe_experts`` (the
+routed experts' products and SiLU) and ``repro_moe_combine``; while a
+profiler records it also counts, on the device, the capacity slots it
+offered and those a token took (``moe_slots``, ``moe_slots_filled``).
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.core.operators import soft_topk_mask
 from repro_torch.kernels import soft_topk as _st
 from repro_torch.models.layers import Params, mlp_apply, normal
+from repro_torch.obs import metrics
+from repro_torch.obs.tracing import recording, span
 from repro_torch.sharding import local as _local
 from repro_torch.sharding.local import einsum
 from repro_torch.sharding.specs import shard_activation
@@ -132,6 +140,17 @@ def _dispatch_mask(weights: torch.Tensor, k: int, capacity: int):
   return dispatch, combine
 
 
+def _count_slots(dispatch: torch.Tensor) -> None:
+  """``moe_slots`` += G x E x C of ``dispatch`` (G, T, E, C), and
+  ``moe_slots_filled`` += its taken slots, each a one, kept on the
+  device.  A DTensor counts its local block."""
+  if isinstance(dispatch, DTensor):
+    dispatch = dispatch.to_local()
+  g, _, e, c = dispatch.shape
+  metrics.counter_inc("moe_slots", g * e * c)
+  metrics.counter_inc("moe_slots_filled", torch.count_nonzero(dispatch))
+
+
 def load_balance_loss(probs: torch.Tensor,
                       dispatch: torch.Tensor) -> torch.Tensor:
   """Switch-style auxiliary loss: E * <fraction routed, mean prob>."""
@@ -164,19 +183,24 @@ def moe_apply(p: Params, x: torch.Tensor, cfg):
   weights = shard_activation(weights, "moe_groups")
   k, e = cfg.experts_per_token, cfg.num_experts
   capacity = max(int(math.ceil(gs * k * cfg.capacity_factor / e)), 4)
-  dispatch, combine = _dispatch_mask(weights, k, capacity)
-  dispatch = dispatch.to(x.dtype)
-  combine = combine.to(x.dtype)
+  with span("repro_moe_dispatch"):
+    dispatch, combine = _dispatch_mask(weights, k, capacity)
+    dispatch = dispatch.to(x.dtype)
+    combine = combine.to(x.dtype)
+    xe = einsum("gtec,gtd->gecd", dispatch, xg)
+    xe = shard_activation(xe, "moe_groups4")
+  if recording():
+    _count_slots(dispatch)
 
-  xe = einsum("gtec,gtd->gecd", dispatch, xg)
-  xe = shard_activation(xe, "moe_groups4")
-  h = einsum("gecd,edf->gecf", xe, p["we_in"])
-  gg = einsum("gecd,edf->gecf", xe, p["we_gate"])
-  h = F.silu(gg) * h
-  ye = einsum("gecf,efd->gecd", h, p["we_out"])
-  ye = shard_activation(ye, "moe_groups4")
-  yt = einsum("gtec,gecd->gtd", combine, ye)
-  yt = shard_activation(yt, "moe_groups")
+  with span("repro_moe_experts"):
+    h = einsum("gecd,edf->gecf", xe, p["we_in"])
+    gg = einsum("gecd,edf->gecf", xe, p["we_gate"])
+    h = F.silu(gg) * h
+    ye = einsum("gecf,efd->gecd", h, p["we_out"])
+    ye = shard_activation(ye, "moe_groups4")
+  with span("repro_moe_combine"):
+    yt = einsum("gtec,gecd->gtd", combine, ye)
+    yt = shard_activation(yt, "moe_groups")
 
   if "shared" in p:
     yt = yt + mlp_apply(p["shared"], xg, "swiglu")

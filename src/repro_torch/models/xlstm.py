@@ -44,8 +44,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.profiler import record_function
 
+from repro_torch.obs.tracing import span
 from repro_torch.sharding import local as _local
 from repro_torch.sharding.local import assign, einsum
 from repro_torch.sharding.specs import shard_activation
@@ -310,7 +310,7 @@ class SLSTMScan(torch.autograd.Function):
   @staticmethod
   def backward(ctx, d_hs, d_c, d_n, _d_m, d_h):
     r, hs, pres, a_s, cs, ns = ctx.saved_tensors
-    with record_function("repro_slstm_scan_bwd"):
+    with span("repro_slstm_scan_bwd"):
       return _slstm_backward(r, hs, pres, a_s, cs, ns, d_hs, d_c, d_n, d_h)
 
 
@@ -398,7 +398,7 @@ def slstm_apply_seq(p: Params, x: torch.Tensor, cfg, *,
   f32 = torch.float32
   xw = einsum("bsd,dghk->shbgk", x.to(w.dtype).to(f32), w.to(f32))
   u = (xw + p["b"].transpose(0, 1)[:, None]).contiguous()  # (S, H, B, 4, dh)
-  with record_function("repro_slstm_scan"):
+  with span("repro_slstm_scan"):
     hs, c, n, m, h = _slstm_scan(u, p["r"])
   y = einsum("shbk,hkd->bsd", hs.to(x.dtype), p["w_out"])
   if not return_state:

@@ -4,11 +4,15 @@ Counterpart of ``repro.obs``.
 
 ``repro_torch.obs.metrics``
     The process-local counters and histograms (dispatch resolutions, plan
-    decisions, the serving engine's counters, the trainer's step times),
-    gated by ``REPRO_TORCH_METRICS``.
+    decisions, the serving engine's counters, the trainer's step times,
+    and the MoE layer's capacity slots, counted on the device while a
+    profiler records), gated by ``REPRO_TORCH_METRICS``.
 ``repro_torch.obs.tracing``
-    ``torch.profiler`` ranges named like the reference's scopes, so a
-    trace attributes kernel time to ``repro_<op>_<reg>_<backend>``.
+    Spans: ``torch.profiler`` ranges, recorded only while a profiler
+    records (otherwise one check), each with its name, start and end on
+    the profiler's clock and its parent by nesting, so a trace attributes
+    kernel time to the layer that launched it (``repro_moe_experts``) or
+    to a dispatched call (``repro_<op>_<reg>_<backend>``).
 ``repro_torch.obs.timing``
     Wall times with the device synchronised around the call; nearest-rank
     percentiles.
@@ -36,7 +40,12 @@ from repro_torch.obs.metrics import (
     snapshot,
 )
 from repro_torch.obs.timing import time_fn, timed
-from repro_torch.obs.tracing import backend_scope, scope_name, trace_annotation
+from repro_torch.obs.tracing import (
+    backend_scope,
+    scope_name,
+    span,
+    trace_annotation,
+)
 
 __all__ = [
     "SCHEMA_VERSION",
@@ -54,6 +63,7 @@ __all__ = [
     "scope_name",
     "set_enabled",
     "snapshot",
+    "span",
     "time_fn",
     "timed",
     "timing",

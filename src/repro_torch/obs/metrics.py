@@ -11,6 +11,14 @@ counts every call (``dispatch_calls``, ``dispatch_shape`` by
 every resolution.  Modules that keep state beside the registry (the
 dispatch layer's memo of counter names) register an ``on_reset`` hook,
 so that a disabled process keeps nothing.
+
+A counter's increment may be a 0-d device tensor (``counter_inc``): the
+sum then stays on the device, added with no host sync, and becomes an int
+only where the registry is read (``counters``, ``counter_value``,
+``snapshot``).  The MoE layer counts so, and only while a profiler records
+(``tracing.recording()``), so its counts cover exactly a traced segment:
+``moe_slots``, the G x E x C capacity slots of each ``moe_apply`` call,
+and ``moe_slots_filled``, the slots a token took.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ ENV_VAR = "REPRO_TORCH_METRICS"
 _FALSY = ("0", "false", "off", "no")
 
 _lock = threading.Lock()
-_counters: dict[str, int] = {}
+# An int, or a 0-d device tensor where an increment was one.
+_counters: dict = {}
 _histograms: dict[str, dict] = {}
 # None -> consult the environment on each call; True/False -> forced.
 _enabled_override: bool | None = None
@@ -87,8 +96,9 @@ def bump(*flat_keys: str) -> None:
       _counters[k] = _counters.get(k, 0) + 1
 
 
-def counter_inc(name: str, value: int = 1, /, **labels) -> None:
-  """Increment counter ``name{labels}`` by ``value`` (no-op when off)."""
+def counter_inc(name: str, value=1, /, **labels) -> None:
+  """Increment counter ``name{labels}`` by ``value`` (no-op when off): an
+  int, or a 0-d device tensor, which is added on the device."""
   if not enabled():
     return
   k = _key(name, labels)
@@ -98,7 +108,7 @@ def counter_inc(name: str, value: int = 1, /, **labels) -> None:
 
 def counter_value(name: str, /, **labels) -> int:
   """Current value of a counter (0 if never incremented)."""
-  return _counters.get(_key(name, labels), 0)
+  return int(_counters.get(_key(name, labels), 0))
 
 
 def pow2_bucket(value: float) -> str:
@@ -137,10 +147,12 @@ def observe(name: str, value: float, /, **labels) -> None:
 
 
 def counters(prefix: str = "") -> dict[str, int]:
-  """Flattened ``name{labels}`` -> value (optionally prefix-filtered)."""
+  """Flattened ``name{labels}`` -> value (optionally prefix-filtered); a
+  count kept on the device is read here."""
   with _lock:
-    return {k: v for k, v in sorted(_counters.items())
-            if k.startswith(prefix)}
+    found = [(k, v) for k, v in sorted(_counters.items())
+             if k.startswith(prefix)]
+  return {k: int(v) for k, v in found}
 
 
 def histograms(prefix: str = "") -> dict[str, dict]:

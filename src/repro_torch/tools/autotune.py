@@ -59,7 +59,6 @@ import sys
 
 from repro_torch import plan as plan_mod
 from repro_torch.examples import add_device_arg, device_of
-from repro_torch.obs import metrics as obs_metrics
 
 EVIDENCE_DIR = os.path.join(os.path.dirname(plan_mod.__file__), "evidence")
 DEFAULT_BENCH = os.path.join(EVIDENCE_DIR, "runtime.json")
@@ -231,9 +230,6 @@ def build_plan(runtime_payload: dict,
     meta["card"] = run_meta["card"]
   plan = plan_mod.ExecutionPlan(name=f"autotuned-{platform}",
                                 rules=tuple(rules), meta=meta)
-  for rule in plan.rules:
-    obs_metrics.counter_inc("autotune_rule", kind=rule.kind,
-                            backend=rule.backend)
   return plan
 
 
