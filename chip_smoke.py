@@ -178,8 +178,8 @@ its own lines; any failure raises and the script exits non-zero:
             model freed): the same server, seed, prompts and generation at
             full width and depth (16 layers, 1,235,814,400 bf16 parameters
             with the tied table).  Each prefill launches flash_attention
-            once a layer (16); no gate and no PAV kernel runs (decode
-            attention is plain ops, as in the reference).  Logits are
+            once a layer (16), each decode step decode_attention once a
+            layer; no gate and no PAV kernel runs.  Logits are
             finite; the kernel is held against its plain version on every
             layer's captured inputs; a plain-path prefill gives the logit
             difference and the first token's agreement; the weights' bytes,
@@ -189,7 +189,9 @@ its own lines; any failure raises and the script exits non-zero:
    serve llama3.2-1b in f32 (``--set dtype=float32``, after the bf16
             server's model is freed): the same server at full width and
             depth in f32.  Each prefill launches flash_attention_simt once
-            a layer (16, the FFMA path) and nothing else; logits finite;
+            a layer (16, the FFMA path), each decode step
+            decode_attention once a layer (its f32 path), nothing else;
+            logits finite;
             the kernel held to the f32 error model on every layer's
             captured inputs; a plain-path prefill; prefill ms, decode
             tok/s, and the kernel's share of one profiled prefill's device
@@ -203,7 +205,8 @@ its own lines; any failure raises and the script exits non-zero:
             6 of 64 layers (31,130,499,072 bf16 parameters, 58 GiB), seed
             0, the same prompts and generation.  Each prefill launches
             flash_attention and soft_topk_gates once a layer (6 each), each
-            decode step soft_topk_gates 6 times and flash_attention none;
+            decode step decode_attention and soft_topk_gates 6 times each
+            and flash_attention none;
             no PAV kernel runs.  Logits are finite and within the soft-cap;
             gate rows sum to k = 2; the attention kernel is held to its
             error model on every layer's captured prefill inputs and the
@@ -222,7 +225,8 @@ its own lines; any failure raises and the script exits non-zero:
             bf16 parameters), seed 0, 8 prompts of 512 tokens, 32
             generated: 22 flash_attention launches a prefill in the layers'
             order, none windowed, the kernel at (64, 64) with G = 8; a
-            decode step none; no gate, PAV or CUDA-core launch; logits
+            decode step decode_attention once a layer; no gate, PAV or
+            CUDA-core launch; logits
             finite; the kernel held to its error model on every layer's
             captured inputs; a plain-path prefill; the kernel, plain and
             SDPA (``enable_gqa``) times at the prefill shape, prefill ms,
@@ -237,7 +241,9 @@ its own lines; any failure raises and the script exits non-zero:
             0, 8 prompts of 2048 tokens (at 512 the window never binds),
             32 generated.  Each prefill launches flash_attention once a
             layer (48: 40 with the window, 8 without, in the cycle's
-            order), a decode step none; no gate and no PAV kernel.  Logits
+            order), a decode step decode_attention once a layer (the
+            window's positions alone in the local layers); no gate and no
+            PAV kernel.  Logits
             finite; every layer's cache full length (max_len 2080); the
             kernel held to its error model on every layer's inputs as it
             ran (kept are the first global and local layer's); a
@@ -262,7 +268,8 @@ its own lines; any failure raises and the script exits non-zero:
             on 8 prompts of 4096 tokens, so that the window binds: 8
             windowed flash_attention launches a prefill (G 10), none in
             its rg layers, and every rg layer's f32 state finite after
-            decode.  Both: a decode step launches nothing; no gate and no
+            decode.  Both: a decode step launches decode_attention once an
+            attention layer and nothing else; no gate and no
             PAV kernel; logits finite; the kernel held to its error model
             on every attention layer's inputs as it ran; a plain-path
             prefill; then the kernel, plain and SDPA times at the first
@@ -284,7 +291,8 @@ its own lines; any failure raises and the script exits non-zero:
             576 random patch embeddings from the pipeline and 512 tokens,
             decoding from position 1088 (the prefill's length, not the
             reference's 1664: fault R6): 32 flash_attention launches a
-            prefill, none a decode step, the kernel held on every layer's
+            prefill, decode_attention 32 a decode step, the kernel held on
+            every layer's
             inputs, a plain-path prefill, the kernel, plain and SDPA
             (``enable_gqa``) times at the prefill shape.
    serve musicgen-large at the steps' level (``launch/steps.py``'s
@@ -294,7 +302,8 @@ its own lines; any failure raises and the script exits non-zero:
             heads, no embedding (2,433,093,632 parameters, 4.53 GiB), seed
             0; 8 x 512 frame embeddings from the pipeline's audio branch,
             then 31 decode steps fed its next frames: 48 flash_attention
-            launches a prefill (G 1), none a decode step; (8, 4, 2048)
+            launches a prefill (G 1), decode_attention 48 a decode step;
+            (8, 4, 2048)
             logits finite; the kernel held on every layer's inputs; a
             plain-path prefill; the same times as the servers above.
 5. times    CUDA-event medians per kernel (on the main path's solver
@@ -499,7 +508,8 @@ REPLACES = {"pav_l2": "src/repro/kernels/pav.py:196",
             "soft_topk_gates": "src/repro/kernels/soft_topk.py:109",
             "flash_attention": "src/repro/kernels/flash_attention.py:83",
             "flash_attention_simt":
-                "src/repro/kernels/flash_attention.py:83"}
+                "src/repro/kernels/flash_attention.py:83",
+            "decode_attention": None}
 # Names of each PAV kernel's CUDA kernels as the profiler shows them: the
 # four kernels of each instantiation of csrc/pav_scan.cu carry its algebra
 # in their template names.
@@ -510,7 +520,9 @@ SOURCES = {"pav_l2": "src/repro_torch/kernels/csrc/pav_scan.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_simt":
-               "src/repro_torch/kernels/csrc/flash_attention_simt.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention_simt.cu",
+           "decode_attention":
+               "src/repro_torch/kernels/csrc/decode_attention.cu"}
 # The LM serving path: full config, 8 prompts of 512 tokens, 32 tokens out.
 ARCH = "deepseek-v2-lite-16b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
@@ -2087,6 +2099,8 @@ def serve_path(dev, serve, ops, st, fa):
         "a PAV kernel ran on the serving path")
   check(launches["flash_attention_simt"] == 0,
         "the CUDA-core attention kernel ran on the bf16 serving path")
+  check(launches["decode_attention"] == 0,
+        "the decode attention kernel ran on MLA's serving path")
   params = T.count_params(res["model"])
   check(abs(params - 16.21e9) < 0.01e9, f"{params} parameters")
   for name in ("prefill_logits", "logits"):
@@ -2187,7 +2201,8 @@ FIRST_KERNELS = {"pav_l2": ("tile_kernel", "L2Algebra"),
                  "pav_kl": ("tile_kernel", "KlAlgebra"),
                  "soft_topk_gates": ("soft_topk_kernel",),
                  "flash_attention": ("flash_kernel",),
-                 "flash_attention_simt": ("attention_simt",)}
+                 "flash_attention_simt": ("attention_simt",),
+                 "decode_attention": ("decode_split",)}
 NOT_PROFILED = "not measured (no profiler session recorded every launch)"
 
 
@@ -2653,8 +2668,9 @@ DENSE_PARAMS = 1_235_814_400
 
 def dense_serve_path(dev, serve, ops, st, fa):
   """llama3.2-1b's serving path once with every counter from 0, then its
-  checks: launches (flash_attention once a layer a prefill, nothing else:
-  decode attention is plain ops, as in the reference), parameters, finite
+  checks: launches (flash_attention once a layer a prefill,
+  decode_attention once a layer a decode step, nothing else), parameters,
+  finite
   logits, the kernel on every layer's captured inputs, and the same
   prefill on the plain versions.  Returns (serve result, launches,
   recorder, the kernel's worst error on the captured inputs)."""
@@ -2687,13 +2703,15 @@ def dense_serve_path(dev, serve, ops, st, fa):
          cfg.head_dim, cfg.tie_embeddings) == DENSE_SHAPE,
         f"{DENSE_ARCH} config {cfg}")
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": n_layers, "flash_attention_simt": 0}
+          "flash_attention": n_layers, "flash_attention_simt": 0,
+          "decode_attention": n_layers * (SERVE_GEN - 1)}
   check(launches == want and len(rec.attn) == n_layers and not rec.gates,
         f"{DENSE_ARCH} serve launches {launches}, counted from the code "
         f"{want}")
   say(f"serve: {DENSE_ARCH} launches {launches} for 1 prefill and "
       f"{SERVE_GEN - 1} decode steps of {n_layers} layers (counted from the"
-      f" code: flash_attention once a layer a prefill, nothing else)")
+      f" code: flash_attention once a layer a prefill, decode_attention "
+      "once a layer a decode step, nothing else)")
   params = T.count_params(res["model"])
   check(params == DENSE_PARAMS, f"{params} parameters, not {DENSE_PARAMS}")
   check(not hasattr(res["model"], "lm_head"), "a tied model has an lm_head")
@@ -2769,7 +2787,8 @@ def dense_f32_serve(dev, serve, ops, st, fa, name_limit):
   launches = ops.all_launches()
   n_layers = res["cfg"].num_layers
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": 0, SIMT: n_layers}
+          "flash_attention": 0, SIMT: n_layers,
+          "decode_attention": n_layers * (SERVE_GEN - 1)}
   check(launches == want and len(rec.attn) == n_layers,
         f"{DENSE_ARCH} f32 serve launches {launches}, counted from the code "
         f"{want}")
@@ -2794,7 +2813,8 @@ def dense_f32_serve(dev, serve, ops, st, fa, name_limit):
   say(f"serve: {DENSE_ARCH} in f32 ({' '.join(DENSE_F32_ARGV)}) launches "
       f"{launches} for 1 prefill and {SERVE_GEN - 1} decode steps of "
       f"{n_layers} layers (counted from the code: {SIMT} once a layer a "
-      f"prefill, nothing else); logits finite; {SIMT} on the captured "
+      f"prefill, decode_attention once a layer a decode step, nothing "
+      f"else); logits finite; {SIMT} on the captured "
       f"inputs of all {n_layers} layers, worst layer by each measure (f32 "
       f"model): max |kernel - plain in f32| {worst['max_abs_err']:.3e}, "
       f"|err| / tol {worst['tol_ratio']:.4f} (limit 1), relative Frobenius "
@@ -2855,9 +2875,8 @@ def grok_serve_path(dev, serve, ops, st, fa):
   a user runs: ``--set num_layers=6``, random weights from seed 0) with
   every counter from 0, then its checks: the card nearly empty before the
   weights are built; every prefill launches flash_attention and the gates
-  once a layer (in that order, layer by layer), every decode step the
-  gates once a layer and no attention kernel (decode attention is plain
-  ops, as in the reference), no PAV kernel; the parameter count; finite
+  once a layer (in that order, layer by layer), every decode step
+  decode_attention and the gates once a layer, no PAV kernel; the parameter count; finite
   logits within the soft-cap; gate rows summing to k; the attention kernel
   on every layer's captured prefill inputs by its error model, the gates
   bit for bit on every captured call; the same prefill on the plain
@@ -2880,7 +2899,8 @@ def grok_serve_path(dev, serve, ops, st, fa):
         and cfg.router == "soft_topk" and cfg.router_eps == 1.0,
         f"{GROK_ARCH} config {cfg}")
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": n_layers * SERVE_GEN,
-          "flash_attention": n_layers, "flash_attention_simt": 0}
+          "flash_attention": n_layers, "flash_attention_simt": 0,
+          "decode_attention": n_layers * steps}
   order = ["attn", "gates"] * n_layers + ["gates"] * (n_layers * steps)
   check(launches == want and rec.order == order,
         f"{GROK_ARCH} serve launches {launches}, counted from the code {want}"
@@ -2896,7 +2916,8 @@ def grok_serve_path(dev, serve, ops, st, fa):
       f"decode steps of {n_layers} layers in {time.perf_counter() - t0:.1f} "
       "s with the init (counted from the code: a prefill flash_attention "
       f"and soft_topk_gates once a layer, {n_layers} each; a decode step "
-      f"soft_topk_gates {n_layers} times, flash_attention 0 times)")
+      f"decode_attention and soft_topk_gates {n_layers} times each, "
+      "flash_attention 0 times)")
   from repro_torch.models import transformer as T
 
   params = T.count_params(res["model"])
@@ -2952,6 +2973,108 @@ def grok_serve_times(res, rec, serve, st, fa, name_limit):
   row, line = attn_times(q, kx, v, causal, fa, name_limit)
   return row, gate_rows, lines + [line] + generate_times(res, serve,
                                                          name_limit)
+
+
+# The decode attention kernel at the benchmark's decode cell: grok-1's (B,
+# H, Hkv, D) over 6144-position caches, at the prompt's end, the window's
+# reach in a 30 s run, and a full cache.
+DECODE_ATTN_SHAPE = (32, 48, 8, 128, 6144)
+DECODE_ATTN_LENS = (2048, 3300, 6144)
+DECODE_KERNELS = ("decode_split", "decode_combine")
+
+
+def decode_attn_times(dev, name_limit) -> tuple[list[dict], list[str]]:
+  """``decode_attention`` at ``DECODE_ATTN_SHAPE`` (bf16, random inputs)
+  for each of ``DECODE_ATTN_LENS``: held to its plain version by its error
+  model, then its CUDA-event median and profiler device time (the split
+  pass and the combine, 2 launches a call) beside its bound (the valid K
+  and V read once, q in, o and lse out, at HBM_BYTES_PER_S), the plain
+  version on the same CUDA tensors (the two einsums over the whole cache
+  and the masked softmax: the main path before this kernel), and
+  scaled_dot_product_attention with ``enable_gqa`` on the transposed views
+  of the length-sliced caches."""
+  from repro_torch.kernels import decode_attention as da
+
+  b, h, hkv, d, s = DECODE_ATTN_SHAPE
+  gen = torch.Generator(device=dev).manual_seed(s)
+  q = torch.randn((b, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+  k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev,
+                      dtype=torch.bfloat16) for _ in range(2))
+  rows, lines = [], []
+  for n in DECODE_ATTN_LENS:
+    o, lse = da.decode_block(q, k, v, 0, n)
+    cmp = da.compare_with_plain(o, lse, q, k, v, 0, n)
+    check(cmp["finite"] and cmp["tol_ratio"] <= 1.0
+          and cmp["lse_ratio"] <= 1.0
+          and cmp["rel_frob"] <= cmp["rel_frob_limit"],
+          f"decode_attention at {DECODE_ATTN_SHAPE}, cache_len {n}: {cmp}")
+    bound_ms = da.decode_bytes(q, k, 0, n) / HBM_BYTES_PER_S * 1e3
+    call = lambda: da.decode_block(q, k, v, 0, n)  # noqa: E731
+    ms = median_ms(call, 20)
+    dev_ms = kernel_device_ms(call, DECODE_KERNELS, bound_ms=bound_ms,
+                              launches=2)
+    plain_ms = median_ms(lambda: da.decode_block_plain(q, k, v, 0, n), 5)
+    qt = q[:, :, None]
+    kt, vt = (t[:, :n].transpose(1, 2) for t in (k, v))
+
+    def sdpa():
+      torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                       enable_gqa=True)
+
+    lib_ms = median_ms(sdpa, 20)
+    lib_dev_ms = kernel_device_ms(sdpa, "", bound_ms=bound_ms)
+    backend = sdpa_backend(sdpa)
+    plan = da.split_plan(q.dtype, b, h, hkv, d, n)
+    rows.append({"shape": [b, h, hkv, d, s], "cache_len": n, "ms": ms,
+                 "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": "bytes",
+                 "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                 "library_backend": backend, "parts": plan["parts"],
+                 "part_keys": plan["part_keys"], "tol_ratio":
+                 cmp["tol_ratio"], "lse_ratio": cmp["lse_ratio"]})
+    lines.append(
+        f"times: decode_attention q {tuple(q.shape)} caches {tuple(k.shape)}"
+        f" cache_len {n} ({plan['parts']} parts of {plan['part_keys']} "
+        f"keys): kernel {ms:.4f} ms (device {ms_text(dev_ms)}, profiler, "
+        f"split + combine), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms (device "
+        f"{ms_text(lib_dev_ms)}; backend {backend}), bound {bound_ms:.5f} "
+        f"ms (bytes: {da.decode_bytes(q, k, 0, n) / 1e9:.4f} GB); the bound "
+        f"is {share(bound_ms, ms)} of the kernel's time "
+        f"({share(bound_ms, dev_ms)} of its device time) and "
+        f"{share(bound_ms, lib_ms)} of SDPA's; |err| / tol "
+        f"{cmp['tol_ratio']:.4f}, lse {cmp['lse_ratio']:.4f} [{name_limit}]")
+  return rows, lines
+
+
+def decode_step_plain_times(res, serve, name_limit) -> str:
+  """A served model's decode step (the CUDA-event median of 10 at the
+  prompt's end) with ``decode_attention``'s kernel, and again with its
+  plain version on the card's tensors in its place: the step before and
+  after the kernel, on the same weights and caches."""
+  from repro_torch.kernels import decode_attention as da
+  from repro_torch.launch import steps
+
+  cfg, batch, model = res["cfg"], res["batch"], res["model"]
+  s = steps.prefill_length(cfg, batch)
+  with torch.inference_mode():
+    logits, caches = steps.make_prefill_step(cfg, s + 2)(model, batch)
+    tok = serve.greedy(logits)
+    step = lambda: steps.make_decode_step(cfg)(  # noqa: E731
+        model, caches, tok, s)
+    kernel_ms = median_ms(step, 10)
+    block = da.decode_block
+    da.decode_block = lambda q, k, v, lo, n, w=0, c=0.0: (
+        da.decode_block_plain(q, k, v, lo, n, w, c))
+    try:
+      plain_ms = median_ms(step, 10)
+    finally:
+      da.decode_block = block
+  del caches
+  return (f"times: serve {cfg.name} decode step at position {s} (batch "
+          f"{SERVE_BATCH}): {kernel_ms:.3f} ms with the decode_attention "
+          f"kernel, {plain_ms:.3f} ms with its plain version in its place "
+          f"(the step before the kernel) [{name_limit}]")
 
 
 # ---------------------------------------------------------------------------
@@ -3200,8 +3323,8 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
   recurrentgemma: its 8 ``local`` layers under the window of 2048, its
   ``rg`` layers none; xlstm: none, its ``mlstm`` and ``slstm`` layers are
   PyTorch ops; llava: 32 over its 576 patches and 512 tokens), a decode
-  step none (decode attention is plain ops, as in the reference), no gate
-  and no PAV kernel; every attention layer's cache full length and every
+  step decode_attention once an attention layer, no gate and no PAV
+  kernel; every attention layer's cache full length and every
   recurrent state its shape; the parameter count, the head tied or not;
   finite logits; the kernel held to its error model on every attention
   layer's inputs as it ran (the worst by window); every recurrent state
@@ -3231,7 +3354,8 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
   windows = [cfg.window_size if kind == "local" else 0 for kind in kinds
              if T.MIXERS[kind] == "attn"]
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": len(windows), "flash_attention_simt": 0}
+          "flash_attention": len(windows), "flash_attention_simt": 0,
+          "decode_attention": len(windows) * (SERVE_GEN - 1)}
   check(launches == want and [w for w, _, _ in rec.held] == windows
         and not rec.gates,
         f"{arch} serve launches {launches}, windows "
@@ -3248,7 +3372,8 @@ def full_serve_path(dev, serve, ops, st, fa, arch: str):
       f"{SERVE_GEN - 1} decode steps of {cfg.num_layers} layers in "
       f"{time.perf_counter() - t0:.1f} s with the init and the held checks "
       f"(counted from the code: flash_attention once an attention layer a "
-      f"prefill, {', '.join(counted)}; nothing else)")
+      f"prefill, {', '.join(counted)}; decode_attention once an attention "
+      "layer a decode step; nothing else)")
 
   params = T.count_params(res["model"])
   check(params == run["params"], f"{params} parameters, not {run['params']}")
@@ -3343,6 +3468,8 @@ def full_serve_times(res, rec, serve, fa, dev, name_limit):
   peak = torch.cuda.max_memory_allocated(dev) / 2**30
   lines.append(f"times: serve {res['cfg'].name} peak memory over the timed "
                f"runs and profiles {peak:.3f} GiB [{name_limit}]")
+  if res["cfg"].name == GEMMA_ARCH:
+    lines.append(decode_step_plain_times(res, serve, name_limit))
   return row, lines
 
 
@@ -3429,14 +3556,16 @@ def audio_serve_path(dev, ops, st, fa):
   launches = ops.all_launches()
   serve_peak = torch.cuda.max_memory_allocated(dev)
   want = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": cfg.num_layers, "flash_attention_simt": 0}
+          "flash_attention": cfg.num_layers, "flash_attention_simt": 0,
+          "decode_attention": cfg.num_layers * (SERVE_GEN - 1)}
   check(launches == want and len(rec.held) == cfg.num_layers
         and not rec.gates, f"{MUSICGEN_ARCH} launches {launches}, counted "
         f"from the code {want}")
   say(f"serve: {MUSICGEN_ARCH} launches {launches} for 1 prefill of "
       f"{SERVE_PROMPT} frames and {SERVE_GEN - 1} decode steps of "
       f"{cfg.num_layers} layers (counted from the code: flash_attention "
-      "once a layer a prefill, nothing else)")
+      "once a layer a prefill, decode_attention once a layer a decode step, "
+      "nothing else)")
   params = T.count_params(model)
   check(params == MUSICGEN_PARAMS and not hasattr(model, "embed")
         and len(model.codebook_heads()) == 4,
@@ -3689,7 +3818,7 @@ def train_launches_per_step(cfg) -> dict[str, int]:
   trim = cfg.grad_accum if cfg.loss_trim_fraction > 0 else 0
   return {"pav_l2": passes * routed + trim, "pav_kl": 0,
           "soft_topk_gates": 0, "flash_attention": passes * n_attn,
-          "flash_attention_simt": 0}
+          "flash_attention_simt": 0, "decode_attention": 0}
 
 
 class TrainRecorder:
@@ -4456,11 +4585,12 @@ def mesh_serve(dev, mesh2, kops, name_limit) -> tuple[list[str], dict]:
   logits, _, times, counts, launches, peak = run(True, toks)
   n = cfg.num_layers
   check(counts[0] == {**counts[0], "flash_attention": n,
-                      "soft_topk_gates": n, "flash_attention_simt": 0},
+                      "soft_topk_gates": n, "flash_attention_simt": 0,
+                      "decode_attention": 0},
         f"mesh prefill launches {counts[0]}")
   check(launches == {**launches, "flash_attention": n,
                      "soft_topk_gates": n * (1 + MESH_SERVE_STEPS),
-                     "flash_attention_simt": 0},
+                     "flash_attention_simt": 0, "decode_attention": 0},
         f"mesh serve launches {launches}")
   differ = [i for i, (a, b) in enumerate(zip(logits, ref_logits))
             if not torch.equal(a, b)]
@@ -4943,20 +5073,23 @@ def smoke_launches_from_code(cfg) -> dict[str, dict[str, int]]:
   """Each kernel's launches a prefill, a decode step and a train step of a
   smoke config on the card, counted from the code: every GQA or MLA layer
   launches the CUDA-core attention kernel once a prefill and once a train
-  step's forward (f32; remat "none": no recompute), none a decode step
-  (decode attention is plain ops); every MoE layer with the soft top-k
+  step's forward (f32; remat "none": no recompute); every GQA layer
+  launches decode_attention once a decode step (MLA decodes in plain ops);
+  every MoE layer with the soft top-k
   router runs the gates kernel once a prefill and a decode step, and under
   autograd ``soft_topk_mask``'s ``pav_l2`` once a train step; the soft-LTS
   loss one more ``pav_l2``."""
   from repro_torch.models import transformer as T
 
   n_attn = attention_layers(cfg)
+  n_gqa = sum(T.MIXERS[kind] == "attn" for kind in cfg.layer_kinds())
   routed = (sum(kind in T.MOE_KINDS for kind in cfg.layer_kinds())
             if cfg.router == "soft_topk" else 0)
   zero = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": 0, SIMT: 0}
+          "flash_attention": 0, SIMT: 0, "decode_attention": 0}
   return {"prefill": {**zero, "soft_topk_gates": routed, SIMT: n_attn},
-          "decode step": {**zero, "soft_topk_gates": routed},
+          "decode step": {**zero, "soft_topk_gates": routed,
+                          "decode_attention": n_gqa},
           "train step": {**zero, "pav_l2": routed + 1, SIMT: n_attn}}
 
 
@@ -5078,11 +5211,11 @@ def example_launches(name: str, res: dict, mod) -> dict[str, int]:
   step (both routers), ``pav_l2`` a layer a step for the soft router's
   training gates, and the gates kernel once for its load CV, once a layer
   for the generation's prefill and for each of its decode steps (plus the
-  prefill's attention); quickstart one ``pav_l2`` a soft_rank / soft_sort
+  prefill's attention and decode_attention once a layer a decode step); quickstart one ``pav_l2`` a soft_rank / soft_sort
   / soft_topk_mask / soft_quantile call (7 l2) and one ``pav_kl`` (the KL
   rank)."""
   zero = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-          "flash_attention": 0, SIMT: 0}
+          "flash_attention": 0, SIMT: 0, "decode_attention": 0}
   if name == "quickstart":
     return {**zero, "pav_l2": 7, "pav_kl": 1}
   if name == "label_ranking":
@@ -5094,7 +5227,8 @@ def example_launches(name: str, res: dict, mod) -> dict[str, int]:
   layers, steps = mod.make_cfg("soft_topk").num_layers, res["steps"]
   return {**zero, SIMT: 2 * layers * steps + layers,
           "pav_l2": layers * steps,
-          "soft_topk_gates": 1 + layers * (1 + mod.GENERATE)}
+          "soft_topk_gates": 1 + layers * (1 + mod.GENERATE),
+          "decode_attention": layers * mod.GENERATE}
 
 
 def examples_phase(dev, kops, name_limit) -> tuple[list[str], dict]:
@@ -5232,7 +5366,7 @@ def experiment_launches(name: str, rows: list[dict]) -> dict[str, int]:
   hard-LTS endpoint; least squares, Huber, no projection, cross-entropy
   and all-pairs none."""
   counts = {"pav_l2": 0, "pav_kl": 0, "soft_topk_gates": 0,
-            "flash_attention": 0, SIMT: 0}
+            "flash_attention": 0, SIMT: 0, "decode_attention": 0}
   for row in rows:
     kind = row["name"].split("/")[1]
     if row["name"].startswith("fig6_"):
@@ -5430,7 +5564,8 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                     full_rows, audio_row, train_launches, train_rows,
                     engine_runs, engine_rows, option_rows,
                     mesh_launches, simt_rows, smoke_counts,
-                    example_rows, simt_serve, experiment_runs) -> list[dict]:
+                    example_rows, simt_serve, experiment_runs,
+                    decode_rows) -> list[dict]:
   """The ``{"kernels": [...]}`` line's entries: every kernel with the
   contract's keys and its launches by path (``serve_launches`` and
   ``train_launches`` by model).  ``launches`` is each kernel's main path:
@@ -5459,7 +5594,11 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
   ``smoke_launches`` by smoke config a prefill, decode step and train step
   (each read after counts set to 0), the bf16 paths' zeros under
   ``serve_launches`` and ``train_launches``; its top-level numbers are
-  the robust LM example's --full shape, ``rows`` every shape timed."""
+  the robust LM example's --full shape, ``rows`` every shape timed.
+  ``decode_attention`` (no TPU kernel: the reference decodes in plain ops)
+  has grok's decode path as its main path (``launches``: the grok
+  server's), its top-level numbers at the decode cell's shape with a
+  cache_len of 3300, ``rows`` each cache_len timed."""
 
   def by_arch(counts: dict, kname: str) -> dict[str, int]:
     return {arch: c[kname] for arch, c in counts.items()}
@@ -5549,6 +5688,22 @@ def kernels_summary(*, launches, max_err, kernel_rows, serve_counts,
                          for name, runs in smoke_counts.items()},
       "serve": simt_serve,
       **paths(SIMT), "rows": simt_rows})
+  head = next(r for r in decode_rows if r["cache_len"] == 3300)
+  kernels.append({
+      "name": "decode_attention", "route": "cuda",
+      "source": SOURCES["decode_attention"],
+      "replaces": REPLACES["decode_attention"],
+      "launches": serve_counts[GROK_ARCH]["decode_attention"],
+      "max_abs_err": None,
+      **{k: head[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "library_backend",
+                              "shape", "cache_len")},
+      "example_launches": {name: r["launches"]["decode_attention"]
+                           for name, r in example_rows.items()},
+      "smoke_launches": {name: {what: c["decode_attention"]
+                                for what, c in runs.items()}
+                         for name, runs in smoke_counts.items()},
+      **paths("decode_attention"), "rows": decode_rows})
   return kernels
 
 
@@ -5878,6 +6033,11 @@ def main() -> int:
   for line in grok_lines:
     say(line)
   del grok_res, grok_rec
+  gc.collect()
+  torch.cuda.empty_cache()
+  decode_rows, decode_lines = decode_attn_times(dev, name_limit)
+  for line in decode_lines:
+    say(line)
 
   clock(f"serve {GROK_ARCH}")
   # serve, gemma, stablelm, recurrentgemma, xlstm and llava ---------------
@@ -5965,7 +6125,7 @@ def main() -> int:
       option_rows=option_rows, mesh_launches=mesh_launches,
       simt_rows=simt_rows, smoke_counts=smoke_counts,
       example_rows=example_rows, simt_serve=f32_row,
-      experiment_runs=experiment_runs)
+      experiment_runs=experiment_runs, decode_rows=decode_rows)
   say(json.dumps({"kernels": kernels}))
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,15 +6,17 @@
 machine in plain PyTorch) for tensors on the CPU.  The backward is
 backend-independent segment algebra (``repro_torch.kernels.segment_vjp``).
 
-The models call the router gate ``soft_topk_gates`` and the attention
-``flash_attention``: each runs its kernel on a CUDA tensor and its plain
-version (``soft_topk_gates_plain``, ``flash_attention_plain``) on a CPU
-tensor.  Every kernel module keeps its own ``LAUNCHES`` count;
+The models call the router gate ``soft_topk_gates``, the attention
+``flash_attention`` and, in a decode step, ``decode_attention.decode_block``:
+each runs its kernel on a CUDA tensor and its plain version
+(``soft_topk_gates_plain``, ``flash_attention_plain``,
+``decode_block_plain``) on a CPU tensor.  Every kernel module keeps its own ``LAUNCHES`` count;
 ``reset_all_launches`` zeroes them all and ``all_launches`` reads them.
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import pav as _pav
 from repro_torch.kernels import soft_topk as _st
@@ -37,7 +39,7 @@ __all__ = ["pav_l2", "pav_kl", "pav_l2_stack", "pav_kl_stack", "LAUNCHES",
            "flash_attention", "flash_attention_plain", "reset_all_launches",
            "all_launches"]
 
-_KERNEL_MODULES = (_pav, _st, _fa)
+_KERNEL_MODULES = (_pav, _st, _fa, _da)
 
 
 def reset_all_launches() -> None:

@@ -20,6 +20,7 @@ tensors), so the same code runs on DTensors under a mesh.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.obs.tracing import span
 from repro_torch.sharding import local as _local
@@ -34,8 +36,6 @@ from repro_torch.sharding.local import einsum, write_positions
 from repro_torch.sharding.specs import shard_activation
 
 Params = dict[str, torch.Tensor]
-
-_NEG_INF = -1e30
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype,
@@ -98,17 +98,38 @@ def rope(x: torch.Tensor, positions: torch.Tensor | int,
   host wait for the card in every layer.)"""
   d = x.shape[-1]
   half = d // 2
-  freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                 device=x.device) / half)
-  if isinstance(positions, int):
-    ang = freq * float(positions)                        # (half,)
+  if isinstance(positions, int) and x.device.type == "cuda":
+    cos, sin = _rope_angles(half, float(theta), positions, x.device,
+                            torch.is_inference_mode_enabled())
   else:
-    ang = positions[..., None].to(torch.float32) * freq  # (..., S, half)
-  cos = torch.cos(ang)[..., None, :]                     # over heads
-  sin = torch.sin(ang)[..., None, :]
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    if isinstance(positions, int):
+      ang = freq * float(positions)                        # (half,)
+    else:
+      ang = positions[..., None].to(torch.float32) * freq  # (..., S, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+  cos = cos[..., None, :]                                  # over heads
+  sin = sin[..., None, :]
   x1, x2 = x[..., :half], x[..., half:]
   out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
   return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_angles(half: int, theta: float, pos: int, device: torch.device,
+                 inference: bool) -> tuple[torch.Tensor, torch.Tensor]:
+  """cos and sin (half,) of one position's angles on a CUDA device, by the
+  same ops as ``rope``'s, made once and shared by the q and k of every
+  layer of a decode step: each ``rope`` call would otherwise launch six
+  kernels more, ~1 ms of the host's time in a grok-1 decode step of 6
+  layers, which the host must keep below the card's.  Keyed by inference
+  mode too, so that a tensor made under it never meets autograd."""
+  del inference
+  freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                 device=device) / half)
+  ang = freq * float(pos)
+  return torch.cos(ang), torch.sin(ang)
 
 
 # ---------------------------------------------------------------------------
@@ -169,42 +190,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:
   """Single-token attention. q: (B,H,D); caches: (B,S,Hkv,D) -> (B,H,D).
 
-  A masked softmax over the full-length cache (positions below
-  ``cache_len`` and, with ``window > 0``, above ``cache_len - 1 - window``),
-  the G = H / Hkv query heads of a kv head together; scores in f32 (with
-  ``softcap`` c > 0, c * tanh(s / c) before the mask), the weights cast to
-  the values' dtype, as in the reference (plain ops there too: no kernel).
-  Runs in the span ``repro_decode_attention``.
+  Attention over the valid cache positions (below ``cache_len`` and, with
+  ``window > 0``, above ``cache_len - 1 - window``), the G = H / Hkv query
+  heads of a kv head together; scores in f32 (with ``softcap`` c > 0,
+  c * tanh(s / c) before the mask).  On CUDA tensors the split-KV kernel
+  ``kernels/decode_attention.py`` (``csrc/decode_attention.cu``), which
+  reads only the valid positions, in place; on CPU tensors its plain
+  version, the reference's masked softmax over the full-length cache with
+  the weights cast to the values' dtype (plain ops there: the reference has
+  no kernel).  Runs in the span ``repro_decode_attention``.
   """
   with span("repro_decode_attention"):
     if isinstance(k_cache, DTensor):
       return _decode_attention_sharded(q, k_cache, v_cache, cache_len,
                                        window, softcap)
-    o, _ = _decode_block(q, k_cache, v_cache, 0, cache_len, window, softcap)
+    o, _ = _da.decode_block(q, k_cache, v_cache, 0, cache_len, window,
+                            softcap)
     return o
-
-
-def _decode_block(q, k, v, lo: int, cache_len: int, window: int,
-                  softcap: float):
-  """``decode_attention`` over a block of cache positions starting at
-  ``lo``, the masks at their global positions: (output (B,H,Dv), its
-  masked f32 scores (B,Hkv,G,S))."""
-  b, h, d = q.shape
-  s, hkv = k.shape[1:3]
-  qg = q.reshape(b, hkv, h // hkv, d)
-  scores = einsum("bhgd,bkhd->bhgk", qg, k).to(torch.float32)
-  scores = scores * (1.0 / math.sqrt(d))
-  if softcap > 0.0:
-    scores = torch.tanh(scores / softcap) * softcap
-  pos = torch.arange(lo, lo + s, device=q.device)
-  valid = pos < cache_len
-  if window > 0:
-    valid &= pos > cache_len - 1 - window
-  scores = torch.where(valid, scores,
-                       torch.full((), _NEG_INF, device=q.device))
-  p = torch.softmax(scores, dim=-1)
-  o = einsum("bhgk,bkhd->bhgd", p.to(v.dtype), v)
-  return o.reshape(b, h, v.shape[-1]), scores
 
 
 def _decode_attention_sharded(q, k_cache: DTensor, v_cache: DTensor,
@@ -214,9 +216,10 @@ def _decode_attention_sharded(q, k_cache: DTensor, v_cache: DTensor,
   are: batch over the mesh dims that split the caches' batch, heads where
   they split the kv heads (q's heads alike), and the positions where they
   split the sequence.  There each rank attends over its positions
-  (``_decode_block``) and the blocks' outputs are combined by their
-  softmax mass, exp(m_i - m) l_i, through a max and a sum over those mesh
-  dims (FlashDecoding's combine); one block's weight is 1."""
+  (``decode_block``, the kernel on CUDA blocks) and the blocks' outputs
+  are combined by their rows' log-sum-exp, with weights exp(lse_i - lse)
+  (FlashDecoding's combine) through a max and a sum over those mesh dims;
+  one block's weight is 1, a block with no valid position weighs 0."""
   mesh = k_cache.device_mesh
   pl = k_cache.placements
   qp = tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
@@ -226,26 +229,27 @@ def _decode_attention_sharded(q, k_cache: DTensor, v_cache: DTensor,
   ql = _local.to_placements(q, qp).to_local()
   vl = v_cache.to_local()
   lo, _ = _local.shard_range(k_cache, 1)
-  o, scores = _decode_block(ql, k_cache.to_local(), vl, lo, cache_len,
+  o, lse = _da.decode_block(ql, k_cache.to_local(), vl, lo, cache_len,
                             window, softcap)
   seq = [i for i, p in enumerate(pl) if p == Shard(1)]
   if not seq:
     return _local.wrap(o, mesh, qp)
+  return _local.wrap(combine_blocks(
+      o, lse, lambda local, op: _local.to_placements(
+          _local.wrap(local, mesh, [Partial(op) if i in seq else p
+                                    for i, p in enumerate(qp)]),
+          qp).to_local()), mesh, qp)
 
-  def combined(local, op):
-    t = _local.wrap(local, mesh, [Partial(op) if i in seq else p
-                                  for i, p in enumerate(qp)])
-    return _local.to_placements(t, qp).to_local()
 
-  b, h, _ = o.shape
-  m = torch.amax(scores, dim=-1)                       # (B, Hkv, G)
-  m_all = combined(m, "max")
-  mass = torch.sum(torch.exp(scores - m[..., None]), dim=-1) * torch.exp(
-      m - m_all)
-  total = combined(mass, "sum")
-  weight = (mass / total).reshape(b, h, 1)
-  o = combined(o.to(torch.float32) * weight, "sum").to(vl.dtype)
-  return _local.wrap(o, mesh, qp)
+def combine_blocks(o: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
+  """One rank's block output o (B,H,Dv) with its rows' lse (B,H), combined
+  with the other blocks' by ``reduce(local, "max" | "sum")`` (the
+  reduction over the blocks): sum_i exp(lse_i - m) o_i / sum_i exp(lse_i -
+  m), m the largest lse; in f32, returned in o's dtype."""
+  m = reduce(lse, "max")
+  mass = torch.exp(lse - m)                  # 0 for a block with lse -inf
+  weight = (mass / reduce(mass, "sum"))[..., None]
+  return reduce(o.to(torch.float32) * weight, "sum").to(o.dtype)
 
 
 def attn_init(cfg, gen: torch.Generator, dtype, device) -> Params:

@@ -19,7 +19,10 @@ before its process ends; the test process itself never starts one).  Here
   and the projection by rows; decode attention over caches split by
   positions (FlashDecoding's combine) or by heads, with and without a
   window and a soft-cap; each equal to the call on the whole tensors
-  within the f32 contract.
+  within the f32 contract;
+* without processes: the blocks' log-sum-exp combine that the sequence
+  split uses (``layers.combine_blocks``), on blocks stacked on one axis,
+  equal to the call on the whole cache.
 """
 
 from __future__ import annotations
@@ -177,3 +180,38 @@ def _kernels_worker(rank):
 
 def test_kernel_wrappers_on_local_blocks():
   _run(_kernels_worker)
+
+
+@pytest.mark.parametrize("cuts,window,softcap",
+                         [((7,), 0, 0.0), ((12,), 0, 0.0), ((3, 9), 4, 5.0),
+                          ((2, 5, 11), 4, 0.0), ((16,), 6, 0.0)])
+def test_lse_combine_of_blocks_is_the_one_block_result(cuts, window,
+                                                       softcap):
+  """FlashDecoding's combine as the sharded path runs it
+  (``layers.combine_blocks``), with the blocks of a cache split by
+  positions stacked on a leading axis for the reduction: each block's
+  (o, lse) from ``decode_block`` at its offset, combined, equals the call
+  on the whole cache (blocks past ``cache_len`` or before the window, lse
+  -inf, weigh 0)."""
+  from repro_torch.kernels import decode_attention as da
+  from repro_torch.models.layers import combine_blocks
+
+  g = torch.Generator().manual_seed(11)
+  q = torch.randn(3, 8, 16, generator=g)
+  k, v = (torch.randn(3, 24, 2, 16, generator=g) for _ in range(2))
+  cache_len = 14
+  want, want_lse = da.decode_block(q, k, v, 0, cache_len, window, softcap)
+  bounds = (0,) + cuts + (24,)
+  blocks = [da.decode_block(q, k[:, a:e], v[:, a:e], a, cache_len, window,
+                            softcap) for a, e in zip(bounds, bounds[1:])]
+  o = torch.stack([b[0] for b in blocks])
+  lse = torch.stack([b[1] for b in blocks])
+
+  def reduce(x, op):
+    r = x.amax(0, keepdim=True) if op == "max" else x.sum(0, keepdim=True)
+    return r.expand_as(x)
+
+  got = combine_blocks(o, lse, reduce)
+  for i in range(len(blocks)):
+    _close(got[i], want, f"block {i} of {bounds}")
+  _close(torch.logsumexp(lse, 0), want_lse, f"lse over {bounds}")

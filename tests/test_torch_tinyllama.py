@@ -217,4 +217,5 @@ def test_chip_smoke_entries_agree_with_the_config():
   trimmed = dataclasses.replace(cfg, loss_trim_fraction=0.1)
   assert cs.train_launches_per_step(trimmed) == {
       "pav_l2": 4, "pav_kl": 0, "soft_topk_gates": 0,
-      "flash_attention": 22 * 4 * 2, "flash_attention_simt": 0}
+      "flash_attention": 22 * 4 * 2, "flash_attention_simt": 0,
+      "decode_attention": 0}
